@@ -1,0 +1,3 @@
+"""Architecture configs. Importing this package registers every ported
+arch with the model registry (``repro_torch.models.registry.get_arch``)."""
+from . import paper_llama  # noqa: F401

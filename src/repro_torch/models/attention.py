@@ -1,0 +1,164 @@
+"""GQA attention with RoPE and a bf16 KV cache. Port of the GQA part of
+``repro/models/attention.py`` (MLA, cross attention and the int8 KV cache
+come with later slices).
+
+Prefill/train attention runs :func:`flash_attention`, the wrapper in
+``kernels/flash_attention.py``: the Hopper kernel on CUDA tensors, its
+plain version on CPU tensors. Decode attends one new token per slot over
+the cache with :func:`decode_attention`.
+
+The KV cache is updated in place (the reference returns a new cache):
+it is the largest serving tensor after the weights, and each write is
+idempotent for its position, so a retried step rewrites the same values.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.nn import spec as S
+from .common import Linear, linear
+from .config import ModelConfig
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float):
+    """positions (...,) -> cos/sin (..., dim/2) f32."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=positions.device) / dim))
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, D); cos/sin (S, D/2) or (B, S, D/2)."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    if cos.ndim == 2:  # (S, D/2) -> broadcast over batch/heads
+        c, s = cos[None, :, None, :], sin[None, :, None, :]
+    else:  # (B, S, D/2)
+        c, s = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(x.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,        # (B, 1, Hq, D)
+    k_cache: torch.Tensor,  # (B, Smax, Hkv, D)
+    v_cache: torch.Tensor,  # (B, Smax, Hkv, Dv)
+    length,                 # () or (B,) — valid prefix incl. the new token
+    *,
+    window: int | None = None,
+    softmax_scale: float | None = None,
+) -> torch.Tensor:
+    """Single-step attention over the KV cache."""
+    B, Smax, Hkv, D = k_cache.shape
+    Dv = v_cache.shape[-1]
+    Hq = q.shape[2]
+    G = Hq // Hkv
+    scale = softmax_scale or (1.0 / math.sqrt(D))
+    qg = q.reshape(B, Hkv, G, D).float() * scale
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float())
+    pos = torch.arange(Smax, device=q.device)
+    lens = torch.as_tensor(length, device=q.device).reshape(-1, 1)
+    mask = pos[None, :] < lens
+    if window is not None:
+        mask &= pos[None, :] > lens - 1 - window
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    return out.reshape(B, 1, Hq, Dv)
+
+
+# ---------------------------------------------------------------------------
+# GQA / MQA attention module
+# ---------------------------------------------------------------------------
+
+
+def gqa_specs(cfg: ModelConfig, recipe, base: str) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
+    dt = cfg.activation_dtype
+    return {
+        "q": linear(recipe, f"{base}/q", d, Hq * hd, bias=cfg.qkv_bias,
+                    dtype=dt),
+        "k": linear(recipe, f"{base}/k", d, Hkv * hd, bias=cfg.qkv_bias,
+                    dtype=dt),
+        "v": linear(recipe, f"{base}/v", d, Hkv * hd, bias=cfg.qkv_bias,
+                    dtype=dt),
+        "o": linear(recipe, f"{base}/o", Hq * hd, d, dtype=dt),
+    }
+
+
+def gqa_cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    dt = cfg.activation_dtype
+    return {"k": S.zeros(shape, dtype=dt), "v": S.zeros(shape, dtype=dt)}
+
+
+def _is_vec_pos(pos) -> bool:
+    return isinstance(pos, torch.Tensor) and pos.ndim == 1
+
+
+def _cache_write(cache_arr: torch.Tensor, val: torch.Tensor, pos) -> None:
+    """Write (B, S_new, ...) at offset ``pos`` in place — a scalar offset
+    (aligned batch) or a per-slot (B,) vector (S_new must be 1)."""
+    if _is_vec_pos(pos):
+        b = torch.arange(val.shape[0], device=val.device)
+        cache_arr[b, pos] = val[:, 0].to(cache_arr.dtype)
+    else:
+        p = int(pos)
+        cache_arr[:, p:p + val.shape[1]] = val.to(cache_arr.dtype)
+
+
+def _store_kv(cache: dict, k, v, pos) -> dict:
+    """Write new k/v (B, S_new, Hkv, D) into the cache at offset pos."""
+    _cache_write(cache["k"], k, pos)
+    _cache_write(cache["v"], v, pos)
+    return cache
+
+
+class GQAttention(nn.Module):
+    def __init__(self, cfg: ModelConfig, params: dict, recipe, base: str):
+        super().__init__()
+        self.cfg = cfg
+        for name in ("q", "k", "v", "o"):
+            setattr(self, name, Linear(recipe, f"{base}/{name}",
+                                       params[name]))
+
+    def forward(self, x: torch.Tensor, *, mode: str = "train",
+                cache: dict | None = None, pos=0, window: int | None = None):
+        cfg = self.cfg
+        B, Sq, _ = x.shape
+        hd, Hq, Hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+        q = self.q(x).reshape(B, Sq, Hq, hd)
+        k = self.k(x).reshape(B, Sq, Hkv, hd)
+        v = self.v(x).reshape(B, Sq, Hkv, hd)
+
+        steps = torch.arange(Sq, device=x.device)
+        positions = pos[:, None] + steps[None, :] if _is_vec_pos(pos) \
+            else pos + steps
+        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+        if mode == "decode":
+            cache = _store_kv(cache, k, v, pos)
+            out = decode_attention(q, cache["k"], cache["v"], pos + Sq,
+                                   window=window).to(x.dtype)
+        else:
+            if cache is not None:  # prefill: also populate the cache
+                cache = _store_kv(cache, k, v, pos)
+            out = flash_attention(q, k, v, causal=True,
+                                  window=window).to(x.dtype)
+
+        y = self.o(out.reshape(B, Sq, Hq * hd))
+        return y, cache
