@@ -8,35 +8,47 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
-2. Build every kernel of the path from ``src/repro_torch/csrc`` (one nvcc
-   per source, started together) and print the build time.
+2. Build every kernel from ``src/repro_torch/csrc`` (one nvcc per source,
+   started together) and print the build time and ptxas register counts.
 3. Hold each kernel against its plain PyTorch version on the card at the
-   main-path shapes of LLaMA-2-7B (W4A8 g128: decode M 1..4 and prefill
-   M 128 for (K, N) in (4096, 4096), (4096, 11008), (11008, 4096);
-   flash attention at 128 tokens, 32 heads of 128) and time kernel,
-   plain version and, where one exists, a single PyTorch library call.
-   Each is timed as a CUDA graph of back-to-back calls, replayed between
-   CUDA events, so the host cannot pace a microsecond kernel. act_quant
-   and the IS GEMM must be bit-exact; flash attention must be within
-   ``TOLERANCE`` (bf16 output).
+   main-path shapes of LLaMA-2-7B (g128: decode M 1..4 and prefill M 128
+   for (K, N) in (4096, 4096), (4096, 11008), (11008, 4096); flash
+   attention at 128 tokens, 32 heads of 128) and time kernel, plain
+   version, a single PyTorch library call where one computes the same
+   function, and one bf16 ``torch.matmul`` of x by a bf16 (K, N) weight
+   (the FP16 baseline the paper's speedups are measured against). Each
+   is timed as a CUDA graph of back-to-back calls, replayed between CUDA
+   events, so the host cannot pace a microsecond kernel; GEMM weights
+   rotate over copies past 128 MB, so each launch reads them from device
+   memory. act_quant, the IS GEMM (W4 and W8) and the coarse FS GEMM must
+   be bit-exact; the fine FS GEMM (W4 at every shape, W8 at one decode
+   shape) within rtol 1e-5 / atol 1e-4; W4A16 within ``REL_TOLERANCE`` x
+   max|y|; flash attention within ``TOLERANCE`` (bf16 output).
 4. Build ``llama2-7b`` at its full published widths (32 layers) in bf16
-   from a seeded generator on the card and RTN-quantize every linear with
-   W4A8, g=128, Integer Scale, alpha=1024.
-5. Serve 8 seeded prompts (lengths 16..128) through ``Engine.submit`` /
-   ``Engine.run`` with 4 slots, prefill_len 128, max_seq 256 and 32 new
-   tokens; the weights are on the card, so every quantized linear and
-   every prefill attention launches its kernel. Every outcome must be
-   ``ok`` and every kernel's launch count (zeroed just before the run)
-   must be > 0. Then one prompt: the full model's logits on the card
-   must give the engine's first token, and the first layers, copied to
-   the CPU where every wrapper takes its plain version, must agree with
-   the same layers on the card within a stated bound. Last, one batched
-   decode step is timed eagerly and as a replayed CUDA graph: the
-   difference is the host's share of a decode tick.
-6. Print the ``kernels`` JSON line, then the result line
+   from a seeded generator on the card, and RTN-quantize it under four
+   recipes: W4A8 IS g128 alpha=1024 (the paper's), W4A8 FS g128 (Eq. 1),
+   W4A8 per-channel (coarse, the OdysseyLLM baseline) and W4A16 g128 (the
+   Marlin analog). Then free the fp weights.
+5. Serve 8 seeded prompts (lengths 16..128) with each recipe through
+   ``Engine.submit`` / ``Engine.run`` with 4 slots, prefill_len 128,
+   max_seq 256 and 32 new tokens. For each: every outcome ``ok``; the
+   kernels the recipe runs launched (> 0) and the others did not (== 0),
+   counted from 0 just before the run; the engine's first token for
+   prompt 0 is the argmax of that model's logits. For IS the first
+   layers, copied to the CPU where every wrapper takes its plain version,
+   must also agree with the same layers on the card within a stated
+   bound. One 4-slot decode step is timed eagerly and as a replayed CUDA
+   graph (the difference is the host's share of a decode tick).
+6. Breaker drill: serve the IS weights with the FS weights as the
+   circuit breaker's fallback (threshold 2) while a ``ChaosMonkey``
+   fails the decode at tick 3 twice; the engine must fall back once and
+   serve every request ``ok`` through ``w4a8_gemm_fs``.
+7. Profile one IS decode step under ``obs.trace_window`` and print the
+   eight device kernels with the most CUDA time.
+8. Print the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
-Per-shape numbers also go to ``build/chip_smoke.json``.
+Per-shape and per-recipe numbers also go to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -59,10 +71,14 @@ F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 GEMM_KN = ((4096, 4096), (4096, 11008), (11008, 4096))
 DECODE_M = (1, 2, 3, 4)
 PREFILL_M = 128
+TIMED_M = (4, PREFILL_M)
+GROUP = 128
 # rotate weight copies so the timed launches read them from device memory,
 # as the serving path does (the 50 MB L2 cannot hold a layer's weights
 # across a decode tick of 32 layers)
 ROTATE_BYTES = 128 << 20
+# fine float scale: f32 group sums in another order than torch.sum
+FS_RTOL, FS_ATOL = 1e-5, 1e-4
 # logits of the first layers on the CPU (every wrapper's plain version)
 # vs the same layers on the card (the kernels), relative to the largest
 # logit: flash and plain attention differ by a bf16 ulp, and the CPU's
@@ -71,6 +87,12 @@ ROTATE_BYTES = 128 << 20
 # several percent of the logits, so the check stops after two layers
 PLAIN_CHECK_LAYERS = 2
 PLAIN_LOGIT_REL_TOL = 5e-2
+KERNELS_OF = {  # recipe -> kernels its serve must launch; the rest must not
+    "w4a8-is": {"act_quant", "w4a8_gemm_is", "flash_attention"},
+    "w4a8-fs": {"act_quant", "w4a8_gemm_fs", "flash_attention"},
+    "w4a8-coarse": {"act_quant", "w4a8_gemm_fs", "flash_attention"},
+    "w4a16-fg": {"w4a16_gemm", "flash_attention"},
+}
 
 
 def log(*a):
@@ -108,9 +130,11 @@ def time_ms(fn, args_list, iters=30, reps=5):
     return ms
 
 
-def bound(bytes_moved: float, ops: float, ops_rate: float):
+def bound(bytes_moved: float, *ops: tuple[float, float]):
+    """(ms, "bytes" | "operations"): the larger of the bytes over the
+    memory rate and each (operations, peak rate of their type) pair."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_rate * 1e3
+    t_ops = max(n / rate * 1e3 for n, rate in ops)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -131,80 +155,171 @@ def check_act_quant(gen, rows):
             err = max(err, e)
             if not (torch.equal(qk, qp) and torch.equal(sk, sp)):
                 raise AssertionError(f"act_quant ({M},{K}) not bit-exact: {e}")
-            if M in (4, PREFILL_M):
+            if M in TIMED_M:
                 ms = time_ms(lambda a: act_quant(a), [(x,)])
                 plain = time_ms(lambda a: act_quant_plain(a), [(x,)])
-                b, by = bound(M * K * 2 + M * K + M * 4, 2 * M * K,
-                              F32_FLOPS_PER_S)
-                rows.append(dict(kernel="act_quant", shape=[M, K], ms=ms,
-                                 plain_ms=plain, bound_ms=b, bound_by=by,
-                                 library_ms=None))
+                b, by = bound(M * K * 2 + M * K + M * 4,
+                              (2 * M * K, F32_FLOPS_PER_S))
+                rows.append(dict(kernel="act_quant", variant="", shape=[M, K],
+                                 ms=ms, plain_ms=plain, bound_ms=b,
+                                 bound_by=by, library_ms=None,
+                                 bf16_matmul_ms=None))
     return err
 
 
-def _gemm_operands(gen, M, K, N, w_bits=4, amplifier=1024, copies=1):
+def weight_sets(gen, K, N, copies, w_bits=4):
+    """``copies`` random (K, N) layers, each RTN-quantized four ways: g128
+    packed codes with f32 scales (FS, W4A16) and with integer scales (IS),
+    per-channel (coarse FS), and the W4A16-dequantized bf16 weight (the
+    bf16 matmul's operand)."""
     import torch
     from repro_torch.core import integer_scale as isc
     from repro_torch.core import packing, quant
-    from repro_torch.kernels.act_quant import act_quant_plain
 
-    x = torch.randn((M, K), generator=gen, device="cuda")
-    xq, sa = act_quant_plain(x)
+    def pack(q):
+        return packing.pack_int4(q) if w_bits == 4 else q
+
     out = []
     for _ in range(copies):
         w = torch.randn((K, N), generator=gen, device="cuda") / math.sqrt(K)
-        qw = quant.quantize_weight(w, w_bits, 128)
-        isw = isc.integerize(qw, amplifier)
-        qv = packing.pack_int4(qw.qvalue) if w_bits == 4 else qw.qvalue
-        out.append((xq, sa, qv, isw.int_scale, float(isw.alpha)))
-        del w, qw
+        qw = quant.quantize_weight(w, w_bits, GROUP)
+        isw = isc.integerize(qw, 1024 if w_bits == 4 else "heuristic+6")
+        qc = quant.quantize_weight(w, w_bits, -1)
+        wd = (qw.qvalue.reshape(K // GROUP, GROUP, N).float()
+              * qw.scale[:, None, :]).reshape(K, N).to(torch.bfloat16)
+        out.append(dict(packed=pack(qw.qvalue), scale=qw.scale,
+                        int_scale=isw.int_scale, alpha=float(isw.alpha),
+                        packed_c=pack(qc.qvalue), scale_c=qc.scale[None, :],
+                        wd=wd))
+        del w, qw, qc
     return out
 
 
-def check_gemm(gen, rows):
+def _check(name, shape, y, y_plain, how):
+    """Max abs diff of a kernel's output against its plain version on the
+    same inputs; raises unless it meets ``how`` ("exact", "fs" or a
+    relative bound)."""
     import torch
+
+    torch.cuda.synchronize()
+    e = (y - y_plain).abs().max().item()
+    if how == "exact":
+        ok = torch.equal(y, y_plain)
+    elif how == "fs":
+        ok = bool(((y - y_plain).abs()
+                   <= FS_ATOL + FS_RTOL * y_plain.abs()).all())
+    else:
+        ok = e <= how * y_plain.abs().max().item()
+    if not ok:
+        raise AssertionError(f"{name} {shape}: kernel vs plain max abs "
+                             f"{e} outside its tolerance ({how})")
+    return e
+
+
+def check_gemms(gen, rows):
+    """IS, FS (fine and coarse) and W4A16 GEMMs against their plain
+    versions at every main-path shape; timed at M = 4 and 128."""
+    import torch
+    from repro_torch.kernels.act_quant import act_quant_plain
+    from repro_torch.kernels.w4a16_gemm import (REL_TOLERANCE, w4a16_gemm,
+                                                w4a16_gemm_plain)
     from repro_torch.kernels.w4a8_gemm import (fg_gemm_integer_scale,
                                                fg_gemm_integer_scale_plain)
+    from repro_torch.kernels.w4a8_gemm_fscale import (
+        fg_gemm_float_scale, fg_gemm_float_scale_plain)
 
-    def kern(xq, sa, qv, s, a, w_bits=4):
-        return fg_gemm_integer_scale(xq, sa, qv, s, group_size=128, alpha=a,
-                                     w_bits=w_bits)
+    gemms = {  # (name, variant) -> (kernel, plain, operands of a set, how)
+        ("w4a8_gemm_is", "fine"): (
+            lambda xq, sa, xb, q, s, a, **kw: fg_gemm_integer_scale(
+                xq, sa, q, s, group_size=GROUP, alpha=a, **kw),
+            lambda xq, sa, xb, q, s, a, **kw: fg_gemm_integer_scale_plain(
+                xq, sa, q, s, group_size=GROUP, alpha=a, **kw),
+            lambda d: (d["packed"], d["int_scale"], d["alpha"]), "exact"),
+        ("w4a8_gemm_fs", "fine"): (
+            lambda xq, sa, xb, q, s, **kw: fg_gemm_float_scale(
+                xq, sa, q, s, group_size=GROUP, **kw),
+            lambda xq, sa, xb, q, s, **kw: fg_gemm_float_scale_plain(
+                xq, sa, q, s, group_size=GROUP, **kw),
+            lambda d: (d["packed"], d["scale"]), "fs"),
+        ("w4a8_gemm_fs", "coarse"): (
+            lambda xq, sa, xb, q, s: fg_gemm_float_scale(
+                xq, sa, q, s, group_size=-1),
+            lambda xq, sa, xb, q, s: fg_gemm_float_scale_plain(
+                xq, sa, q, s, group_size=-1),
+            lambda d: (d["packed_c"], d["scale_c"]), "exact"),
+        ("w4a16_gemm", "fine"): (
+            lambda xq, sa, xb, q, s: w4a16_gemm(xb, q, s, group_size=GROUP),
+            lambda xq, sa, xb, q, s: w4a16_gemm_plain(xb, q, s,
+                                                      group_size=GROUP),
+            lambda d: (d["packed"], d["scale"]), REL_TOLERANCE),
+    }
+    errs: dict[str, float] = {}
 
-    def plain(xq, sa, qv, s, a, w_bits=4):
-        return fg_gemm_integer_scale_plain(xq, sa, qv, s, group_size=128,
-                                           alpha=a, w_bits=w_bits)
+    def matmul(xb, wd):
+        return xb @ wd
 
-    err = 0.0
     for K, N in GEMM_KN:
-        wbytes = K * N // 2 + (K // 128) * N * 4
+        wbytes = K * N // 2 + (K // GROUP) * N * 4
         copies = max(1, math.ceil(ROTATE_BYTES / wbytes))
-        sets = _gemm_operands(gen, PREFILL_M, K, N, copies=copies)
+        sets = weight_sets(gen, K, N, copies)
+        x = torch.randn((PREFILL_M, K), generator=gen, device="cuda")
+        xq_all, sa_all = act_quant_plain(x)
+        xb_all = x.to(torch.bfloat16)
         for M in (*DECODE_M, PREFILL_M):
-            args = [(xq[:M].contiguous(), sa[:M].contiguous(), qv, s, a)
-                    for xq, sa, qv, s, a in sets]
-            yk, yp = kern(*args[0]), plain(*args[0])
-            torch.cuda.synchronize()
-            e = (yk - yp).abs().max().item()
-            err = max(err, e)
-            if not torch.equal(yk, yp):
-                raise AssertionError(f"IS GEMM ({M},{K},{N}) not bit-exact: {e}")
-            if M in (4, PREFILL_M):
-                ms = time_ms(kern, args)
-                pms = time_ms(plain, args[:2], iters=3, reps=3)
-                b, by = bound(M * K + M * 4 + wbytes + M * N * 4,
-                              2 * M * K * N, INT8_OPS_PER_S)
-                rows.append(dict(kernel="w4a8_gemm_is", shape=[M, K, N],
-                                 ms=ms, plain_ms=pms, bound_ms=b, bound_by=by,
-                                 library_ms=None, copies=copies))
-        del sets
-    # W8A8 (unpacked int8 weights) through the same kernel
-    xq, sa, qv, s, a = _gemm_operands(gen, 4, 4096, 4096, w_bits=8,
-                                      amplifier="heuristic+6")[0]
-    yk, yp = kern(xq, sa, qv, s, a, 8), plain(xq, sa, qv, s, a, 8)
-    torch.cuda.synchronize()
-    if not torch.equal(yk, yp):
-        raise AssertionError("W8 IS GEMM not bit-exact")
-    return err
+            xs = (xq_all[:M].contiguous(), sa_all[:M].contiguous(),
+                  xb_all[:M].contiguous())
+            mm = None
+            if M in TIMED_M:
+                mm = time_ms(matmul, [(xs[2], d["wd"]) for d in sets])
+            for (name, variant), (kern, plain, opnds, how) in gemms.items():
+                args = [(*xs, *opnds(d)) for d in sets]
+                e = _check(f"{name} {variant}", [M, K, N], kern(*args[0]),
+                           plain(*args[0]), how)
+                errs[name] = max(errs.get(name, 0.0), e)
+                if M not in TIMED_M:
+                    continue
+                scale_bytes = (K // GROUP if variant == "fine" else 1) * N * 4
+                w4 = K * N // 2 + scale_bytes + M * N * 4
+                if name == "w4a16_gemm":
+                    b, by = bound(M * K * 2 + w4,
+                                  (2 * M * K * N, BF16_FLOPS_PER_S))
+                else:
+                    b, by = bound(M * K + M * 4 + w4,
+                                  (2 * M * K * N, INT8_OPS_PER_S))
+                rows.append(dict(
+                    kernel=name, variant=variant, shape=[M, K, N],
+                    ms=time_ms(kern, args),
+                    plain_ms=time_ms(plain, args[:2], iters=3, reps=3),
+                    bound_ms=b, bound_by=by,
+                    library_ms=mm if name == "w4a16_gemm" else None,
+                    bf16_matmul_ms=mm, copies=copies))
+        del sets, x, xq_all, sa_all, xb_all
+        torch.cuda.empty_cache()
+
+    # W8A8 (unpacked int8 weights) through the IS and FS kernels, at one
+    # decode shape
+    M, K, N = 4, 4096, 4096
+    copies = max(1, math.ceil(ROTATE_BYTES / (K * N + (K // GROUP) * N * 4)))
+    sets = weight_sets(gen, K, N, copies, w_bits=8)
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    xs = (*act_quant_plain(x), x.to(torch.bfloat16))
+    mm = time_ms(matmul, [(xs[2], d["wd"]) for d in sets])
+    for name in ("w4a8_gemm_is", "w4a8_gemm_fs"):
+        kern, plain, opnds, how = gemms[(name, "fine")]
+        args = [(*xs, *opnds(d)) for d in sets]
+        e = _check(f"{name} w8", [M, K, N], kern(*args[0], w_bits=8),
+                   plain(*args[0], w_bits=8), how)
+        errs[name] = max(errs[name], e)
+        b, by = bound(M * K + M * 4 + K * N + (K // GROUP) * N * 4 + M * N * 4,
+                      (2 * M * K * N, INT8_OPS_PER_S))
+        rows.append(dict(
+            kernel=name, variant="w8", shape=[M, K, N],
+            ms=time_ms(lambda *a: kern(*a, w_bits=8), args),
+            plain_ms=time_ms(lambda *a: plain(*a, w_bits=8), args[:2],
+                             iters=3, reps=3),
+            bound_ms=b, bound_by=by, library_ms=None, bf16_matmul_ms=mm,
+            copies=copies))
+    return errs
 
 
 def check_flash(gen, rows):
@@ -236,16 +351,20 @@ def check_flash(gen, rows):
             lib = time_ms(lambda *a: F.scaled_dot_product_attention(
                 *a, is_causal=True), [(qt, kt, vt)])
             pairs = S * (S + 1) // 2
-            b, by = bound(4 * B * S * Hq * D * 2, 4 * B * Hq * pairs * D,
-                          BF16_FLOPS_PER_S)
-            rows.append(dict(kernel="flash_attention",
+            b, by = bound(4 * B * S * Hq * D * 2,
+                          (4 * B * Hq * pairs * D, BF16_FLOPS_PER_S))
+            rows.append(dict(kernel="flash_attention", variant="",
                              shape=[B, S, Hq, D], ms=ms, plain_ms=pms,
-                             bound_ms=b, bound_by=by, library_ms=lib))
+                             bound_ms=b, bound_by=by, library_ms=lib,
+                             bf16_matmul_ms=None))
     return err
 
 
-def build_model(api, cfg, recipe):
+def build_models(api, cfg, recipes):
+    """Random bf16 weights at full width, quantized under each recipe;
+    the fp weights are freed before returning."""
     import torch
+    from repro_torch import obs
     from repro_torch.core import ptq
     from repro_torch.nn import spec as S
 
@@ -253,23 +372,36 @@ def build_model(api, cfg, recipe):
     t0 = time.perf_counter()
     fp = S.materialize(api.param_specs(cfg, None), gen, device="cuda")
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    qparams = ptq.post_training_quantize(api, cfg, fp, recipe)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    del fp
-    torch.cuda.empty_cache()
-    qbytes = sum(t.numel() * t.element_size()
-                 for blk in qparams["blocks"] for t in _leaves(blk))
-    allbytes = qbytes + sum(t.numel() * t.element_size()
-                            for k, v in qparams.items() if k != "blocks"
-                            for t in _leaves(v))
     log(f"[model] {cfg.name}: {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; random bf16 "
-        f"weights {t1 - t0:.2f} s, RTN W4A8-IS g128 quantize {t2 - t1:.2f} s")
-    log(f"[model] quantized linears {qbytes / 1e9:.3f} GB, all weights "
-        f"{allbytes / 1e9:.3f} GB")
-    return qparams
+        f"weights {time.perf_counter() - t0:.2f} s")
+    out = {}
+    for recipe in recipes:
+        reg = obs.Registry()
+        t0 = time.perf_counter()
+        with obs.use_registry(reg):
+            qparams = ptq.post_training_quantize(api, cfg, fp, recipe)
+        torch.cuda.synchronize()
+        qbytes = sum(t.numel() * t.element_size()
+                     for blk in qparams["blocks"] for t in S.leaves(blk))
+        caps = reg.counter("alpha_cap_events_total").total()
+        log(f"[model] {recipe.name}: RTN quantize {time.perf_counter() - t0:.2f}"
+            f" s, quantized blocks {qbytes / 1e9:.3f} GB, alpha caps {caps:g}")
+        out[recipe.name] = qparams
+    del fp
+    torch.cuda.empty_cache()
+    return out
+
+
+def _decode_inputs(api, cfg, sc):
+    import torch
+    from repro_torch.nn import spec as S
+
+    B = sc.max_slots
+    cache = S.materialize(api.cache_specs(cfg, B, sc.max_seq), device="cuda")
+    toks = torch.zeros((B, 1), dtype=torch.int64, device="cuda")
+    pos = torch.full((B,), 100, dtype=torch.int64, device="cuda")
+    return cache, toks, pos
 
 
 def time_decode_step(api, cfg, model, sc, reps=5):
@@ -278,13 +410,8 @@ def time_decode_step(api, cfg, model, sc, reps=5):
     and replayed. The graph's time is the device's; the difference is the
     host time the eager step adds."""
     import torch
-    from repro_torch.nn import spec as S
 
-    B = sc.max_slots
-    cache = S.materialize(api.cache_specs(cfg, B, sc.max_seq),
-                          device="cuda")
-    toks = torch.zeros((B, 1), dtype=torch.int64, device="cuda")
-    pos = torch.full((B,), 100, dtype=torch.int64, device="cuda")
+    cache, toks, pos = _decode_inputs(api, cfg, sc)
 
     def step():
         return model(toks, mode="decode", cache=cache, pos=pos)[0]
@@ -321,10 +448,81 @@ def time_decode_step(api, cfg, model, sc, reps=5):
     return eager, replay
 
 
-def _leaves(tree):
-    from repro_torch.nn import spec as S
+def profile_decode_step(api, cfg, model, sc, top=8):
+    """One decode step under ``obs.trace_window``: the ``top`` device
+    kernels by CUDA time, and the step's total device time (ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch import obs
 
-    return S.leaves(tree)
+    cache, toks, pos = _decode_inputs(api, cfg, sc)
+    with torch.inference_mode():
+        model(toks, mode="decode", cache=cache, pos=pos)  # warm
+        torch.cuda.synchronize()
+        with obs.trace_window(str(ROOT / "build" / "profile")) as prof:
+            model(toks, mode="decode", cache=cache, pos=pos)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device kernels")
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    del cache
+    return total, [dict(name=e.key[:120], count=e.count,
+                        ms=e.self_device_time_total / 1e3) for e in ranked]
+
+
+def serve_recipe(api, cfg, qparams, recipe, sc, prompts, *, drill=False,
+                 fallback=None):
+    """Serve ``prompts``; return (engine, outputs, launches, registry,
+    wall seconds). ``drill`` arms the breaker drill (fallback weights,
+    threshold 2, two injected decode failures at tick 3)."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.kernels import _build
+    from repro_torch.serving.chaos import ChaosConfig, ChaosMonkey, KernelFault
+    from repro_torch.serving.engine import Engine
+
+    reg = obs.Registry()
+    with obs.use_registry(reg):
+        if drill:
+            fb_params, fb_recipe = fallback
+            eng = Engine(api, cfg, qparams,
+                         dataclasses.replace(sc, breaker_threshold=2),
+                         recipe=recipe, fallback_params=fb_params,
+                         fallback_recipe=fb_recipe)
+            ChaosMonkey(ChaosConfig(kernel_failures=(
+                KernelFault(tick=3, count=2),))).install(eng)
+        else:
+            eng = Engine(api, cfg, qparams, sc, recipe=recipe)
+        rids = [eng.submit(p) for p in prompts]
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        outs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    bad = {r: eng.outcome(r) for r in rids if eng.outcome(r) != "ok"}
+    if bad:
+        raise AssertionError(f"{recipe.name}: requests not ok: {bad}")
+    if any(len(outs[r]) != sc.max_new_tokens for r in rids):
+        raise AssertionError(f"{recipe.name}: a request did not generate "
+                             "max_new_tokens")
+    if not all(0 <= t < cfg.vocab_size for r in rids for t in outs[r]):
+        raise AssertionError(f"{recipe.name}: token id out of range")
+    return eng, [outs[r] for r in rids], launches, reg, wall
+
+
+def check_launches(tag, launches, must):
+    missing = sorted(k for k in must if launches[k] <= 0)
+    extra = sorted(k for k, n in launches.items() if k not in must and n)
+    if missing or extra:
+        raise AssertionError(f"{tag}: kernels that should have launched and "
+                             f"did not: {missing}; launched and should not "
+                             f"have: {extra}")
 
 
 def main() -> int:
@@ -335,15 +533,17 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on a GPU", file=sys.stderr)
         return 2
-    from repro_torch import obs
-    from repro_torch.core.recipe import DEFAULT_RECIPE
+    from repro_torch.core.recipe import (DEFAULT_RECIPE, FLOAT_SCALE_RECIPE,
+                                         W4A8_COARSE, WEIGHT_ONLY_RECIPE,
+                                         QuantRecipe)
     from repro_torch.kernels import _build
     from repro_torch.models.registry import get_arch, get_model
     from repro_torch.nn import spec as S
-    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.serving.engine import ServeConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # -- 1. the card -----------------------------------------------------------
     smi = subprocess.run(
@@ -369,101 +569,143 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows: list[dict] = []
     errs = {"act_quant": check_act_quant(gen, rows),
-            "w4a8_gemm_is": check_gemm(gen, rows),
+            **check_gemms(gen, rows),
             "flash_attention": check_flash(gen, rows)}
-    for r in rows:
-        lib = r["library_ms"]
-        log(f"[kernel] {r['kernel']} {r['shape']}: {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']}), library "
-            + ("-" if lib is None else f"{lib:.4f} ms"))
 
-    # -- 4. llama2-7b at full width, RTN W4A8-IS ----------------------------------
+    def opt(v):
+        return "-" if v is None else f"{v:.4f} ms"
+
+    for r in rows:
+        log(f"[kernel] {r['kernel']} {r['variant']} {r['shape']}: "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library "
+            f"{opt(r['library_ms'])}, bf16 matmul {opt(r['bf16_matmul_ms'])}")
+    log(f"[kernel] max abs diff vs plain: {json.dumps(errs)}")
+
+    # -- 4. llama2-7b at full width under four recipes ---------------------------
     cfg = get_arch("llama2-7b")
     api = get_model(cfg)
-    reg = obs.Registry()
-    with obs.use_registry(reg):
-        qparams = build_model(api, cfg, DEFAULT_RECIPE)
-    caps = reg.counter("alpha_cap_events_total").total()
-    log(f"[model] alpha caps: {caps:g} of "
-        f"{reg.counter('quantized_layers_total', '', ('scheme',)).total():g}"
-        " layers capped below the requested alpha 1024")
+    coarse = QuantRecipe(rules=(("*", W4A8_COARSE),), name="w4a8-coarse")
+    recipes = {r.name: r for r in (DEFAULT_RECIPE, FLOAT_SCALE_RECIPE, coarse,
+                                   WEIGHT_ONLY_RECIPE)}
+    qparams = build_models(api, cfg, recipes.values())
 
-    # -- 5. serve -----------------------------------------------------------------
+    # -- 5. serve each recipe --------------------------------------------------------
     sc = ServeConfig(max_slots=4, prefill_len=128, max_seq=256,
                      max_new_tokens=32)
     rng = np.random.default_rng(0)
     lengths = rng.integers(16, 129, size=8)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
                for n in lengths]
-    reg = obs.Registry()
-    with obs.use_registry(reg):
-        eng = Engine(api, cfg, qparams, sc, recipe=DEFAULT_RECIPE)
-        rids = [eng.submit(p) for p in prompts]
-        torch.cuda.synchronize()
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        outs = eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
-    bad = {r: eng.outcome(r) for r in rids if eng.outcome(r) != "ok"}
-    if bad:
-        raise AssertionError(f"requests not ok: {bad}")
-    if any(len(outs[r]) != sc.max_new_tokens for r in rids):
-        raise AssertionError("a request did not generate max_new_tokens")
-    if not all(0 <= t < cfg.vocab_size for r in rids for t in outs[r]):
-        raise AssertionError("token id out of range")
-    missing = [k for k, n in launches.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
-    ntok = sum(len(outs[r]) for r in rids)
-    phase = reg.histogram("engine_phase_seconds", "", ("phase",))
-    dec = phase.get(phase="decode")
-    pre = phase.get(phase="prefill")
-    ttft = reg.histogram("engine_ttft_seconds").get()
-    log(f"[serve] {len(rids)} requests ok, {ntok} tokens in {wall:.3f} s = "
-        f"{ntok / wall:.1f} tokens/s; {eng.ticks} decode ticks, "
-        f"{dec['sum'] / dec['count'] * 1e3:.2f} ms per tick; prefill "
-        f"{pre['sum'] / pre['count'] * 1e3:.2f} ms each; mean TTFT "
-        f"{ttft['sum'] / ttft['count'] * 1e3:.1f} ms")
-    log(f"[serve] launches during serving: {json.dumps(launches)}")
-
-    # the kernels against the plain versions on the same weights, one prompt
     toks = torch.tensor([prompts[0] + [0] * (128 - len(prompts[0]))],
                         device="cuda")
     n0 = len(prompts[0])
-    cut = dict(qparams, blocks=qparams["blocks"][:PLAIN_CHECK_LAYERS])
-    c2 = dataclasses.replace(cfg, num_layers=PLAIN_CHECK_LAYERS)
-    with torch.inference_mode():
-        lk = api.build(cfg, qparams, DEFAULT_RECIPE)(toks)[0][0, n0 - 1]
-        la = api.build(c2, cut, DEFAULT_RECIPE)(toks)[0][0, n0 - 1]
-        t0 = time.perf_counter()
-        on_cpu = S.tree_map(lambda t: t.cpu(), cut)
-        lp = api.build(c2, on_cpu, DEFAULT_RECIPE)(toks.cpu())[0][0, n0 - 1]
-        cpu_s = time.perf_counter() - t0
-    if not torch.isfinite(lk).all():
-        raise AssertionError("non-finite logits on the kernel path")
-    if outs[rids[0]][0] != int(torch.argmax(lk)):
-        raise AssertionError("the engine's first token for prompt 0 is not "
-                             "the argmax of the model's logits")
-    rel = ((la.cpu() - lp).abs().max() / lp.abs().max()).item()
-    if not rel <= PLAIN_LOGIT_REL_TOL:
-        raise AssertionError(f"kernels vs plain versions, first "
-                             f"{PLAIN_CHECK_LAYERS} layers: logits rel {rel}")
-    log(f"[check] prompt 0: the engine's first token is the argmax of the "
-        f"model's logits; first {PLAIN_CHECK_LAYERS} layers, kernels on the "
-        f"card vs plain versions on the CPU ({cpu_s:.1f} s): logits rel "
-        f"{rel:.2e} (<= {PLAIN_LOGIT_REL_TOL})")
+    launches_total = {k: 0 for k in _build.KERNELS}
+    serve_stats: dict[str, dict] = {}
+    rel = cpu_s = None
+    for name, recipe in recipes.items():
+        eng, outs, launches, reg, wall = serve_recipe(
+            api, cfg, qparams[name], recipe, sc, prompts)
+        check_launches(name, launches, KERNELS_OF[name])
+        for k, n in launches.items():
+            launches_total[k] += n
+        with torch.inference_mode():
+            lk = eng.model(toks)[0][0, n0 - 1]
+        if not torch.isfinite(lk).all():
+            raise AssertionError(f"{name}: non-finite logits")
+        if outs[0][0] != int(torch.argmax(lk)):
+            raise AssertionError(f"{name}: the engine's first token for "
+                                 "prompt 0 is not the argmax of the model's "
+                                 "logits")
+        if name == DEFAULT_RECIPE.name:
+            # the kernels against the plain versions on the same weights
+            cut = dict(qparams[name],
+                       blocks=qparams[name]["blocks"][:PLAIN_CHECK_LAYERS])
+            c2 = dataclasses.replace(cfg, num_layers=PLAIN_CHECK_LAYERS)
+            with torch.inference_mode():
+                la = api.build(c2, cut, recipe)(toks)[0][0, n0 - 1]
+                t0 = time.perf_counter()
+                on_cpu = S.tree_map(lambda t: t.cpu(), cut)
+                lp = api.build(c2, on_cpu, recipe)(toks.cpu())[0][0, n0 - 1]
+                cpu_s = time.perf_counter() - t0
+            rel = ((la.cpu() - lp).abs().max() / lp.abs().max()).item()
+            if not rel <= PLAIN_LOGIT_REL_TOL:
+                raise AssertionError(f"kernels vs plain versions, first "
+                                     f"{PLAIN_CHECK_LAYERS} layers: logits "
+                                     f"rel {rel}")
+            log(f"[check] {name}: first {PLAIN_CHECK_LAYERS} layers, kernels "
+                f"on the card vs plain versions on the CPU ({cpu_s:.1f} s): "
+                f"logits rel {rel:.2e} (<= {PLAIN_LOGIT_REL_TOL})")
+        step_eager, step_graph = time_decode_step(api, cfg, eng.model, sc)
+        ntok = sum(len(o) for o in outs)
+        phase = reg.histogram("engine_phase_seconds", "", ("phase",))
+        dev = reg.histogram("engine_phase_device_seconds", "", ("phase",))
+        ttft = reg.histogram("engine_ttft_seconds").get()
 
-    # one batched decode step: eager (host-paced) vs replayed CUDA graph
-    step_eager, step_graph = time_decode_step(api, cfg, eng.model, sc)
-    log(f"[decode] one 4-slot decode step, {cfg.num_layers} layers: eager "
-        f"{step_eager:.3f} ms, CUDA graph replay {step_graph:.3f} ms; device "
-        f"idle share of the eager step {1 - step_graph / step_eager:.3f}")
+        def mean(h, **lb):
+            st = h.get(**lb)
+            return st["sum"] / st["count"]
 
-    # -- 6. report ----------------------------------------------------------------
+        st = dict(
+            depth=cfg.num_layers, requests=len(outs), tokens=ntok,
+            wall_s=wall, tokens_per_s=ntok / wall, ticks=eng.ticks,
+            decode_tick_s=mean(phase, phase="decode"),
+            prefill_s=mean(phase, phase="prefill"),
+            ttft_mean_s=ttft["sum"] / ttft["count"],
+            decode_device_s=mean(dev, phase="decode"),
+            prefill_device_s=mean(dev, phase="prefill"),
+            step_eager_ms=step_eager, step_graph_ms=step_graph,
+            launches=launches)
+        serve_stats[name] = st
+        log(f"[serve] {name}: {cfg.num_layers} layers, {len(outs)} requests "
+            f"ok, {ntok} tokens in {wall:.3f} s = {st['tokens_per_s']:.1f} "
+            f"tokens/s; {eng.ticks} ticks, {st['decode_tick_s'] * 1e3:.2f} ms "
+            f"per tick (device timer {st['decode_device_s'] * 1e3:.2f} ms); "
+            f"prefill {st['prefill_s'] * 1e3:.2f} ms (device timer "
+            f"{st['prefill_device_s'] * 1e3:.2f} ms); mean TTFT "
+            f"{st['ttft_mean_s'] * 1e3:.1f} ms")
+        log(f"[serve] {name}: one 4-slot decode step eager "
+            f"{step_eager:.3f} ms, CUDA graph replay {step_graph:.3f} ms "
+            f"(device idle share of the eager step "
+            f"{1 - step_graph / step_eager:.3f}); first token of prompt 0 is "
+            f"the argmax of the logits; launches {json.dumps(launches)}")
+        if name != DEFAULT_RECIPE.name:
+            del eng
+            torch.cuda.empty_cache()
+        else:
+            is_model = eng.model
+            del eng
+
+    # -- 6. breaker drill: IS -> FS on the card -----------------------------------
+    eng, outs, launches, reg, wall = serve_recipe(
+        api, cfg, qparams[DEFAULT_RECIPE.name], DEFAULT_RECIPE, sc, prompts,
+        drill=True, fallback=(qparams[FLOAT_SCALE_RECIPE.name],
+                              FLOAT_SCALE_RECIPE))
+    fb = reg.counter("engine_fallback_events_total", "", ("reason",))
+    if eng.fallbacks != 1 or fb.get(reason="decode_exception") != 1:
+        raise AssertionError(f"breaker drill: {eng.fallbacks} fallbacks, "
+                             f"{fb.total()} fallback events")
+    if launches["w4a8_gemm_fs"] <= 0 or launches["w4a8_gemm_is"] <= 0:
+        raise AssertionError(f"breaker drill launches: {launches}")
+    for k, n in launches.items():
+        launches_total[k] += n
+    drill = dict(fallbacks=eng.fallbacks, ticks=eng.ticks, launches=launches,
+                 kernel_failures=reg.counter(
+                     "engine_kernel_failures_total", "", ("phase",)).total())
+    log(f"[drill] IS->FS breaker: 2 injected decode failures at tick 3, "
+        f"threshold 2: fallbacks {eng.fallbacks}, all 8 requests ok, "
+        f"{eng.ticks} ticks; launches {json.dumps(launches)}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- 7. profile one IS decode step ---------------------------------------------
+    prof_total, prof_top = profile_decode_step(api, cfg, is_model, sc)
+    log(f"[profile] one IS 4-slot decode step: {prof_total:.3f} ms of device "
+        "kernels; top 8:")
+    for p in prof_top:
+        log(f"[profile]   {p['ms']:.3f} ms  x{p['count']}  {p['name']}")
+
+    # -- 8. report ----------------------------------------------------------------
     meta = {
         "act_quant": ("src/repro_torch/csrc/act_quant.cu",
                       "src/repro/kernels/act_quant.py:44", [4, 4096]),
@@ -473,30 +715,36 @@ def main() -> int:
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:85",
                             [1, 128, 32, 128]),
+        "w4a8_gemm_fs": ("src/repro_torch/csrc/w4a8_gemm_fs.cu",
+                         "src/repro/kernels/w4a8_gemm_fscale.py:52",
+                         [4, 4096, 11008]),
+        "w4a16_gemm": ("src/repro_torch/csrc/w4a16_gemm.cu",
+                       "src/repro/kernels/w4a16_gemm.py:63",
+                       [4, 4096, 11008]),
     }
     kernels = []
     for name, (src, replaces, shape) in meta.items():
-        r = next(r for r in rows if r["kernel"] == name and r["shape"] == shape)
+        r = next(r for r in rows if r["kernel"] == name and r["shape"] == shape
+                 and r["variant"] in ("", "fine"))
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launches_total[name],
             "max_abs_err": errs[name], "max_abs_diff": errs[name],
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": shape})
+            "library_ms": r["library_ms"],
+            "bf16_matmul_ms": r["bf16_matmul_ms"], "shape": shape})
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": smi, "torch": torch.__version__, "kernels": kernels,
-        "shapes": rows, "serve": {
-            "requests": len(rids), "tokens": ntok, "wall_s": wall,
-            "ticks": eng.ticks, "decode_tick_s": dec["sum"] / dec["count"],
-            "prefill_s": pre["sum"] / pre["count"],
-            "ttft_mean_s": ttft["sum"] / ttft["count"],
-            "launches": launches, "depth": cfg.num_layers},
-        "decode_step_ms": {"eager": step_eager, "graph": step_graph},
+        "shapes": rows, "serve": serve_stats, "breaker_drill": drill,
+        "launches_total": launches_total,
+        "profile": {"device_ms": prof_total, "top": prof_top},
         "check": {"plain_logit_rel": rel, "plain_layers": PLAIN_CHECK_LAYERS},
+        "seconds": time.perf_counter() - t_start,
     }, indent=1))
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ with a plain C interface, loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so <name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-source is rebuilt. Nothing is built at import: :func:`function` builds on
+The file name carries a hash of the source, of every shared header
+``csrc/*.cuh`` and of the flags, so an edited source or header is
+rebuilt. Nothing is built at import: :func:`function` builds on
 first use, and :func:`build` compiles several sources at once (one
 ``nvcc`` each, all started together). ``--use_fast_math`` is deliberately
 absent: it makes ``/`` approximate and would break the bit-exact codes.
@@ -28,7 +29,8 @@ import threading
 import time
 from pathlib import Path
 
-KERNELS = ("act_quant", "w4a8_gemm_is", "flash_attention")
+KERNELS = ("act_quant", "w4a8_gemm_is", "flash_attention", "w4a8_gemm_fs",
+           "w4a16_gemm")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <repo>/build/repro_torch when run from a checkout (src/repro_torch/...)
@@ -66,8 +68,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -2,14 +2,14 @@
 ``repro/kernels/ops.py``.
 
 ``qgemm(x, params, qspec, launch=...)`` takes the qlinear param dict
-(``{"qvalue", "scale", "alpha"?}``) and dispatches on the qspec: the
-fine-grained integer-scale scheme runs ``act_quant`` then the Eq. 2 GEMM.
-On CUDA tensors both are the Hopper kernels; on CPU tensors the wrappers
-take their plain versions. The float-scale (Eq. 1) and W4A16 schemes have
-no Hopper kernel yet: on CUDA they raise ``NotImplementedError`` (their
-kernels come with the second port slice, the paper's baselines); on the
-CPU they run the plain oracles. ``qgemm_grouped`` (MoE) waits for the MoE
-slice.
+(``{"qvalue", "scale", "alpha"?}``) and dispatches on the qspec as the
+reference does: weight-only W4A16 runs ``w4a16_gemm`` (no act-quant);
+fine-grained integer scale runs ``act_quant`` then the Eq. 2 GEMM;
+everything else (fine float scale, and coarse of either scale mode) runs
+``act_quant`` then the Eq. 1 GEMM. Weight-only with other than 4-bit
+weights raises ``NotImplementedError``, as in the reference. On CUDA
+tensors the wrappers launch the Hopper kernels; on CPU tensors they take
+their plain versions. ``qgemm_grouped`` (MoE) waits for the MoE slice.
 
 ``params["alpha"]`` (the integer-scale amplifier) is resolved as in the
 reference: the stored per-layer value wins and, being a tensor, is folded
@@ -29,14 +29,15 @@ import torch
 from repro_torch import obs
 from repro_torch.core.recipe import QuantSpec
 
-from . import ref
 from .act_quant import act_quant
+from .w4a16_gemm import w4a16_gemm
 from .w4a8_gemm import TILE_M, TILE_N, fg_gemm_integer_scale, pick_tile_m
+from .w4a8_gemm_fscale import fg_gemm_float_scale
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchConfig:
-    """Launch configuration of the Hopper IS GEMM: its row tile ``bm``
+    """Launch configuration of the Hopper GEMMs: their row tile ``bm``
     (16 for decode, 64 for prefill; 0 picks by M). Validated at
     construction, like the reference's ``BlockConfig``."""
 
@@ -97,22 +98,17 @@ def qgemm(
     ).inc(scheme=scheme, kind="dense", shape=f"{M}x{x.shape[1]}x{N}",
           block=f"{pick_tile_m(M, launch.bm)}x{TILE_N}")
 
-    if not (qspec.scale_mode == "integer" and qspec.fine_grained
-            and not qspec.weight_only):
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                f"qgemm: scheme {scheme} has no Hopper kernel yet; the "
-                "float-scale and W4A16 kernels come with the second port "
-                "slice (the paper's baselines)")
-        if qspec.weight_only:
-            return ref.w4a16_gemm_ref(x, params["qvalue"], params["scale"],
-                                      group_size=qspec.group_size)
-        xq, sa = act_quant(x, bits=qspec.a_bits)
-        return ref.fg_gemm_fs_ref(xq, sa, params["qvalue"], params["scale"],
-                                  group_size=qspec.group_size,
-                                  w_bits=qspec.w_bits)
+    if qspec.weight_only:
+        if qspec.w_bits != 4:
+            raise NotImplementedError("weight-only kernel is W4A16")
+        return w4a16_gemm(x, params["qvalue"], params["scale"],
+                          group_size=qspec.group_size, bm=launch.bm)
 
     xq, sa = act_quant(x, bits=qspec.a_bits)
+    if not (qspec.scale_mode == "integer" and qspec.fine_grained):
+        return fg_gemm_float_scale(
+            xq, sa, params["qvalue"], params["scale"],
+            group_size=qspec.group_size, w_bits=qspec.w_bits, bm=launch.bm)
     a = _resolve_alpha(params.get("alpha"), qspec)
     if isinstance(a, torch.Tensor):
         # stored per-layer amplifier: fold 1/alpha into sa (exact for the

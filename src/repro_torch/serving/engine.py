@@ -7,40 +7,71 @@ request prefills alone (batch 1, padded to ``prefill_len``, in
 its slot's rows of the KV cache; every engine tick runs ONE batched
 decode step across all slots with per-slot positions; finished sequences
 (eos / max_new / max_seq) retire and free their slot. With a recipe
-attached, every linear inside runs the fine-grained quantized GEMM —
+attached, every linear inside runs the quantized GEMM of its scheme —
 through the Hopper kernels when the weights are on the card, through
 their plain versions when they are on the CPU.
 
-Request lifecycle
------------------
+Request lifecycle / fault tolerance
+-----------------------------------
 Every submitted request ends in EXACTLY ONE terminal outcome::
 
     submitted -> rejected                 (queue full / over-length prompt)
               -> queued    -> cancelled   (Engine.cancel on a queued rid)
-                           -> error       (the run crashed while queued)
+                           -> timeout     (deadline expired before a slot)
+                           -> error       (engine aborted while queued)
               -> active    -> ok          (eos / max_new / max_seq)
                            -> cancelled   (Engine.cancel on an active rid)
+                           -> timeout     (deadline expired mid-decode)
                            -> nan         (non-finite logits quarantined)
-                           -> error       (the run crashed)
+                           -> error       (prefill raised / engine aborted)
 
 Outcomes are recorded through one chokepoint (:meth:`Engine._finish`),
 which raises on a double retire, so ``sum(engine_request_outcomes_total)
 == engine_requests_total{event="submitted"}`` once the engine drains.
-``timeout`` stays in :data:`OUTCOMES` (zero-seeded) for the deadlines that
-come with a later slice, as do the circuit breaker, the tick watchdog,
-device timers, fault injection and the MoE routing sink. Here an
-exception in prefill or decode retires every in-flight request as
-``error`` and propagates.
 
-NaN quarantine: with ``ServeConfig.nan_guard`` (default on) logits are
-checked host-side at tick boundaries, and only the poisoned slots retire
-with outcome ``nan``; co-batched requests continue unchanged.
+* **Backpressure**: ``ServeConfig.max_queue`` bounds the admission queue;
+  surplus submits are *rejected*. Over-length prompts are rejected unless
+  ``truncate_prompts`` opts into clipping to ``prefill_len``.
+* **Deadlines**: ``ServeConfig.deadline_s`` arms a per-request deadline
+  (registry clock) checked at tick boundaries, for queued and active
+  requests alike; overruns retire as ``timeout`` with partial output.
+* **NaN quarantine**: with ``ServeConfig.nan_guard`` (default on) logits
+  are checked host-side at tick boundaries, and only the poisoned slots
+  retire with outcome ``nan``; co-batched requests continue unchanged.
+* **Circuit breaker**: a prefill exception retires that request as
+  ``error``; a decode exception leaves the slots intact and the tick is
+  retried. ``breaker_threshold`` consecutive exceptions, or that many
+  consecutive poisoned decode ticks, trip the breaker: it swaps in
+  ``fallback_params``/``fallback_recipe`` given at construction
+  (integer scale -> float scale, the paper's two-tier degradation) by
+  rebuilding the model with ``api.build``. With no fallback left the
+  engine quiesces (every in-flight request retires as ``error``) and
+  raises :class:`EngineAborted`. :meth:`Engine.trip_breaker` forces the
+  same path. The reference also degrades its kernel mode
+  (``ServeConfig.fallback_kernel_mode``); the port has no counterpart,
+  because the tensor's device is the port's only kernel switch.
+* **Retries on the in-place cache**: the port writes the KV cache in
+  place (``models/attention.py``), where the reference commits a new
+  cache only on success. A retried decode writes the same K/V at the same
+  positions, so a retry is idempotent.
+* **Tick watchdog**: a ``distributed.fault.Heartbeat`` on the registry
+  clock times every decode tick; stragglers (> ``slow_tick_factor`` x the
+  rolling median) bump ``engine_slow_ticks_total`` and emit a
+  ``slow_tick`` event.
+
+Fault injection for all of the above lives in ``repro_torch.serving.chaos``
+(through :meth:`Engine.add_decode_wrapper`).
 
 Telemetry (repro_torch.obs), all host-side at tick boundaries:
-admit/prefill/decode/retire spans into ``engine_phase_seconds{phase}``,
-tick/token/request counters, slot and queue gauges, per-request TTFT and
-TPOT histograms, and structured submit/admit/tick/retire events carrying
-a per-request ``trace_id``.
+admit/prefill/decode/retire spans into ``engine_phase_seconds{phase}``;
+prefill and decode wrapped in ``obs.device_timer`` into
+``engine_phase_device_seconds{phase}`` (synchronize-bracketed, the first
+call excluded); tick/token/request counters, slot and queue gauges,
+per-request TTFT and TPOT histograms, ``engine_fallback_events_total
+{reason}``, ``engine_kernel_failures_total{phase}``,
+``engine_slow_ticks_total``, and structured submit/admit/tick/retire/
+kernel_failure/fallback/abort events carrying a per-request
+``trace_id``.
 """
 from __future__ import annotations
 
@@ -51,6 +82,7 @@ from typing import Any
 import torch
 
 from repro_torch import obs
+from repro_torch.distributed.fault import Heartbeat, HeartbeatConfig
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import ModelApi
 from repro_torch.nn import spec as S
@@ -58,6 +90,13 @@ from . import sampler
 
 #: The terminal request outcomes (the state machine's accepting states).
 OUTCOMES = ("ok", "timeout", "cancelled", "rejected", "nan", "error")
+
+
+class EngineAborted(RuntimeError):
+    """The circuit breaker exhausted every fallback: the engine quiesced
+    (all in-flight requests retired with outcome ``error``, no slot left
+    active). Telemetry flushed by the caller's ``finally`` still holds the
+    full event log."""
 
 
 @dataclasses.dataclass
@@ -70,9 +109,13 @@ class ServeConfig:
     temperature: float = 0.0
     top_k: int = 0
     seed: int = 0
+    # -- robustness ---------------------------------------------------------
     max_queue: int = 0             # admission queue bound; 0 = unbounded
+    deadline_s: float = 0.0        # per-request deadline; 0 = none
     truncate_prompts: bool = False  # opt-in: clip over-length prompts
     nan_guard: bool = True         # host-side NaN/Inf logit quarantine
+    breaker_threshold: int = 3     # consecutive failures tripping fallback
+    slow_tick_factor: float = 3.0  # watchdog straggler multiple of median
 
 
 @dataclasses.dataclass
@@ -89,25 +132,45 @@ class Engine:
     _ids = itertools.count()
 
     def __init__(self, api: ModelApi, cfg: ModelConfig, params: Any,
-                 serve_cfg: ServeConfig, recipe=None):
+                 serve_cfg: ServeConfig, recipe=None, *,
+                 fallback_params: Any = None, fallback_recipe=None):
         self.engine_id = f"eng{next(Engine._ids)}"
+        self.api = api
         self.cfg = cfg
+        self.params = params
+        self.recipe = recipe
         self.sc = serve_cfg
-        self.model = api.build(cfg, params, recipe)
-        self.device = self.model.embed.device
-        B = serve_cfg.max_slots
-        self.cache = S.materialize(api.cache_specs(cfg, B, serve_cfg.max_seq),
-                                   device=self.device)
-        self.slots = [_Slot() for _ in range(B)]
+        self.slots = [_Slot() for _ in range(serve_cfg.max_slots)]
         self.queue: list[tuple[int, list[int]]] = []
         self.outputs: dict[int, list[int]] = {}
         #: rid -> terminal outcome (exactly one entry per finished request)
         self.outcomes: dict[int, str] = {}
         self._next_id = 0
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(serve_cfg.seed)
         self._steps = 0
         self._submit_t: dict[int, float] = {}
+        self._deadlines: dict[int, float] = {}
+        # circuit-breaker state
+        self._fail_streak = 0      # consecutive prefill/decode exceptions
+        self._nan_streak = 0       # consecutive poisoned decode ticks
+        self._fallbacks = 0
+        self._fallback_params = fallback_params
+        self._fallback_recipe = fallback_recipe
+        # host-side decode wrappers (chaos injection), re-applied after
+        # every breaker rebuild — see add_decode_wrapper
+        self._decode_wrappers: list = []
+        # tick watchdog on the registry clock (deterministic under a fake
+        # clock); stragglers surface as engine_slow_ticks_total + events
+        self._watchdog = Heartbeat(
+            HeartbeatConfig(straggler_factor=serve_cfg.slow_tick_factor),
+            on_straggler=self._on_slow_tick,
+            clock=lambda: obs.current_registry().now())
+        self._build_fns()
+        self.device = self.model.embed.device
+        self.cache = S.materialize(
+            api.cache_specs(cfg, serve_cfg.max_slots, serve_cfg.max_seq),
+            device=self.device)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(serve_cfg.seed)
         # pre-create the headline series so snapshots show explicit zeros
         reg = obs.current_registry()
         reg.counter("engine_ticks_total", "batched decode ticks")
@@ -119,6 +182,68 @@ class Engine:
                           "sums to submitted once drained)", ("outcome",))
         for o in OUTCOMES:
             out.inc(0, outcome=o)
+        reg.counter("engine_fallback_events_total",
+                    "circuit-breaker parameter-set fallbacks", ("reason",))
+        reg.counter("engine_kernel_failures_total",
+                    "exceptions from the prefill/decode path", ("phase",))
+        reg.counter("engine_slow_ticks_total",
+                    "watchdog: decode ticks slower than "
+                    "slow_tick_factor x rolling median").inc(0)
+
+    # -- model establishment ------------------------------------------------
+    def _build_fns(self) -> None:
+        """(Re)build the model from the CURRENT ``self.params`` /
+        ``self.recipe`` and wrap its prefill and decode calls in device
+        timers — at construction and again after a breaker fallback."""
+        self.model = model = self.api.build(self.cfg, self.params,
+                                            self.recipe)
+
+        # batch-1 prefill in mode="train": FULL-sequence logits (the
+        # engine needs the logit at the true prompt end, which may be
+        # before the padded end) while writing the slot's cache rows
+        def prefill_fn(tokens, cache1):
+            return model(tokens, mode="train", cache=cache1, pos=0)[0]
+
+        self._prefill = obs.device_timer(
+            prefill_fn, "engine_phase_device_seconds",
+            help="device time (synchronize-bracketed) per engine phase",
+            phase="prefill")
+
+        # batched decode with per-slot positions -> (B, V) logits
+        def decode_fn(tokens, cache, pos):
+            return model(tokens, mode="decode", cache=cache, pos=pos)[0][:, 0]
+
+        self._decode_base = obs.device_timer(
+            decode_fn, "engine_phase_device_seconds",
+            help="device time (synchronize-bracketed) per engine phase",
+            phase="decode")
+        self._rewrap_decode()
+
+    def _rewrap_decode(self) -> None:
+        fn = self._decode_base
+        for wrap in self._decode_wrappers:
+            fn = wrap(fn)
+        self._decode = fn
+
+    def add_decode_wrapper(self, wrap) -> None:
+        """Install a host-side ``fn -> fn`` wrapper around the decode
+        callable ``fn(tokens, cache, pos) -> logits (B, V)`` (fault
+        injection, extra instrumentation). It is re-applied automatically
+        when the circuit breaker rebuilds the model.
+        ``repro_torch.serving.chaos`` is the canonical client."""
+        self._decode_wrappers.append(wrap)
+        self._rewrap_decode()
+
+    @property
+    def fallbacks(self) -> int:
+        """Circuit-breaker fallbacks taken so far."""
+        return self._fallbacks
+
+    def _on_slow_tick(self, step: int, dt: float, med: float) -> None:
+        reg = obs.current_registry()
+        reg.counter("engine_slow_ticks_total", "").inc()
+        reg.emit({"ev": "slow_tick", "tick": step,
+                  "seconds": round(dt, 6), "median_s": round(med, 6)})
 
     def trace_id(self, rid: int) -> str:
         return f"{self.engine_id}/r{rid}"
@@ -139,11 +264,14 @@ class Engine:
         if len(prompt) > self.sc.prefill_len and not self.sc.truncate_prompts:
             self._finish(rid, "rejected", reason="prompt_overlength",
                          prompt_len=len(prompt))
-        elif self.sc.max_queue and len(self.queue) >= self.sc.max_queue:
+            return rid
+        if self.sc.max_queue and len(self.queue) >= self.sc.max_queue:
             self._finish(rid, "rejected", reason="queue_full",
                          queue_depth=len(self.queue))
-        else:
-            self.queue.append((rid, list(prompt)))
+            return rid
+        if self.sc.deadline_s > 0:
+            self._deadlines[rid] = self._submit_t[rid] + self.sc.deadline_s
+        self.queue.append((rid, list(prompt)))
         return rid
 
     def cancel(self, rid: int) -> bool:
@@ -169,12 +297,18 @@ class Engine:
         """Terminal outcome for ``rid`` (None while still in flight)."""
         return self.outcomes.get(rid)
 
+    def trip_breaker(self, reason: str) -> None:
+        """Force a circuit-breaker trip (external quant-health monitors).
+        Falls back if a parameter set remains, else aborts the engine."""
+        self._trip_breaker(reason)
+
     @torch.inference_mode()
     def run(self, max_ticks: int = 10_000) -> dict[int, list[int]]:
         reg = obs.current_registry()
         try:
             while (self.queue or any(s.active for s in self.slots)) \
                     and self._steps < max_ticks:
+                self._expire_queued()
                 with obs.span(reg, "engine_phase_seconds", phase="admit",
                               event="phase"):
                     self._admit()
@@ -201,6 +335,7 @@ class Engine:
                 f"({self.outcomes[rid]!r}); double retire as {outcome!r}")
         self.outcomes[rid] = outcome
         self._submit_t.pop(rid, None)
+        self._deadlines.pop(rid, None)
         if output is not None:
             self.outputs[rid] = list(output)
         reg = obs.current_registry()
@@ -214,7 +349,7 @@ class Engine:
 
     def _quiesce(self, outcome: str) -> None:
         """Drive every in-flight request to a terminal outcome and free all
-        slots (crashed-run path). Idempotent per rid."""
+        slots (abort / crashed-run path). Idempotent per rid."""
         for i, s in enumerate(self.slots):
             if s.active and s.request_id not in self.outcomes:
                 self._finish(s.request_id, outcome, slot=i,
@@ -224,6 +359,75 @@ class Engine:
             if rid not in self.outcomes:
                 self._finish(rid, outcome)
         self.queue.clear()
+
+    def _expire_queued(self) -> None:
+        """Retire queued requests whose deadline passed before a slot
+        freed up (they never prefill)."""
+        if not self._deadlines or not self.queue:
+            return
+        now = obs.current_registry().now()
+        keep = []
+        for rid, prompt in self.queue:
+            dl = self._deadlines.get(rid)
+            if dl is not None and now > dl:
+                self._finish(rid, "timeout", where="queued")
+            else:
+                keep.append((rid, prompt))
+        self.queue[:] = keep
+
+    # -- circuit breaker ----------------------------------------------------
+    def _on_phase_failure(self, phase: str, exc: Exception,
+                          rid: int | None = None) -> None:
+        """An exception escaped ``phase``: count it, retire the directly
+        affected rid (prefill only — decode failures leave the slots
+        intact for the retry), and trip the breaker when the streak
+        reaches the threshold."""
+        self._fail_streak += 1
+        reg = obs.current_registry()
+        reg.counter("engine_kernel_failures_total", "", ("phase",)).inc(
+            phase=phase)
+        ev = {"ev": "kernel_failure", "phase": phase,
+              "streak": self._fail_streak, "error": repr(exc)[:200]}
+        if rid is not None:
+            ev["rid"] = rid
+        reg.emit(ev)
+        if rid is not None:
+            self._finish(rid, "error", error=repr(exc)[:200])
+        if self._fail_streak >= max(1, self.sc.breaker_threshold):
+            self._trip_breaker(f"{phase}_exception", exc)
+
+    def _trip_breaker(self, reason: str, exc: Exception | None = None):
+        if self._fallback_params is not None:
+            self._fallback(reason)
+        else:
+            self._abort(reason, exc)
+
+    def _fallback(self, reason: str) -> None:
+        """Graceful degradation: swap in the fallback parameter set and
+        recipe, reset the breaker state and rebuild the model (the KV
+        cache and the slots carry over)."""
+        reg = obs.current_registry()
+        frm = getattr(self.recipe, "name", None)
+        self.params, self._fallback_params = self._fallback_params, None
+        self.recipe, self._fallback_recipe = self._fallback_recipe, None
+        self._fallbacks += 1
+        self._fail_streak = 0
+        self._nan_streak = 0
+        reg.counter("engine_fallback_events_total", "", ("reason",)).inc(
+            reason=reason)
+        reg.emit({"ev": "fallback", "reason": reason, "from": str(frm),
+                  "to": str(getattr(self.recipe, "name", None)),
+                  "params_swapped": True, "fallbacks": self._fallbacks})
+        self._build_fns()
+
+    def _abort(self, reason: str, exc: Exception | None = None):
+        reg = obs.current_registry()
+        reg.emit({"ev": "abort", "reason": reason,
+                  "error": repr(exc)[:200] if exc else None})
+        self._quiesce("error")
+        raise EngineAborted(
+            f"{self.engine_id}: breaker tripped ({reason}) with no "
+            f"fallback remaining") from exc
 
     # -- internals ----------------------------------------------------------------
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
@@ -237,50 +441,54 @@ class Engine:
         for i in [i for i, s in enumerate(self.slots) if not s.active]:
             if not self.queue:
                 break
-            # the request leaves the queue only once its prefill has run
-            # and synchronized, so a crash in it (a device fault surfaces
-            # at the first sync) leaves the request to _quiesce
-            rid, prompt = self.queue[0]
-            with obs.span(reg, "engine_phase_seconds", phase="prefill",
-                          event="admit") as sp:
-                # over-length prompts were rejected at submit unless
-                # truncate_prompts explicitly opted into this clip
-                toks = prompt[:P] + [0] * max(0, P - len(prompt))
-                true_len = min(len(prompt), P)
-                # the slot's rows of the batched cache, cleared, are the
-                # batch-1 prefill cache
-                cache1 = {"blocks": [{k: t[i:i + 1] for k, t in c.items()}
-                                     for c in self.cache["blocks"]]}
-                for c in cache1["blocks"]:
-                    for t in c.values():
-                        t.zero_()
-                logits, _, _ = self.model(
-                    torch.tensor([toks], dtype=torch.int64,
-                                 device=self.device),
-                    mode="train", cache=cache1, pos=0)
-                first_row = logits[:, true_len - 1]
-                poisoned = self.sc.nan_guard and \
-                    not bool(torch.isfinite(first_row).all())
-                first = None if poisoned else int(self._sample(first_row)[0])
-                self.queue.pop(0)
-                if poisoned:
-                    sp.fields.update(rid=rid, slot=i, outcome="nan")
-                    self._finish(rid, "nan", slot=i, output=[],
-                                 where="prefill")
-                    continue
-                t_first = reg.now()
-                self.slots[i] = _Slot(request_id=rid, length=true_len,
-                                      generated=[first], active=True,
-                                      t_first=t_first)
-                sp.fields.update(rid=rid, slot=i, prompt_len=true_len,
-                                 trace_id=self.trace_id(rid))
-                t_sub = self._submit_t.get(rid)
-                if t_sub is not None:
-                    ttft = t_first - t_sub
-                    reg.histogram("engine_ttft_seconds",
-                                  "submit -> first generated token"
-                                  ).observe(ttft)
-                    sp.fields["ttft_s"] = round(ttft, 6)
+            rid, prompt = self.queue.pop(0)
+            poisoned = False
+            try:
+                with obs.span(reg, "engine_phase_seconds", phase="prefill",
+                              event="admit") as sp:
+                    # over-length prompts were rejected at submit unless
+                    # truncate_prompts explicitly opted into this clip
+                    toks = prompt[:P] + [0] * max(0, P - len(prompt))
+                    true_len = min(len(prompt), P)
+                    # the slot's rows of the batched cache, cleared, are
+                    # the batch-1 prefill cache (written in place)
+                    cache1 = {"blocks": [{k: t[i:i + 1] for k, t in c.items()}
+                                         for c in self.cache["blocks"]]}
+                    for c in cache1["blocks"]:
+                        for t in c.values():
+                            t.zero_()
+                    logits = self._prefill(
+                        torch.tensor([toks], dtype=torch.int64,
+                                     device=self.device), cache1)
+                    first_row = logits[:, true_len - 1]
+                    if self.sc.nan_guard and \
+                            not bool(torch.isfinite(first_row).all()):
+                        poisoned = True
+                        sp.fields.update(rid=rid, slot=i, outcome="nan")
+                    else:
+                        first = int(self._sample(first_row)[0])
+                        t_first = reg.now()
+                        self.slots[i] = _Slot(request_id=rid,
+                                              length=true_len,
+                                              generated=[first], active=True,
+                                              t_first=t_first)
+                        sp.fields.update(rid=rid, slot=i,
+                                         prompt_len=true_len,
+                                         trace_id=self.trace_id(rid))
+                        t_sub = self._submit_t.get(rid)
+                        if t_sub is not None:
+                            ttft = t_first - t_sub
+                            reg.histogram("engine_ttft_seconds",
+                                          "submit -> first generated token"
+                                          ).observe(ttft)
+                            sp.fields["ttft_s"] = round(ttft, 6)
+            except Exception as exc:
+                self._on_phase_failure("prefill", exc, rid=rid)
+                continue
+            if poisoned:
+                self._finish(rid, "nan", slot=i, output=[], where="prefill")
+                continue
+            self._fail_streak = 0
             reg.counter("engine_requests_total", "", ("event",)).inc(
                 event="admitted")
 
@@ -298,21 +506,32 @@ class Engine:
                 pos[i] = s.length
                 slot_rids[i] = s.request_id
         active = sum(r >= 0 for r in slot_rids)
-        with obs.span(reg, "engine_phase_seconds", phase="decode",
-                      event="tick") as sp:
-            logits, _, _ = self.model(
-                torch.tensor(last, dtype=torch.int64, device=self.device),
-                mode="decode", cache=self.cache,
-                pos=torch.tensor(pos, dtype=torch.int64, device=self.device))
-            logits = logits[:, 0]
-            finite = torch.isfinite(logits).all(dim=-1).tolist() \
-                if self.sc.nan_guard else [True] * B
-            nxt = self._sample(logits).tolist()  # waits for the step
-            sp.fields.update(tick=self._steps, slots_active=active,
-                             queue_depth=len(self.queue),
-                             slot_rids=slot_rids)
+        try:
+            with obs.span(reg, "engine_phase_seconds", phase="decode",
+                          event="tick") as sp:
+                self._watchdog.start()
+                logits = self._decode(
+                    torch.tensor(last, dtype=torch.int64, device=self.device),
+                    self.cache,
+                    torch.tensor(pos, dtype=torch.int64, device=self.device))
+                finite = torch.isfinite(logits).all(dim=-1).tolist() \
+                    if self.sc.nan_guard else [True] * B
+                # sampled only after the decode succeeded, so a failed
+                # attempt never advances the sampling generator
+                nxt = self._sample(logits).tolist()  # waits for the step
+                self._watchdog.stop(self._steps)
+                sp.fields.update(tick=self._steps, slots_active=active,
+                                 queue_depth=len(self.queue),
+                                 slot_rids=slot_rids)
+        except Exception as exc:
+            # tick NOT advanced: the run loop retries (bounded — the
+            # breaker trips fallback/abort on a streak)
+            self._on_phase_failure("decode", exc)
+            return
+        self._fail_streak = 0
         bad = {i for i, s in enumerate(self.slots)
                if s.active and not finite[i]}
+        self._nan_streak = self._nan_streak + 1 if bad else 0
         self._steps += 1
         reg.counter("engine_ticks_total", "").inc()
         reg.counter("engine_tokens_total", "").inc(active - len(bad))
@@ -333,9 +552,11 @@ class Engine:
                 s.length += 1
                 tok = int(nxt[i])
                 s.generated.append(tok)
-                if (tok == self.sc.eos_id
+                done = (tok == self.sc.eos_id
                         or len(s.generated) >= self.sc.max_new_tokens
-                        or s.length + 1 >= self.sc.max_seq):
+                        or s.length + 1 >= self.sc.max_seq)
+                dl = self._deadlines.get(rid)
+                if done:
                     n = len(s.generated)
                     tpot = (now - s.t_first) / max(1, n - 1)
                     reg.histogram("engine_tpot_seconds",
@@ -346,8 +567,16 @@ class Engine:
                     self._finish(rid, "ok", slot=i, output=s.generated,
                                  tokens=n, tpot_s=round(tpot, 6))
                     self.slots[i] = _Slot()
+                elif dl is not None and now > dl:
+                    self._finish(rid, "timeout", slot=i, output=s.generated,
+                                 tokens=len(s.generated))
+                    self.slots[i] = _Slot()
         reg.gauge("engine_slots_active",
                   "occupied decode slots after retire").set(
                       sum(1 for s in self.slots if s.active))
         reg.gauge("engine_queue_depth", "requests waiting for a slot").set(
             len(self.queue))
+        if self._nan_streak >= max(1, self.sc.breaker_threshold):
+            # persistent poisoned logits = quant-health alarm: degrade to
+            # the fallback parameter set instead of burning ticks on NaNs
+            self._trip_breaker("nan_logits")

@@ -3,9 +3,14 @@
 from JAX and from the ``repro`` package.
 
 Greedy token streams must be EQUAL to the reference engine's on the tiny
-config of ``tests/test_serving.py`` (fp, and W4A8-IS g64 through both
-packages' RTN PTQ), with all requests admitted at once and with more
-requests than slots (staggered admission, per-slot decode positions).
+config of ``tests/test_serving.py`` (fp, and W4A8-IS, W4A8-FS and W4A16
+g64 through both packages' RTN PTQ), with all requests admitted at once
+and with more requests than slots (staggered admission, per-slot decode
+positions). The reference engine runs W4A16 through its Pallas kernel in
+interpret mode: its reference path dequantizes to the f32 activation
+dtype, where the kernel and the port round the dequantized weight to
+bf16. The other schemes run its reference path. The circuit breaker's
+IS -> FS swap is held to the reference engine's too.
 """
 import ast
 import os
@@ -24,6 +29,7 @@ from repro.core.recipe import QuantSpec as JSpec
 from repro.models.config import ModelConfig as JConfig
 from repro.models.registry import get_model as jget_model
 from repro.nn import spec as JS
+from repro.serving import chaos as jchaos
 from repro.serving.engine import Engine as JEngine
 from repro.serving.engine import ServeConfig as JServeConfig
 from repro_torch import convert, obs
@@ -31,13 +37,18 @@ from repro_torch.core import ptq
 from repro_torch.core.recipe import QuantRecipe, QuantSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import get_model
-from repro_torch.serving.engine import OUTCOMES, Engine, ServeConfig
+from repro_torch.serving.chaos import ChaosConfig, ChaosMonkey, KernelFault
+from repro_torch.serving.engine import (OUTCOMES, Engine, EngineAborted,
+                                        ServeConfig)
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = dict(name="t", family="dense", num_layers=2, d_model=64, num_heads=4,
             num_kv_heads=2, d_ff=128, vocab_size=64, dtype="float32")
 # the reference's chunked attention takes its chunk sizes from the config
 JCHUNKS = dict(q_chunk=16, kv_chunk=16)
+# the reference engine's kernel mode per scheme (see the module docstring)
+JMODES = {"fp": "reference", "w4a8-is": "reference", "w4a8-fs": "reference",
+          "w4a16": "pallas_interpret"}
 LAYOUTS = {  # name -> (max_slots, prompt count, prompt lengths)
     "aligned": (3, 3, (8, 8, 8)),
     "staggered": (2, 5, (5, 8, 3, 7, 6)),
@@ -46,7 +57,8 @@ LAYOUTS = {  # name -> (max_slots, prompt count, prompt lengths)
 
 @pytest.fixture(scope="module")
 def models():
-    """fp and W4A8-IS g64 weights for both packages. The reference's
+    """fp, W4A8-IS, W4A8-FS and W4A16 g64 weights for both packages. The
+    reference's
     overflow certificate reads ``jax.core.Literal``, which JAX 0.9 moved
     to ``jax.extend.core``: it is aliased only while the reference
     quantizes, and restored at once."""
@@ -67,8 +79,18 @@ def models():
                        raising=False)
         jq = jptq.post_training_quantize(japi, jcfg, jparams, jrecipe, None)
     tq = ptq.post_training_quantize(api, cfg, tparams, recipe)
-    return {"fp": ((japi, jcfg, jparams, None), (api, cfg, tparams, None)),
-            "w4a8-is": ((japi, jcfg, jq, jrecipe), (api, cfg, tq, recipe))}
+    out = {"fp": ((japi, jcfg, jparams, None), (api, cfg, tparams, None)),
+           "w4a8-is": ((japi, jcfg, jq, jrecipe), (api, cfg, tq, recipe))}
+    for name, kw in (("w4a8-fs", dict(scale_mode="float")),
+                     ("w4a16", dict(a_bits=16))):
+        jr = JRecipe(rules=(("*", JSpec(group_size=64, **kw)),), name=name)
+        r = QuantRecipe(rules=(("*", QuantSpec(group_size=64, **kw)),),
+                        name=name)
+        out[name] = (
+            (japi, jcfg, jptq.post_training_quantize(japi, jcfg, jparams, jr,
+                                                     None), jr),
+            (api, cfg, ptq.post_training_quantize(api, cfg, tparams, r), r))
+    return out
 
 
 def _prompts(seed, lengths):
@@ -77,14 +99,16 @@ def _prompts(seed, lengths):
 
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
-@pytest.mark.parametrize("scheme", ["fp", "w4a8-is"])
+@pytest.mark.parametrize("scheme", ["fp", "w4a8-is", "w4a8-fs", "w4a16"])
 def test_greedy_streams_equal_reference_engine(models, scheme, layout):
     (japi, jcfg, jparams, jrecipe), (api, cfg, params, recipe) = \
         models[scheme]
     slots, n, lengths = LAYOUTS[layout]
     prompts = _prompts(len(lengths), lengths)
     kw = dict(max_slots=slots, max_seq=64, prefill_len=8, max_new_tokens=6)
-    jeng = JEngine(japi, jcfg, jparams, JServeConfig(**kw), recipe=jrecipe)
+    jeng = JEngine(japi, jcfg, jparams,
+                   JServeConfig(**kw, kernel_mode=JMODES[scheme]),
+                   recipe=jrecipe)
     jrids = [jeng.submit(p) for p in prompts]
     want = jeng.run()
     eng = Engine(api, cfg, params, ServeConfig(**kw), recipe=recipe)
@@ -95,6 +119,40 @@ def test_greedy_streams_equal_reference_engine(models, scheme, layout):
         assert eng.outcome(r) == jeng.outcome(r) == "ok"
         assert got[r] == want[r], (r, got[r], want[r])
     assert eng.ticks == jeng._steps
+
+
+def test_breaker_swaps_is_to_fs_like_reference(models):
+    """Two injected decode failures at tick 2 trip the breaker
+    (threshold 2) in both engines; each swaps the IS weights for the FS
+    ones (the reference in reference mode has no kernel mode to fall back
+    on, so it swaps parameters only) and the streams stay equal."""
+    (japi, jcfg, jis, jr_is), (api, cfg, tis, r_is) = models["w4a8-is"]
+    (_, _, jfs, jr_fs), (_, _, tfs, r_fs) = models["w4a8-fs"]
+    prompts = _prompts(5, LAYOUTS["staggered"][2])
+    kw = dict(max_slots=2, max_seq=64, prefill_len=8, max_new_tokens=6,
+              breaker_threshold=2)
+    jeng = JEngine(japi, jcfg, jis, JServeConfig(**kw, kernel_mode="reference"),
+                   recipe=jr_is, fallback_params=jfs, fallback_recipe=jr_fs)
+    jchaos.ChaosMonkey(jchaos.ChaosConfig(kernel_failures=(
+        jchaos.KernelFault(tick=2, count=2),))).install(jeng)
+    jrids = [jeng.submit(p) for p in prompts]
+    want = jeng.run()
+    reg = obs.Registry()
+    with obs.use_registry(reg):
+        eng = Engine(api, cfg, tis, ServeConfig(**kw), recipe=r_is,
+                     fallback_params=tfs, fallback_recipe=r_fs)
+        monkey = ChaosMonkey(ChaosConfig(kernel_failures=(
+            KernelFault(tick=2, count=2),))).install(eng)
+        rids = [eng.submit(p) for p in prompts]
+        got = eng.run()
+    assert rids == jrids
+    assert jeng.fallbacks == eng.fallbacks == 1
+    assert eng.recipe is r_fs and jeng.recipe is jr_fs
+    assert monkey.injected == [{"kind": "kernel", "tick": 2}] * 2
+    assert all(eng.outcome(r) == jeng.outcome(r) == "ok" for r in rids)
+    assert {r: got[r] for r in rids} == {r: want[r] for r in rids}
+    assert reg.counter("engine_fallback_events_total", "", ("reason",)).get(
+        reason="decode_exception") == 1
 
 
 def test_outcomes_are_conserved(models):
@@ -163,28 +221,41 @@ def test_nan_prefill_retires_only_that_request(models):
 
 
 def test_a_crashed_run_retires_every_request_as_error(models):
+    """Each failed prefill retires its request as ``error``; the second in
+    a row trips the breaker, which has no fallback and aborts."""
     _, (api, cfg, params, _) = models["fp"]
     eng = Engine(api, cfg, params, ServeConfig(max_slots=1, max_seq=64,
-                                               prefill_len=8))
+                                               prefill_len=8,
+                                               breaker_threshold=2))
     rids = [eng.submit(p) for p in _prompts(2, (3, 4))]
 
     def broken(*a, **kw):
         raise RuntimeError("device lost")
 
     eng.model.forward = broken
-    with pytest.raises(RuntimeError, match="device lost"):
+    with pytest.raises(EngineAborted, match="prefill_exception"):
         eng.run()
     assert [eng.outcome(r) for r in rids] == ["error", "error"]
+    assert not eng.queue and not any(s.active for s in eng.slots)
 
 
 def test_port_imports_and_runs_without_jax_or_repro():
     """In a fresh interpreter where ``import jax`` and ``import repro``
-    fail, the port imports, builds a model on the CPU and serves it."""
+    fail, every module of the port imports, and the port builds a model on
+    the CPU and serves it."""
     code = "\n".join([
-        "import sys",
+        "import sys, importlib, pkgutil",
         "sys.modules['jax'] = None",
         "sys.modules['repro'] = None",
-        "import repro_torch, repro_torch.kernels.ops, repro_torch.convert",
+        "import repro_torch",
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]",
+        "for m in mods: importlib.import_module(m)",
+        "assert {'repro_torch.launch.serve', 'repro_torch.serving.chaos',"
+        " 'repro_torch.obs.profile', 'repro_torch.obs.timeline',"
+        " 'repro_torch.distributed.fault', 'repro_torch.data.pipeline',"
+        " 'repro_torch.kernels.w4a8_gemm_fscale',"
+        " 'repro_torch.kernels.w4a16_gemm'} <= set(mods), mods",
         "from repro_torch.models.config import ModelConfig",
         "from repro_torch.models.registry import get_model",
         "from repro_torch.nn import spec as S",

@@ -8,9 +8,12 @@ the reference oracles (``repro.kernels.ref``) and the IS GEMM also to the
 Pallas kernel in interpret mode; the Pallas ``act_quant`` may differ by
 one code at rounding ties, as ``tests/test_kernels.py`` allows. Plain
 flash attention vs the Pallas kernel (interpret, f32): atol 2e-5 — the
-two visit keys in different blocks. Float-scale / W4A16 oracles: f32
-sums in another order, rtol 1e-5 (W4A16: bf16 operands, rtol 2e-2 as the
-reference's own test).
+two visit keys in different blocks. Float-scale GEMM (fine W4/W8 and
+coarse) vs the reference oracle and the Pallas kernel: f32 sums in another
+order, rtol 1e-5, atol 1e-4 (as ``tests/test_kernels.py`` holds the Pallas
+kernel). W4A16: bf16 operands, 2e-2 as the reference's own test.
+``ops.qgemm`` for every scheme vs the reference ``qgemm`` in interpret
+mode within those tolerances.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +25,13 @@ from repro.core import packing as jpacking
 from repro.core import quant as jquant
 from repro.kernels import ref as JR
 from repro.kernels.act_quant import act_quant as pallas_act_quant
+from repro.core.recipe import QuantSpec as JSpec
+from repro.kernels import ops as jops
 from repro.kernels.flash_attention import flash_attention_tpu
+from repro.kernels.w4a16_gemm import w4a16_gemm as pallas_w4a16_gemm
 from repro.kernels.w4a8_gemm import fg_gemm_integer_scale as pallas_is_gemm
+from repro.kernels.w4a8_gemm_fscale import \
+    fg_gemm_float_scale as pallas_fs_gemm
 from repro_torch.core import qlinear as tqlinear
 from repro_torch.core.recipe import QuantSpec
 from repro_torch.kernels import _build, ops
@@ -31,8 +39,14 @@ from repro_torch.kernels import ref as TR
 from repro_torch.kernels.act_quant import act_quant, act_quant_plain
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.w4a16_gemm import w4a16_gemm, w4a16_gemm_plain
 from repro_torch.kernels.w4a8_gemm import (fg_gemm_integer_scale,
                                            fg_gemm_integer_scale_plain)
+from repro_torch.kernels.w4a8_gemm_fscale import (fg_gemm_float_scale,
+                                                  fg_gemm_float_scale_plain)
+
+FS_TOL = dict(rtol=1e-5, atol=1e-4)
+W4A16_TOL = dict(rtol=2e-2, atol=2e-2)
 
 SHAPES = [  # (M, K, N, group) — tests/test_kernels.py
     (1, 256, 128, 128),
@@ -125,6 +139,93 @@ def test_fs_and_w4a16_oracles_match_reference():
         rtol=2e-2, atol=2e-2)
 
 
+def _fs_operands(seed, M, K, N, g, w_bits):
+    rng = np.random.default_rng(seed)
+    w = (rng.normal(size=(K, N)) * 0.05).astype(np.float32)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    qw = jquant.quantize_weight(jnp.asarray(w), w_bits, g)
+    xq, sa = jquant.quantize_activation(jnp.asarray(x))
+    packed = jpacking.pack_int4(qw.qvalue) if w_bits == 4 else qw.qvalue
+    scale = qw.scale if g > 0 else qw.scale[None, :]
+    return x, xq, sa, packed, scale
+
+
+@pytest.mark.parametrize("M,K,N,g", SHAPES)
+@pytest.mark.parametrize("variant", ["fine-w4", "fine-w8", "coarse-w4"])
+def test_fs_gemm_plain_vs_reference(M, K, N, g, variant):
+    w_bits = 8 if variant.endswith("w8") else 4
+    g = -1 if variant.startswith("coarse") else g
+    _, xq, sa, packed, scale = _fs_operands(5, M, K, N, g, w_bits)
+    y = fg_gemm_float_scale_plain(_t(xq), _t(sa), _t(packed), _t(scale),
+                                  group_size=g, w_bits=w_bits)
+    y_r = JR.fg_gemm_fs_ref(xq, sa, packed, scale, group_size=g,
+                            w_bits=w_bits)
+    y_k = pallas_fs_gemm(xq, sa, packed, scale, group_size=g, w_bits=w_bits,
+                         interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_r), **FS_TOL)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_k), **FS_TOL)
+    assert torch.equal(TR.fg_gemm_fs_ref(_t(xq), _t(sa), _t(packed),
+                                         _t(scale), group_size=g,
+                                         w_bits=w_bits), y)
+
+
+@pytest.mark.parametrize("M,K,N,g", SHAPES)
+def test_w4a16_gemm_plain_vs_reference(M, K, N, g):
+    x, _, _, packed, scale = _fs_operands(6, M, K, N, g, 4)
+    y = w4a16_gemm_plain(_t(x), _t(packed), _t(scale), group_size=g)
+    y_r = JR.w4a16_gemm_ref(jnp.asarray(x), packed, scale, group_size=g)
+    y_k = pallas_w4a16_gemm(jnp.asarray(x), packed, scale, group_size=g,
+                            interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_r), **W4A16_TOL)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_k), **W4A16_TOL)
+    assert torch.equal(TR.w4a16_gemm_ref(_t(x), _t(packed), _t(scale),
+                                         group_size=g), y)
+
+
+SCHEMES = {  # name -> (QuantSpec kwargs, tolerance vs the reference)
+    "w4a8-is": (dict(), dict(rtol=0, atol=0)),
+    "w8a8-is": (dict(w_bits=8, amplifier="heuristic+6"), dict(rtol=0, atol=0)),
+    "w4a8-fs": (dict(scale_mode="float"), FS_TOL),
+    "w8a8-fs": (dict(w_bits=8, scale_mode="float"), FS_TOL),
+    "w4a8-coarse-is": (dict(group_size=-1), FS_TOL),
+    "w4a8-coarse-fs": (dict(group_size=-1, scale_mode="float"), FS_TOL),
+    "w4a16": (dict(a_bits=16), W4A16_TOL),
+}
+
+
+@pytest.mark.parametrize("scheme", sorted(SCHEMES))
+def test_qgemm_matches_reference_every_scheme(scheme):
+    """The port's dispatch on the CPU (plain versions) against the
+    reference ``qgemm`` with its Pallas kernels in interpret mode, on the
+    same quantized operands."""
+    kw, tol = SCHEMES[scheme]
+    rng = np.random.default_rng(8)
+    w = torch.from_numpy((rng.normal(size=(256, 128)) * 0.05)
+                         .astype(np.float32))
+    x = rng.normal(size=(5, 256)).astype(np.float32)
+    params = tqlinear.quantize_linear(w, QuantSpec(**kw))
+    jparams = {k: jnp.asarray(v.numpy()) for k, v in params.items()}
+    got = ops.qgemm(_t(x), params, QuantSpec(**kw))
+    want = jops.qgemm(jnp.asarray(x), jparams, JSpec(**kw),
+                      block=jops.BlockConfig(interpret=True))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+
+
+def test_w8a16_raises_in_both_packages():
+    w = torch.from_numpy(np.random.default_rng(9).normal(size=(256, 64))
+                         .astype(np.float32))
+    params = tqlinear.quantize_linear(w, QuantSpec(w_bits=8, a_bits=16))
+    jparams = {k: jnp.asarray(v.numpy()) for k, v in params.items()}
+    x = np.ones((2, 256), np.float32)
+    with pytest.raises(NotImplementedError, match="weight-only kernel is "
+                                                  "W4A16"):
+        ops.qgemm(_t(x), params, QuantSpec(w_bits=8, a_bits=16))
+    with pytest.raises(NotImplementedError, match="weight-only kernel is "
+                                                  "W4A16"):
+        jops.qgemm(jnp.asarray(x), jparams, JSpec(w_bits=8, a_bits=16),
+                   block=jops.BlockConfig(interpret=True))
+
+
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,window", [
     (2, 40, 40, 4, 2, 32, None),    # GQA, ragged length
     (1, 70, 70, 4, 4, 16, 24),      # sliding window
@@ -154,7 +255,15 @@ def test_wrappers_take_plain_versions_on_cpu():
              (fg_gemm_integer_scale_plain(_t(xq), _t(sa), _t(packed),
                                           _t(ints), group_size=128,
                                           alpha=alpha),)),
-            ((flash_attention(q, q, q),), (flash_attention_plain(q, q, q),))):
+            ((flash_attention(q, q, q),), (flash_attention_plain(q, q, q),)),
+            ((fg_gemm_float_scale(_t(xq), _t(sa), _t(packed),
+                                  torch.ones((4, 256))),),
+             (fg_gemm_float_scale_plain(_t(xq), _t(sa), _t(packed),
+                                        torch.ones((4, 256)),
+                                        group_size=128),)),
+            ((w4a16_gemm(x, _t(packed)[:128], torch.ones((2, 256))),),
+             (w4a16_gemm_plain(x, _t(packed)[:128], torch.ones((2, 256)),
+                               group_size=128),))):
         for a, b in zip(got, want):
             assert torch.equal(a, b)
     assert _build.LAUNCHES == {name: 0 for name in _build.KERNELS}
@@ -164,6 +273,8 @@ def test_wrappers_take_plain_versions_on_cpu():
     ("act_quant", "act_quant_launch", "act_quant"),
     ("w4a8_gemm_is", "w4a8_gemm_is_launch", "w4a8_gemm"),
     ("flash_attention", "flash_attention_launch", "flash_attention"),
+    ("w4a8_gemm_fs", "w4a8_gemm_fs_launch", "w4a8_gemm_fscale"),
+    ("w4a16_gemm", "w4a16_gemm_launch", "w4a16_gemm"),
 ])
 def test_ctypes_argtypes_match_c_signatures(name, symbol, module):
     """The CUDA sources cannot compile here; hold each wrapper's declared
