@@ -23,7 +23,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    memory. act_quant, the IS GEMM (W4 and W8) and the coarse FS GEMM must
    be bit-exact; the fine FS GEMM (W4 at every shape, W8 at one decode
    shape) within rtol 1e-5 / atol 1e-4; W4A16 within ``REL_TOLERANCE`` x
-   max|y|; flash attention within ``TOLERANCE`` (bf16 output).
+   max|y|; flash attention within ``TOLERANCE`` (bf16 output), also at
+   Mixtral's 32 query heads over 8 KV heads. Then the grouped (MoE)
+   kernels at Mixtral-8x7B's expert shapes, 8 experts, (4096 -> 14336) and
+   (14336 -> 4096) at capacity 8 (4-slot decode) and 40 (128-token
+   prefill), with seeded routed counts that include an empty expert, a
+   full one and counts that are no multiple of the row tile: IS (W4, and
+   W8 at one decode shape) and coarse FS bit-exact, fine FS within rtol
+   1e-5 / atol 1e-4, W4A16 within ``REL_TOLERANCE`` x max|y|; each ragged
+   entry point must equal its dense-grouped one (pre-quantized codes, no
+   counts) bit for bit on the same zero-padded buffer. Beside each: the
+   plain version, one bf16 ``torch.bmm`` over the same (E, C, K) buffer
+   (the FP16 baseline; for W4A16 also the library call) and the bound
+   (the routed experts' weight and scale bytes, or the routed rows'
+   operations).
 4. Build ``llama2-7b`` at its full published widths (32 layers) in bf16
    from a seeded generator on the card, and RTN-quantize it under four
    recipes: W4A8 IS g128 alpha=1024 (the paper's), W4A8 FS g128 (Eq. 1),
@@ -44,8 +57,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    fails the decode at tick 3 twice; the engine must fall back once and
    serve every request ``ok`` through ``w4a8_gemm_fs``.
 7. Profile one IS decode step under ``obs.trace_window`` and print the
-   eight device kernels with the most CUDA time.
-8. Print the ``kernels`` JSON line, then the result line
+   eight device kernels with the most CUDA time. Free the llama2-7b
+   weights.
+8. ``mixtral-8x7b`` at full width (32 layers, 8 experts top-2, expert d_ff
+   14336), built block by block (``ptq.quantize_by_layer``: one block's
+   fp weights on the card at a time) under IS, FS and W4A16, one recipe at
+   a time, each served as in phase 5 (same prompts and ``ServeConfig``):
+   every outcome ``ok``, exactly the recipe's kernels launched (the
+   grouped kernel of its scheme on every expert linear), the first token
+   of prompt 0 the argmax of the logits, ``engine_moe_m_tiles_total``
+   executed <= total and > 0, and for IS the first two layers on the card
+   against the same layers on the CPU. The decode step is timed eagerly
+   and as a captured CUDA graph with no routing sink attached; the
+   capture is itself the check that the MoE layer makes no host sync.
+9. Print the ``kernels`` JSON line (the eight kernels, launches summed
+   over every served path), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Per-shape and per-recipe numbers also go to ``build/chip_smoke.json``.
@@ -53,6 +79,7 @@ Per-shape and per-recipe numbers also go to ``build/chip_smoke.json``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -93,6 +120,20 @@ KERNELS_OF = {  # recipe -> kernels its serve must launch; the rest must not
     "w4a8-coarse": {"act_quant", "w4a8_gemm_fs", "flash_attention"},
     "w4a16-fg": {"w4a16_gemm", "flash_attention"},
 }
+# the same on Mixtral: the recipe's dense kernels (attention linears) and
+# its grouped kernel (every expert linear)
+MOE_KERNEL_OF = {"w4a8-is": "moe_w4a8_is", "w4a8-fs": "moe_w4a8_fs",
+                 "w4a16-fg": "moe_w4a16"}
+# Mixtral-8x7B's expert linears: 8 experts, (K, N) of gate/up and of down,
+# at the 4-slot decode capacity and the 128-token prefill capacity
+# (models.moe.capacity(4, 2, 8, 1.25) = 8, capacity(128, 2, 8, 1.25) = 40)
+MOE_E = 8
+MOE_KN = ((4096, 14336), (14336, 4096))
+MOE_C = (8, 40)
+# kernels vs plain versions on Mixtral's first layers: two, as for
+# llama2-7b (the CPU's plain grouped GEMMs take about 15 s a layer on the
+# card's 8-core host), with the same bound
+MIXTRAL_PLAIN_CHECK_LAYERS = 2
 
 
 def log(*a):
@@ -332,6 +373,7 @@ def check_flash(gen, rows):
     # (B, Sq, Hq, Hkv, D, window): the prefill shape, then GQA + window +
     # a ragged length
     for B, S, Hq, Hkv, D, win in ((1, 128, 32, 32, 128, None),
+                                  (1, 128, 32, 8, 128, None),  # Mixtral GQA
                                   (2, 200, 8, 2, 128, 64),
                                   (1, 77, 4, 1, 64, None)):
         q, k, v = (torch.randn((B, S, h, D), generator=gen, device="cuda"
@@ -349,15 +391,182 @@ def check_flash(gen, rows):
             pms = time_ms(lambda *a: flash_attention_plain(*a), [(q, k, v)])
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             lib = time_ms(lambda *a: F.scaled_dot_product_attention(
-                *a, is_causal=True), [(qt, kt, vt)])
+                *a, is_causal=True, enable_gqa=Hq != Hkv), [(qt, kt, vt)])
             pairs = S * (S + 1) // 2
-            b, by = bound(4 * B * S * Hq * D * 2,
+            b, by = bound(2 * B * S * (Hq + Hkv) * D * 2,
                           (4 * B * Hq * pairs * D, BF16_FLOPS_PER_S))
-            rows.append(dict(kernel="flash_attention", variant="",
+            rows.append(dict(kernel="flash_attention",
+                             variant="" if Hq == Hkv else f"gqa kv{Hkv}",
                              shape=[B, S, Hq, D], ms=ms, plain_ms=pms,
                              bound_ms=b, bound_by=by, library_ms=lib,
                              bf16_matmul_ms=None))
     return err
+
+
+def moe_counts(C, seed):
+    """Seeded routed counts of 8 experts at capacity C: expert 0 empty,
+    expert 1 full, the rest in [1, C) (none a multiple of the row tile)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [0, C] + rng.integers(1, C, size=MOE_E - 2).tolist()
+
+
+def moe_weights(gen, K, N, w_bits=4):
+    """Stacked RTN weights of 8 experts, as ``weight_sets`` makes one
+    layer's: packed codes with f32 and integer scales (per-expert alpha),
+    per-channel codes and scales, and the bf16 dequantized weight."""
+    import torch
+
+    sets = weight_sets(gen, K, N, MOE_E, w_bits=w_bits)
+    out = {k: torch.stack([d[k] for d in sets])
+           for k in ("packed", "scale", "int_scale", "packed_c", "scale_c",
+                     "wd")}
+    out["alpha"] = torch.tensor([d["alpha"] for d in sets], device="cuda")
+    return out
+
+
+def check_grouped(gen, rows):
+    """The grouped (MoE) kernels at Mixtral's expert shapes: each ragged
+    entry point (the serving path) and each dense-grouped one (codes
+    quantized before the call, every row computed) against its plain
+    version, ragged == dense grouped on the same zero-padded buffer; each
+    timed with its plain version, a bf16 ``torch.bmm`` over the same
+    buffer, and its bound."""
+    import torch
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels.act_quant import act_quant_plain
+    from repro_torch.kernels.w4a16_gemm import REL_TOLERANCE
+
+    def on_weights(fn, q, sc, **fixed):
+        """(a, b, w) -> fn(a, b, w[q], w[sc]): a grouped entry point over
+        the codes ``q`` and scales ``sc`` of a weight set"""
+        return lambda a, b, w, **kw: fn(a, b, w[q], w[sc], **fixed, **kw)
+
+    # (kernel, variant) -> (ragged, its plain, dense grouped, its plain,
+    # tolerance); ragged ones take (x, counts, w), dense W4A8 ones
+    # (xq, sa, w), dense W4A16 (x, None, w)
+    groups = {
+        ("moe_w4a8_is", "fine"): (
+            lambda x, rc, w, **kw: mg.fg_grouped_gemm_integer_scale_ragged(
+                x, rc, w["packed"], w["int_scale"], alpha=w["alpha"], **kw),
+            lambda x, rc, w, **kw:
+                mg.fg_grouped_gemm_integer_scale_ragged_plain(
+                    x, rc, w["packed"], w["int_scale"], group_size=GROUP,
+                    alpha=w["alpha"], **kw),
+            lambda xq, sa, w, **kw: mg.fg_grouped_gemm_integer_scale(
+                xq, sa, w["packed"], w["int_scale"], alpha=w["alpha"], **kw),
+            lambda xq, sa, w, **kw: mg.fg_grouped_gemm_integer_scale_plain(
+                xq, sa, w["packed"], w["int_scale"], group_size=GROUP,
+                alpha=w["alpha"], **kw),
+            "exact"),
+        ("moe_w4a8_fs", "fine"): (
+            on_weights(mg.fg_grouped_gemm_float_scale_ragged, "packed", "scale"),
+            on_weights(mg.fg_grouped_gemm_float_scale_ragged_plain, "packed",
+               "scale", group_size=GROUP),
+            on_weights(mg.fg_grouped_gemm_float_scale, "packed", "scale"),
+            on_weights(mg.fg_grouped_gemm_float_scale_plain, "packed", "scale",
+               group_size=GROUP),
+            "fs"),
+        ("moe_w4a8_fs", "coarse"): (
+            on_weights(mg.fg_grouped_gemm_float_scale_ragged, "packed_c", "scale_c",
+               group_size=-1),
+            on_weights(mg.fg_grouped_gemm_float_scale_ragged_plain, "packed_c",
+               "scale_c", group_size=-1),
+            on_weights(mg.fg_grouped_gemm_float_scale, "packed_c", "scale_c",
+               group_size=-1),
+            on_weights(mg.fg_grouped_gemm_float_scale_plain, "packed_c", "scale_c",
+               group_size=-1),
+            "exact"),
+        ("moe_w4a16", "fine"): (
+            on_weights(mg.grouped_w4a16_gemm_ragged, "packed", "scale"),
+            on_weights(mg.grouped_w4a16_gemm_ragged_plain, "packed", "scale",
+               group_size=GROUP),
+            lambda x, _, w: mg.grouped_w4a16_gemm(x, w["packed"], w["scale"]),
+            lambda x, _, w: mg.grouped_w4a16_gemm_plain(
+                x, w["packed"], w["scale"], group_size=GROUP),
+            REL_TOLERANCE),
+    }
+    errs: dict[str, float] = {}
+
+    def bmm(x, wd):
+        return torch.bmm(x, wd)
+
+    def one(name, variant, C, K, N, x, rc, xq, sa, w, fns, w_bits=4):
+        ragged, ragged_plain, dense, dense_plain, how = fns
+        kw = {} if w_bits == 4 else dict(w_bits=8)
+        shape = [MOE_E, C, K, N]
+        dargs = (x, None, w) if name == "moe_w4a16" else (xq, sa, w)
+        y = ragged(x, rc, w, **kw)
+        y_d = dense(*dargs, **kw)
+        for tag, got, want in (("ragged", y, ragged_plain(x, rc, w, **kw)),
+                               ("dense", y_d, dense_plain(*dargs, **kw))):
+            e = _check(f"{name} {variant} {tag}", shape, got, want, how)
+            errs[name] = max(errs.get(name, 0.0), e)
+        if not torch.equal(y, y_d):
+            raise AssertionError(f"{name} {variant} {shape}: ragged != "
+                                 "dense grouped")
+        counts = [min(int(c), C) for c in rc.tolist()]
+        routed, active = sum(counts), sum(c > 0 for c in counts)
+        wbytes = K * N // (2 if w_bits == 4 else 1)
+        sbytes = (K // GROUP if variant == "fine" else 1) * N * 4
+        out_bytes = MOE_E * C * N * 4
+        wo = name == "moe_w4a16"
+        rate = BF16_FLOPS_PER_S if wo else INT8_OPS_PER_S
+        # ragged: the routed experts' weights, the routed bf16 rows; dense
+        # grouped: every expert and every row (codes + scale, or bf16)
+        b, by = bound(active * (wbytes + sbytes) + routed * K * 2
+                      + out_bytes, (2 * routed * K * N, rate))
+        db, dby = bound(MOE_E * (wbytes + sbytes) + out_bytes
+                        + MOE_E * C * (K * 2 if wo else K + 4),
+                        (2 * MOE_E * C * K * N, rate))
+        return dict(
+            kernel=name, variant=variant if w_bits == 4 else "w8",
+            shape=shape, counts=counts,
+            ms=time_ms(lambda *a: ragged(*a, **kw), [(x, rc, w)]),
+            plain_ms=time_ms(lambda *a: ragged_plain(*a, **kw), [(x, rc, w)],
+                             iters=2, reps=2),
+            bound_ms=b, bound_by=by,
+            dense_ms=time_ms(lambda *a: dense(*a, **kw), [dargs]),
+            dense_plain_ms=time_ms(lambda *a: dense_plain(*a, **kw), [dargs],
+                                   iters=2, reps=2),
+            dense_bound_ms=db, dense_bound_by=dby)
+
+    def inputs(C, K, counts):
+        """A bf16 (E, C, K) dispatch buffer zero past ``counts``, its
+        counts on the card, and its codes and scales."""
+        rc = torch.tensor(counts, dtype=torch.int32, device="cuda")
+        live = torch.arange(C, device="cuda")[None, :] < rc[:, None]
+        x = torch.where(live[..., None], torch.randn(
+            (MOE_E, C, K), generator=gen, device="cuda"), 0.0
+        ).to(torch.bfloat16)
+        xq, sa = act_quant_plain(x.reshape(MOE_E * C, K))
+        return x, rc, xq.reshape(MOE_E, C, K), sa.reshape(MOE_E, C, 1)
+
+    for K, N in MOE_KN:
+        w = moe_weights(gen, K, N)
+        for C in MOE_C:
+            x, rc, xq, sa = inputs(C, K, moe_counts(C, seed=C * K))
+            mm = time_ms(bmm, [(x, w["wd"])])
+            for (name, variant), fns in groups.items():
+                r = one(name, variant, C, K, N, x, rc, xq, sa, w, fns)
+                rows.append(dict(r, library_ms=mm if name == "moe_w4a16"
+                                 else None, bf16_matmul_ms=mm, copies=1))
+            del x, xq, sa
+        del w
+        torch.cuda.empty_cache()
+
+    # W8A8 weights through the IS kernel at one decode shape
+    K, N, C = 4096, 14336, 8
+    w = moe_weights(gen, K, N, w_bits=8)
+    x, rc, xq, sa = inputs(C, K, moe_counts(C, seed=7))
+    r = one("moe_w4a8_is", "fine", C, K, N, x, rc, xq, sa, w,
+            groups[("moe_w4a8_is", "fine")], w_bits=8)
+    rows.append(dict(r, library_ms=None,
+                     bf16_matmul_ms=time_ms(bmm, [(x, w["wd"])]), copies=1))
+    del w, x, xq, sa
+    torch.cuda.empty_cache()
+    return errs
 
 
 def build_models(api, cfg, recipes):
@@ -516,6 +725,83 @@ def serve_recipe(api, cfg, qparams, recipe, sc, prompts, *, drill=False,
     return eng, [outs[r] for r in rids], launches, reg, wall
 
 
+def report_serve(tag, name, api, cfg, eng, outs, launches, reg, wall, sc):
+    """Time one decode step (eager, and as a replayed CUDA graph), log the
+    serving numbers of one recipe and return them."""
+    step_eager, step_graph = time_decode_step(api, cfg, eng.model, sc)
+    ntok = sum(len(o) for o in outs)
+    phase = reg.histogram("engine_phase_seconds", "", ("phase",))
+    dev = reg.histogram("engine_phase_device_seconds", "", ("phase",))
+    ttft = reg.histogram("engine_ttft_seconds").get()
+
+    def mean(h, **lb):
+        st = h.get(**lb)
+        return st["sum"] / st["count"]
+
+    st = dict(
+        depth=cfg.num_layers, requests=len(outs), tokens=ntok,
+        wall_s=wall, tokens_per_s=ntok / wall, ticks=eng.ticks,
+        decode_tick_s=mean(phase, phase="decode"),
+        prefill_s=mean(phase, phase="prefill"),
+        ttft_mean_s=ttft["sum"] / ttft["count"],
+        decode_device_s=mean(dev, phase="decode"),
+        prefill_device_s=mean(dev, phase="prefill"),
+        step_eager_ms=step_eager, step_graph_ms=step_graph,
+        launches=launches)
+    log(f"[{tag}] {name}: {cfg.num_layers} layers, {len(outs)} requests "
+        f"ok, {ntok} tokens in {wall:.3f} s = {st['tokens_per_s']:.1f} "
+        f"tokens/s; {eng.ticks} ticks, {st['decode_tick_s'] * 1e3:.2f} ms "
+        f"per tick (device timer {st['decode_device_s'] * 1e3:.2f} ms); "
+        f"prefill {st['prefill_s'] * 1e3:.2f} ms (device timer "
+        f"{st['prefill_device_s'] * 1e3:.2f} ms); mean TTFT "
+        f"{st['ttft_mean_s'] * 1e3:.1f} ms")
+    log(f"[{tag}] {name}: one 4-slot decode step eager "
+        f"{step_eager:.3f} ms, CUDA graph replay {step_graph:.3f} ms "
+        f"(device idle share of the eager step "
+        f"{1 - step_graph / step_eager:.3f}); first token of prompt 0 is "
+        f"the argmax of the logits; launches {json.dumps(launches)}")
+    return st
+
+
+def first_token_is_argmax(tag, eng, toks, n0, first):
+    """The engine's first generated token for a prompt is the argmax of
+    the model's logits at the prompt's end."""
+    import torch
+
+    with torch.inference_mode():
+        lk = eng.model(toks)[0][0, n0 - 1]
+    if not torch.isfinite(lk).all():
+        raise AssertionError(f"{tag}: non-finite logits")
+    if first != int(torch.argmax(lk)):
+        raise AssertionError(f"{tag}: the engine's first token for prompt 0 "
+                             "is not the argmax of the model's logits")
+
+
+def plain_check(api, cfg, qparams, recipe, toks, n0, layers):
+    """Logits of the model cut to its first ``layers`` layers on the card
+    (kernels) against the same layers copied to the CPU (plain versions):
+    (max abs diff relative to the largest logit, CPU seconds)."""
+    import torch
+    from repro_torch.nn import spec as S
+
+    cut = dict(qparams, blocks=qparams["blocks"][:layers])
+    c2 = dataclasses.replace(cfg, num_layers=layers)
+    with torch.inference_mode():
+        la = api.build(c2, cut, recipe)(toks)[0][0, n0 - 1]
+        t0 = time.perf_counter()
+        on_cpu = S.tree_map(lambda t: t.cpu(), cut)
+        lp = api.build(c2, on_cpu, recipe)(toks.cpu())[0][0, n0 - 1]
+        cpu_s = time.perf_counter() - t0
+    rel = ((la.cpu() - lp).abs().max() / lp.abs().max()).item()
+    if not rel <= PLAIN_LOGIT_REL_TOL:
+        raise AssertionError(f"{cfg.name}: kernels vs plain versions, first "
+                             f"{layers} layers: logits rel {rel}")
+    log(f"[check] {cfg.name} {recipe.name}: first {layers} layers, kernels "
+        f"on the card vs plain versions on the CPU ({cpu_s:.1f} s): "
+        f"logits rel {rel:.2e} (<= {PLAIN_LOGIT_REL_TOL})")
+    return rel, cpu_s
+
+
 def check_launches(tag, launches, must):
     missing = sorted(k for k in must if launches[k] <= 0)
     extra = sorted(k for k, n in launches.items() if k not in must and n)
@@ -536,6 +822,8 @@ def main() -> int:
     from repro_torch.core.recipe import (DEFAULT_RECIPE, FLOAT_SCALE_RECIPE,
                                          W4A8_COARSE, WEIGHT_ONLY_RECIPE,
                                          QuantRecipe)
+    from repro_torch import obs
+    from repro_torch.core import ptq
     from repro_torch.kernels import _build
     from repro_torch.models.registry import get_arch, get_model
     from repro_torch.nn import spec as S
@@ -570,16 +858,22 @@ def main() -> int:
     rows: list[dict] = []
     errs = {"act_quant": check_act_quant(gen, rows),
             **check_gemms(gen, rows),
-            "flash_attention": check_flash(gen, rows)}
+            "flash_attention": check_flash(gen, rows),
+            **check_grouped(gen, rows)}
 
     def opt(v):
         return "-" if v is None else f"{v:.4f} ms"
 
     for r in rows:
+        extra = "" if "counts" not in r else (
+            f" counts {r['counts']}; dense grouped {r['dense_ms']:.4f} ms, "
+            f"plain {r['dense_plain_ms']:.4f} ms, bound "
+            f"{r['dense_bound_ms']:.5f} ms ({r['dense_bound_by']})")
         log(f"[kernel] {r['kernel']} {r['variant']} {r['shape']}: "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library "
-            f"{opt(r['library_ms'])}, bf16 matmul {opt(r['bf16_matmul_ms'])}")
+            f"{opt(r['library_ms'])}, bf16 matmul {opt(r['bf16_matmul_ms'])}"
+            f"{extra}")
     log(f"[kernel] max abs diff vs plain: {json.dumps(errs)}")
 
     # -- 4. llama2-7b at full width under four recipes ---------------------------
@@ -609,66 +903,13 @@ def main() -> int:
         check_launches(name, launches, KERNELS_OF[name])
         for k, n in launches.items():
             launches_total[k] += n
-        with torch.inference_mode():
-            lk = eng.model(toks)[0][0, n0 - 1]
-        if not torch.isfinite(lk).all():
-            raise AssertionError(f"{name}: non-finite logits")
-        if outs[0][0] != int(torch.argmax(lk)):
-            raise AssertionError(f"{name}: the engine's first token for "
-                                 "prompt 0 is not the argmax of the model's "
-                                 "logits")
+        first_token_is_argmax(name, eng, toks, n0, outs[0][0])
         if name == DEFAULT_RECIPE.name:
             # the kernels against the plain versions on the same weights
-            cut = dict(qparams[name],
-                       blocks=qparams[name]["blocks"][:PLAIN_CHECK_LAYERS])
-            c2 = dataclasses.replace(cfg, num_layers=PLAIN_CHECK_LAYERS)
-            with torch.inference_mode():
-                la = api.build(c2, cut, recipe)(toks)[0][0, n0 - 1]
-                t0 = time.perf_counter()
-                on_cpu = S.tree_map(lambda t: t.cpu(), cut)
-                lp = api.build(c2, on_cpu, recipe)(toks.cpu())[0][0, n0 - 1]
-                cpu_s = time.perf_counter() - t0
-            rel = ((la.cpu() - lp).abs().max() / lp.abs().max()).item()
-            if not rel <= PLAIN_LOGIT_REL_TOL:
-                raise AssertionError(f"kernels vs plain versions, first "
-                                     f"{PLAIN_CHECK_LAYERS} layers: logits "
-                                     f"rel {rel}")
-            log(f"[check] {name}: first {PLAIN_CHECK_LAYERS} layers, kernels "
-                f"on the card vs plain versions on the CPU ({cpu_s:.1f} s): "
-                f"logits rel {rel:.2e} (<= {PLAIN_LOGIT_REL_TOL})")
-        step_eager, step_graph = time_decode_step(api, cfg, eng.model, sc)
-        ntok = sum(len(o) for o in outs)
-        phase = reg.histogram("engine_phase_seconds", "", ("phase",))
-        dev = reg.histogram("engine_phase_device_seconds", "", ("phase",))
-        ttft = reg.histogram("engine_ttft_seconds").get()
-
-        def mean(h, **lb):
-            st = h.get(**lb)
-            return st["sum"] / st["count"]
-
-        st = dict(
-            depth=cfg.num_layers, requests=len(outs), tokens=ntok,
-            wall_s=wall, tokens_per_s=ntok / wall, ticks=eng.ticks,
-            decode_tick_s=mean(phase, phase="decode"),
-            prefill_s=mean(phase, phase="prefill"),
-            ttft_mean_s=ttft["sum"] / ttft["count"],
-            decode_device_s=mean(dev, phase="decode"),
-            prefill_device_s=mean(dev, phase="prefill"),
-            step_eager_ms=step_eager, step_graph_ms=step_graph,
-            launches=launches)
-        serve_stats[name] = st
-        log(f"[serve] {name}: {cfg.num_layers} layers, {len(outs)} requests "
-            f"ok, {ntok} tokens in {wall:.3f} s = {st['tokens_per_s']:.1f} "
-            f"tokens/s; {eng.ticks} ticks, {st['decode_tick_s'] * 1e3:.2f} ms "
-            f"per tick (device timer {st['decode_device_s'] * 1e3:.2f} ms); "
-            f"prefill {st['prefill_s'] * 1e3:.2f} ms (device timer "
-            f"{st['prefill_device_s'] * 1e3:.2f} ms); mean TTFT "
-            f"{st['ttft_mean_s'] * 1e3:.1f} ms")
-        log(f"[serve] {name}: one 4-slot decode step eager "
-            f"{step_eager:.3f} ms, CUDA graph replay {step_graph:.3f} ms "
-            f"(device idle share of the eager step "
-            f"{1 - step_graph / step_eager:.3f}); first token of prompt 0 is "
-            f"the argmax of the logits; launches {json.dumps(launches)}")
+            rel, cpu_s = plain_check(api, cfg, qparams[name], recipe, toks,
+                                     n0, PLAIN_CHECK_LAYERS)
+        serve_stats[name] = report_serve(
+            "serve", name, api, cfg, eng, outs, launches, reg, wall, sc)
         if name != DEFAULT_RECIPE.name:
             del eng
             torch.cuda.empty_cache()
@@ -705,7 +946,73 @@ def main() -> int:
     for p in prof_top:
         log(f"[profile]   {p['ms']:.3f} ms  x{p['count']}  {p['name']}")
 
-    # -- 8. report ----------------------------------------------------------------
+    del is_model, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 8. mixtral-8x7b at full width, one recipe at a time ------------------------
+    mcfg = get_arch("mixtral-8x7b")
+    mapi = get_model(mcfg)
+    log(f"[mixtral] {mcfg.name}: {mcfg.num_layers} layers, d_model "
+        f"{mcfg.d_model}, {mcfg.num_heads} query heads over "
+        f"{mcfg.num_kv_heads} KV heads, {mcfg.num_experts} experts top-"
+        f"{mcfg.top_k} of d_ff {mcfg.moe_d_ff}, vocab {mcfg.vocab_size}")
+    mixtral_stats: dict[str, dict] = {}
+    mrel = mcpu_s = None
+    for recipe in (DEFAULT_RECIPE, FLOAT_SCALE_RECIPE, WEIGHT_ONLY_RECIPE):
+        name = recipe.name
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with obs.use_registry(obs.Registry()):
+            mq = ptq.quantize_by_layer(mapi, mcfg, recipe, seed=0,
+                                       device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_peak = torch.cuda.max_memory_allocated()
+        qbytes = sum(t.numel() * t.element_size() for t in S.leaves(mq))
+        ebytes = sum(t.numel() * t.element_size() for blk in mq["blocks"]
+                     for k in ("gate", "up", "down")
+                     for t in S.leaves(blk["mlp"][k]))
+        log(f"[mixtral] {name}: built block by block in {build_s:.1f} s; "
+            f"weights on the card {qbytes / 1e9:.2f} GB (expert stacks "
+            f"{ebytes / 1e9:.2f} GB); peak allocated while building "
+            f"{build_peak / 1e9:.2f} GB")
+        torch.cuda.reset_peak_memory_stats()  # from here: serving's peak
+        eng, outs, launches, reg, wall = serve_recipe(
+            mapi, mcfg, mq, recipe, sc, prompts)
+        eng.close()  # no routing sink from here on: the graph capture below
+        check_launches(f"mixtral {name}", launches,
+                       KERNELS_OF[name] | {MOE_KERNEL_OF[name]})
+        for k, n in launches.items():
+            launches_total[k] += n
+        tiles = reg.counter("engine_moe_m_tiles_total", "", ("kind",))
+        executed, total = tiles.get(kind="executed"), tiles.get(kind="total")
+        if not 0 < executed <= total:
+            raise AssertionError(f"mixtral {name}: m-tiles executed "
+                                 f"{executed}, total {total}")
+        first_token_is_argmax(f"mixtral {name}", eng, toks, n0, outs[0][0])
+        if name == DEFAULT_RECIPE.name:
+            mrel, mcpu_s = plain_check(mapi, mcfg, mq, recipe, toks, n0,
+                                       MIXTRAL_PLAIN_CHECK_LAYERS)
+        st = report_serve("mixtral", name, mapi, mcfg, eng, outs, launches,
+                          reg, wall, sc)
+        st.update(build_s=build_s, weight_bytes=qbytes, expert_bytes=ebytes,
+                  build_peak_bytes=build_peak,
+                  peak_bytes=torch.cuda.max_memory_allocated(),
+                  m_tiles_executed=executed, m_tiles_total=total)
+        mixtral_stats[name] = st
+        log(f"[mixtral] {name}: m-tiles executed/total {executed:g}/"
+            f"{total:g}; peak allocated while serving "
+            f"{st['peak_bytes'] / 1e9:.2f} GB")
+        del eng, mq
+        gc.collect()
+        torch.cuda.empty_cache()
+    missing = sorted(k for k, n in launches_total.items() if n <= 0)
+    if missing:
+        raise AssertionError(f"kernels never launched on a served path: "
+                             f"{missing}")
+
+    # -- 9. report ----------------------------------------------------------------
     meta = {
         "act_quant": ("src/repro_torch/csrc/act_quant.cu",
                       "src/repro/kernels/act_quant.py:44", [4, 4096]),
@@ -721,6 +1028,15 @@ def main() -> int:
         "w4a16_gemm": ("src/repro_torch/csrc/w4a16_gemm.cu",
                        "src/repro/kernels/w4a16_gemm.py:63",
                        [4, 4096, 11008]),
+        "moe_w4a8_is": ("src/repro_torch/csrc/moe_w4a8_is.cu",
+                        "src/repro/kernels/moe_gemm.py:437",
+                        [MOE_E, 8, 4096, 14336]),
+        "moe_w4a8_fs": ("src/repro_torch/csrc/moe_w4a8_fs.cu",
+                        "src/repro/kernels/moe_gemm.py:437",
+                        [MOE_E, 8, 4096, 14336]),
+        "moe_w4a16": ("src/repro_torch/csrc/moe_w4a16.cu",
+                      "src/repro/kernels/moe_gemm.py:589",
+                      [MOE_E, 8, 4096, 14336]),
     }
     kernels = []
     for name, (src, replaces, shape) in meta.items():
@@ -741,7 +1057,11 @@ def main() -> int:
         "shapes": rows, "serve": serve_stats, "breaker_drill": drill,
         "launches_total": launches_total,
         "profile": {"device_ms": prof_total, "top": prof_top},
-        "check": {"plain_logit_rel": rel, "plain_layers": PLAIN_CHECK_LAYERS},
+        "check": {"plain_logit_rel": rel, "plain_layers": PLAIN_CHECK_LAYERS,
+                  "plain_cpu_s": cpu_s, "mixtral_plain_logit_rel": mrel,
+                  "mixtral_plain_layers": MIXTRAL_PLAIN_CHECK_LAYERS,
+                  "mixtral_plain_cpu_s": mcpu_s},
+        "mixtral": mixtral_stats,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

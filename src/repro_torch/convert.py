@@ -1,10 +1,11 @@
 """Carry parameter trees between the reference's layout and the port's
 (no JAX counterpart).
 
-The reference scans its layers over stacked leaves: a dense model's
-blocks sit under ``blocks/s0/...`` with a leading layer axis
-(``repro/models/transformer.py`` ``param_specs``); the port keeps one tree
-per layer in ``params["blocks"]``. :func:`from_reference` takes the
+The reference scans its layers over stacked leaves: a dense or MoE
+model's blocks sit under ``blocks/s0/...`` with a leading layer axis
+(``repro/models/transformer.py`` ``param_specs``; a MoE leaf is
+(L, E, ...), its router (L, d, E)); the port keeps one tree per layer in
+``params["blocks"]``, with (E, ...) expert stacks. :func:`from_reference` takes the
 reference tree as numpy arrays — fp or quantized — and unstacks it;
 :func:`to_reference` stacks a port tree back. Values are carried bit for
 bit (``qvalue``, ``scale`` and ``alpha`` included); bf16 arrays (numpy
@@ -35,12 +36,13 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def from_reference(tree: dict, *, device=None) -> dict:
-    """Reference dense-model param tree (numpy leaves) -> port tree
+    """Reference dense or MoE param tree (numpy leaves) -> port tree
     (tensors on ``device``, default the GPU)."""
     dev = S.resolve_device(device)
     if set(tree.get("blocks", {})) != {"s0"} or "prefix" in tree:
         raise NotImplementedError(
-            "only the dense layout (one scanned block, blocks/s0) is ported")
+            "only one scanned block kind (blocks/s0: dense or MoE) is "
+            "ported")
     stacked = tree["blocks"]["s0"]
     layers = len(S.leaves(stacked)[0])
     out = {k: v for k, v in tree.items() if k != "blocks"}
@@ -50,7 +52,7 @@ def from_reference(tree: dict, *, device=None) -> dict:
 
 
 def to_reference(params: dict) -> dict:
-    """Port tree -> the reference's dense layout as numpy (bf16 leaves as
+    """Port tree -> the reference's scanned layout as numpy (bf16 leaves as
     f32 arrays holding the same values)."""
     out = {k: S.tree_map(_to_numpy, v)
            for k, v in params.items() if k != "blocks"}

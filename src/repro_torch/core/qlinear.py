@@ -1,13 +1,15 @@
 """Quantized linear layer: spec declaration, offline quantization, apply.
 Port of ``repro/core/qlinear.py``.
 
-A linear layer is declared through :func:`linear_specs`; depending on the
+A linear layer is declared through :func:`linear_specs` (a MoE layer's
+expert-stacked linears through :func:`expert_linear_specs`); depending on the
 :class:`~repro_torch.core.recipe.QuantSpec` attached to its path it is
 
   * an FP (bf16) linear                        (spec is None)
   * fine/coarse W{4,8}A{4,8,16} quantized      (storage: packed int4 / int8)
 
-Apply runs every quantized scheme through ``kernels.ops.qgemm``. The
+Apply runs every quantized scheme through ``kernels.ops.qgemm``
+(:func:`grouped_linear_apply`: ``kernels.ops.qgemm_grouped``). The
 tensor's device is the only switch: on CUDA tensors the wrappers launch
 the Hopper kernels (or raise), on CPU tensors they take their plain
 PyTorch versions. There is no kernel mode to thread.
@@ -58,6 +60,16 @@ def linear_specs(K: int, N: int, qspec: QuantSpec | None, *,
     if bias:
         out["b"] = S.zeros((N,), dtype=dtype)
     return out
+
+
+def expert_linear_specs(E: int, K: int, N: int, qspec: QuantSpec | None, *,
+                        dtype=torch.bfloat16) -> dict:
+    """Specs of E stacked linears (K, N): every leaf of
+    :func:`linear_specs` with a leading expert axis, so a quantized
+    expert stack carries one amplifier per expert (``alpha`` (E,))."""
+    return S.tree_map(
+        lambda s: S.ParamSpec((E, *s.shape), s.dtype, s.init, s.init_scale),
+        linear_specs(K, N, qspec, dtype=dtype))
 
 
 def _check_supported(qspec: QuantSpec) -> None:
@@ -134,6 +146,17 @@ def quantize_linear(w: torch.Tensor, qspec: QuantSpec, *,
     return finish_quant(qw.qvalue, scales, qspec, bias=bias)
 
 
+def quantize_experts(w: torch.Tensor, qspec: QuantSpec, *,
+                     bias: torch.Tensor | None = None) -> dict:
+    """An expert stack (E, K, N): each expert's slice quantized on its own
+    (its own scales and its own overflow-capped alpha), then stacked, as
+    the reference's PTQ quantizes expert slices."""
+    outs = [quantize_linear(w[e], qspec,
+                            bias=None if bias is None else bias[e])
+            for e in range(w.shape[0])]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
 # ---------------------------------------------------------------------------
 # Apply
 # ---------------------------------------------------------------------------
@@ -159,6 +182,36 @@ def linear_apply(params: dict, x: torch.Tensor,
     y = y2.reshape(*lead, -1).to(x.dtype)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
+    return y
+
+
+def grouped_linear_apply(params: dict, x: torch.Tensor,
+                         qspec: QuantSpec | None, *,
+                         row_counts: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """Batched-expert linear: x (E, C, K) -> (E, C, N), params stacked
+    with a leading expert axis (the MoE dispatch-buffer path).
+
+    Quantized experts run in ONE grouped ragged kernel per call
+    (``kernels.ops.qgemm_grouped``) with the activation quantization fused
+    and the per-expert ``alpha`` folded into the activation scales.
+    ``row_counts`` (int32 (E,), on the device; rows past it are
+    zero-filled by the dispatch) lets the kernel skip capacity-padding
+    m-tiles; ``None`` treats every slot as routed. Returns x's dtype.
+    """
+    if qspec is None:
+        y = torch.bmm(x, params["w"].to(x.dtype))
+        if "b" in params:
+            y = y + params["b"][:, None, :].to(y.dtype)
+        return y
+    if "pre_scale" in params or "rot" in params:
+        raise NotImplementedError(
+            "pre_scale / rot come with the calibration port slice")
+    core = {k: v for k, v in params.items()
+            if k in ("qvalue", "scale", "alpha")}
+    y = kops.qgemm_grouped(x, core, qspec, row_counts=row_counts).to(x.dtype)
+    if "b" in params:
+        y = y + params["b"][:, None, :].to(y.dtype)
     return y
 
 

@@ -28,23 +28,7 @@
 //   s_a[m], exactly the plain version's arithmetic: bit-exact. Fine: f32
 //   group sums in a fixed order where the plain version's torch.sum fixes
 //   none, so the two agree to f32 rounding.
-#include "w4a8_tile.cuh"
-
-namespace {
-
-struct FloatScale {
-  using Acc = float;
-  using Value = float;
-  // THE float-scale step: I32 -> F32 convert, multiply, add
-  __device__ static __forceinline__ float group(float acc, int part, float s) {
-    return __fadd_rn(acc, __fmul_rn(__int2float_rn(part), s));
-  }
-  __device__ static __forceinline__ float out(float acc, float fac) {
-    return __fmul_rn(acc, fac);
-  }
-};
-
-}  // namespace
+#include "w4a8_tile.cuh"  // the loop and the FloatScale policy
 
 // xq (M, K) int8; sa (M,) f32; w (K/2, N) packed int4 (w_bits = 4) or
 // (K, N) int8 (w_bits = 8); s (K/gs, N) f32; out (M, N) f32. All

@@ -21,29 +21,7 @@
 // Integer sums do not depend on order, so the output is bit-identical to the
 //   plain PyTorch version. Integer arithmetic wraps (two's complement) like
 //   the reference's int32; the quantizer caps alpha so it never does.
-#include "w4a8_tile.cuh"
-
-namespace {
-
-__device__ __forceinline__ int wrap_mad(int acc, int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(acc) +
-                          static_cast<unsigned>(a) * static_cast<unsigned>(b));
-}
-
-struct IntegerScale {
-  using Acc = int;
-  using Value = int;
-  // THE integer-scale step, in int32
-  __device__ static __forceinline__ int group(int acc, int part, int s) {
-    return wrap_mad(acc, part, s);
-  }
-  // one I32 -> F32 convert times s_a / alpha
-  __device__ static __forceinline__ float out(int acc, float fac) {
-    return __int2float_rn(acc) * fac;
-  }
-};
-
-}  // namespace
+#include "w4a8_tile.cuh"  // the loop and the IntegerScale policy
 
 // xq (M, K) int8; fac (M,) f32 = s_a / alpha; w (K/2, N) packed int4
 // (w_bits = 4) or (K, N) int8 (w_bits = 8); s (K/gs, N) int32; out (M, N)

@@ -30,7 +30,7 @@ import time
 from pathlib import Path
 
 KERNELS = ("act_quant", "w4a8_gemm_is", "flash_attention", "w4a8_gemm_fs",
-           "w4a16_gemm")
+           "w4a16_gemm", "moe_w4a8_is", "moe_w4a8_fs", "moe_w4a16")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <repo>/build/repro_torch when run from a checkout (src/repro_torch/...)

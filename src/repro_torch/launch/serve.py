@@ -6,6 +6,9 @@ continuous-batching engine over a stream of requests. Port of
         --scale-mode float --requests 8            # on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch llama2-7b --smoke --a-bits 16       # plain versions, CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch mixtral-8x7b --smoke                # MoE, plain versions
 
 The recipe flags (``--scale-mode``, ``--w-bits``, ``--a-bits``,
 ``--group``, ``--amplifier``, ``--fp``) choose among the paper's schemes:
@@ -16,11 +19,14 @@ launches its Hopper kernel; with ``--device cpu`` the kernels' plain
 versions run.
 
 ``--arch bench-lm`` (the default) is a random init of the reference's
-~30M benchmark LM from a seeded ``torch.Generator``, reported as
-``trained=False``: the reference loads a trained checkpoint through
-``benchmarks.common``, which is outside the port and absent from the
-repo. Registry architectures run at their published widths unless
-``--smoke`` is given. Only ``--algo rtn`` is ported; the calibration
+~30M benchmark LM, reported as ``trained=False``: the reference loads a
+trained checkpoint through ``benchmarks.common``, which is outside the
+port and absent from the repo. Registry architectures run at their
+published widths unless ``--smoke`` is given. Weights are random, drawn
+block by block from generators seeded per block (``core.ptq``): a
+quantized model is built one block at a time, so Mixtral-8x7B, whose
+93 GB of bf16 weights exceed the card, never holds more than one block's
+fp weights (about 2.9 GB) on it. Only ``--algo rtn`` is ported; the calibration
 algorithms come with the calibration slice.
 
 ``--metrics-out PATH`` writes the run's telemetry as JSONL (one event per
@@ -45,26 +51,25 @@ from __future__ import annotations
 import argparse
 import time
 
-import torch
-
 from repro_torch import obs
 from repro_torch.core import ptq
 from repro_torch.core.recipe import QuantRecipe, QuantSpec
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
-from repro_torch.nn import spec as S
 from repro_torch.serving.engine import Engine, ServeConfig
 
 
-def _load_model(arch: str, smoke: bool, device: str):
-    """(api, cfg, fp params, trained) with weights drawn from seed 0 on
-    ``device``."""
+def _load_model(arch: str, smoke: bool, device: str, recipe):
+    """(api, cfg, params, trained): random weights from seed 0 on
+    ``device``, quantized block by block under ``recipe`` (fp if None)."""
     from repro_torch.configs.paper_llama import bench_lm
     from repro_torch.models.registry import get_arch, get_model
 
     cfg = bench_lm() if arch == "bench-lm" else get_arch(arch, smoke=smoke)
     api = get_model(cfg)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = S.materialize(api.param_specs(cfg, None), gen, device=device)
+    if recipe is None:
+        params = ptq.materialize_by_layer(api, cfg, device=device)
+    else:
+        params = ptq.quantize_by_layer(api, cfg, recipe, device=device)
     return api, cfg, params, False
 
 
@@ -118,6 +123,13 @@ def _telemetry_cell(reg: obs.Registry) -> bool:
         for sk, st in h.get(name, {}).items():
             print(f"[serve] {name}{('{' + sk + '}') if sk else ''}: "
                   f"{_fmt_hist(st)}")
+    tiles = c.get("engine_moe_m_tiles_total", {})
+    if tiles:
+        ex = tiles.get('kind="executed"', 0)
+        tot = tiles.get('kind="total"', 0)
+        frac = f" ({ex / tot:.2f}x dense)" if tot else ""
+        print(f"[serve] moe m-tiles executed/total={int(ex)}/{int(tot)}"
+              f"{frac}")
     if c.get("qgemm_calls_total"):
         print(f"[serve] qgemm_calls_total: {c['qgemm_calls_total']}")
     print(f"[serve] alpha_cap_events_total="
@@ -197,23 +209,22 @@ def main(argv: list[str] | None = None) -> int:
             "algorithms come with the calibration slice (ROADMAP item 12)")
 
     reg = obs.current_registry()
-    api, cfg, params, trained = _load_model(args.arch, args.smoke,
-                                            args.device)
-    print(f"[serve] model={cfg.name} layers={cfg.num_layers} "
-          f"d_model={cfg.d_model} trained={trained} device={args.device}")
-    if args.fp:
-        recipe, qparams = None, params
-    else:
+    recipe = None
+    if not args.fp:
         amp = (args.amplifier if not args.amplifier.isdigit()
                else int(args.amplifier))
         spec = QuantSpec(w_bits=args.w_bits, a_bits=args.a_bits,
                          group_size=args.group, scale_mode=args.scale_mode,
                          amplifier=amp, algo=args.algo)
         recipe = QuantRecipe(rules=(("*", spec),), name=spec.name)
-        t0 = time.time()
-        qparams = ptq.post_training_quantize(api, cfg, params, recipe)
-        del params
-        print(f"[serve] quantized ({spec.name}) in {time.time() - t0:.1f}s")
+    t0 = time.time()
+    api, cfg, qparams, trained = _load_model(args.arch, args.smoke,
+                                             args.device, recipe)
+    print(f"[serve] model={cfg.name} layers={cfg.num_layers} "
+          f"d_model={cfg.d_model} trained={trained} device={args.device}")
+    if recipe is not None:
+        print(f"[serve] quantized ({recipe.name}) block by block in "
+              f"{time.time() - t0:.1f}s")
 
     sc = ServeConfig(max_slots=args.slots, max_seq=args.max_seq,
                      prefill_len=args.prefill_len,
@@ -255,6 +266,7 @@ def main(argv: list[str] | None = None) -> int:
         for rid in sorted(outs)[:4]:
             print(f"[serve] r{rid}: {outs[rid][:16]}...")
     finally:
+        eng.close()
         conserved = _telemetry_cell(reg)
         if args.metrics_out:
             n = reg.write_events_jsonl(args.metrics_out)

@@ -24,9 +24,9 @@ class ModelApi:
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet (dense and moe only)")
     mod = importlib.import_module("repro_torch.models.transformer")
     return ModelApi(mod.param_specs, mod.cache_specs, mod.build)
 

@@ -62,6 +62,20 @@ which raises on a double retire, so ``sum(engine_request_outcomes_total)
 Fault injection for all of the above lives in ``repro_torch.serving.chaos``
 (through :meth:`Engine.add_decode_wrapper`).
 
+MoE routing
+-----------
+For a MoE config the engine registers a routing sink
+(``models.moe.add_routing_sink``, as a ``WeakMethod`` so the global sink
+list never keeps a retired engine alive). Each MoE layer call hands it
+the routed counts as a device tensor; at the tick boundary (after the
+admits, and after each decode tick) the engine copies the buffered counts
+to the host in ONE transfer and folds them into
+``engine_moe_m_tiles_total{kind=executed|total}`` with the grouped
+kernels' own row tile (``kernels.w4a8_gemm.pick_tile_m``): ``total`` is
+what a capacity-padded launch runs, ``executed`` what the ragged kernels
+run (dense on the CPU, where the plain versions compute every row, and
+with ``dispatch_groups`` > 1). :meth:`Engine.close` detaches the sink.
+
 Telemetry (repro_torch.obs), all host-side at tick boundaries:
 admit/prefill/decode/retire spans into ``engine_phase_seconds{phase}``;
 prefill and decode wrapped in ``obs.device_timer`` into
@@ -77,12 +91,16 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import weakref
 from typing import Any
 
 import torch
 
 from repro_torch import obs
 from repro_torch.distributed.fault import Heartbeat, HeartbeatConfig
+from repro_torch.kernels.moe_gemm import ragged_tile_stats
+from repro_torch.kernels.w4a8_gemm import pick_tile_m
+from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import ModelApi
 from repro_torch.nn import spec as S
@@ -164,6 +182,13 @@ class Engine:
             HeartbeatConfig(straggler_factor=serve_cfg.slow_tick_factor),
             on_straggler=self._on_slow_tick,
             clock=lambda: obs.current_registry().now())
+        # MoE routing sink: a WeakMethod, so the global sink list never
+        # pins a retired engine alive (see the module docstring)
+        self._routing_buf: list[dict] = []
+        self._routing_sink = None
+        if cfg.num_experts:
+            self._routing_sink = weakref.WeakMethod(self._on_routing)
+            moe.add_routing_sink(self._routing_sink)
         self._build_fns()
         self.device = self.model.embed.device
         self.cache = S.materialize(
@@ -177,6 +202,9 @@ class Engine:
         reg.counter("engine_tokens_total", "tokens decoded across slots")
         reg.counter("engine_requests_total", "request lifecycle events",
                     ("event",))
+        reg.counter("engine_moe_m_tiles_total",
+                    "MoE grouped-GEMM m-tiles from live routing: executed "
+                    "(ragged skipping applied) vs dense total", ("kind",))
         out = reg.counter("engine_request_outcomes_total",
                           "terminal per-request outcomes (conservation: "
                           "sums to submitted once drained)", ("outcome",))
@@ -244,6 +272,51 @@ class Engine:
         reg.counter("engine_slow_ticks_total", "").inc()
         reg.emit({"ev": "slow_tick", "tick": step,
                   "seconds": round(dt, 6), "median_s": round(med, 6)})
+
+    def _on_routing(self, rec: dict) -> None:
+        self._routing_buf.append(rec)
+
+    def _drain_routing(self) -> None:
+        """Fold the buffered routing records into the m-tile counters: ONE
+        host copy of all their counts, at the tick boundary."""
+        if not self._routing_buf:
+            return
+        buf, self._routing_buf = self._routing_buf, []
+        flat = torch.cat([r["counts"].reshape(-1) for r in buf]).tolist()
+        ragged = self.device.type == "cuda" and self.recipe is not None
+        E = self.cfg.num_experts
+        executed = total = at = 0
+        for rec in buf:
+            C, groups = rec["capacity"], rec["counts"].shape[0]
+            for _ in range(groups):
+                st = ragged_tile_stats(flat[at:at + E], C, bm=pick_tile_m(C))
+                at += E
+                total += st["dense_m_tiles"]
+                executed += (st["ragged_m_tiles"] if ragged and groups == 1
+                             else st["dense_m_tiles"])
+        tiles = obs.current_registry().counter(
+            "engine_moe_m_tiles_total", "", ("kind",))
+        tiles.inc(executed, kind="executed")
+        tiles.inc(total, kind="total")
+
+    def _sample_counters(self, reg) -> None:
+        """One ``counters`` event per tick sampling the cumulative m-tile
+        and qgemm counters: the timeline's counter tracks."""
+        tiles = reg.counter("engine_moe_m_tiles_total", "", ("kind",))
+        calls = reg.counter("qgemm_calls_total", "kernels.ops wrapper calls",
+                            ("scheme", "kind", "shape", "block"))
+        reg.emit({"ev": "counters", "tick": self._steps - 1,
+                  "moe_executed": tiles.get(kind="executed"),
+                  "moe_total": tiles.get(kind="total"),
+                  "qgemm_calls": calls.total()})
+
+    def close(self) -> None:
+        """Detach the MoE routing sink. Idempotent; safe to skip, since the
+        WeakMethod is pruned once the engine dies."""
+        if self._routing_sink is not None:
+            moe.remove_routing_sink(self._routing_sink)
+            self._routing_sink = None
+        self._routing_buf.clear()
 
     def trace_id(self, rid: int) -> str:
         return f"{self.engine_id}/r{rid}"
@@ -491,6 +564,7 @@ class Engine:
             self._fail_streak = 0
             reg.counter("engine_requests_total", "", ("event",)).inc(
                 event="admitted")
+        self._drain_routing()
 
     def _tick(self) -> None:
         if not any(s.active for s in self.slots):
@@ -535,6 +609,8 @@ class Engine:
         self._steps += 1
         reg.counter("engine_ticks_total", "").inc()
         reg.counter("engine_tokens_total", "").inc(active - len(bad))
+        self._drain_routing()
+        self._sample_counters(reg)
         with obs.span(reg, "engine_phase_seconds", phase="retire",
                       event="phase"):
             now = reg.now()

@@ -13,8 +13,11 @@ its f32 group terms in another order than ``torch.sum``: rtol 1e-5, atol
 1e-4. W4A16 dequantizes bit-identically and differs only in the f32 sum
 order: max abs diff <= ``w4a16_gemm.REL_TOLERANCE`` x max|plain|, with TF32
 off. Flash attention in bf16 is held to ``flash_attention.TOLERANCE``.
-The CPU side of the same wrappers is tested against the JAX reference in
-``tests/test_torch_kernels.py``.
+The grouped (MoE) kernels keep the same bounds against their plain
+versions, and the ragged entry points equal the dense-grouped ones bit for
+bit on a buffer zero-filled past the counts. The CPU side of the same
+wrappers is tested against the JAX reference in
+``tests/test_torch_kernels.py`` and ``tests/test_torch_moe.py``.
 """
 import numpy as np
 import pytest
@@ -23,7 +26,7 @@ import torch
 from repro_torch.core import integer_scale as isc
 from repro_torch.core import packing, qlinear, quant
 from repro_torch.core.recipe import QuantSpec
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, moe_gemm, ops
 from repro_torch.kernels.act_quant import act_quant, act_quant_plain
 from repro_torch.kernels.flash_attention import (TOLERANCE, flash_attention,
                                                  flash_attention_plain)
@@ -189,3 +192,208 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="unsupported"):
         flash_attention(q, q, q)  # head_dim 32 has no instantiation
+
+
+# -- the grouped (MoE) kernels -------------------------------------------------
+# (E, C, K, N, g, counts): an empty expert, counts not a multiple of the row
+# tile, every expert at capacity, C below the decode tile (Mixtral's decode
+# capacity 8) and not a multiple of the prefill tile (its prefill capacity
+# 40), and K = 14336 (Mixtral's down projection: the fused act-quant cannot
+# hold the row slab in shared memory)
+GROUPED = [
+    (3, 24, 256, 128, 128, [0, 13, 24]),
+    (3, 24, 256, 128, 128, [5, 13, 21]),
+    (3, 24, 512, 256, 128, [24, 24, 24]),
+    (8, 8, 512, 192, 128, [0, 8, 1, 3, 0, 2, 4, 7]),
+    (4, 40, 384, 128, 128, [40, 0, 17, 39]),
+    (2, 40, 14336, 128, 128, [33, 5]),
+]
+
+
+def _grouped_operands(cuda, E, C, K, N, g, counts, w_bits=4,
+                      dtype=torch.bfloat16):
+    """Per-expert RTN weights (packed codes, f32 and integer scales with
+    per-expert alphas) and a raw dispatch buffer zero-filled past counts."""
+    packed, fscale, iscale, alphas = [], [], [], []
+    for e in range(E):
+        w = _normal(100 + e, (K, N), 0.05 * 4.0 ** (e % 3), cuda)
+        qw = quant.quantize_weight(w, w_bits, g)
+        isw = isc.integerize(qw, "heuristic+6")
+        packed.append(packing.pack_int4(qw.qvalue) if w_bits == 4
+                      else qw.qvalue)
+        fscale.append(qw.scale)
+        iscale.append(isw.int_scale)
+        alphas.append(float(isw.alpha))
+    x = _normal(7, (E, C, K), 1.0, cuda)
+    live = torch.arange(C, device=cuda)[None, :] < torch.tensor(
+        counts, device=cuda)[:, None]
+    x = torch.where(live[..., None], x, 0.0).to(dtype)
+    return (x, torch.tensor(counts, dtype=torch.int32, device=cuda),
+            torch.stack(packed), torch.stack(fscale), torch.stack(iscale),
+            torch.tensor(alphas, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,K,N,g,counts", GROUPED)
+@pytest.mark.parametrize("w_bits", [4, 8])
+@pytest.mark.parametrize("bm", [0, 16, 64])
+def test_grouped_is_kernel_bit_exact_and_ragged_equals_dense(
+        cuda, E, C, K, N, g, counts, w_bits, bm):
+    x, rc, qv, _, iscale, alpha = _grouped_operands(cuda, E, C, K, N, g,
+                                                    counts, w_bits)
+    assert len(set(alpha.tolist())) > 1  # per-expert amplifiers
+    before = _build.LAUNCHES["moe_w4a8_is"]
+    y = moe_gemm.fg_grouped_gemm_integer_scale_ragged(
+        x, rc, qv, iscale, group_size=g, alpha=alpha, w_bits=w_bits, bm=bm)
+    y_p = moe_gemm.fg_grouped_gemm_integer_scale_ragged_plain(
+        x, rc, qv, iscale, group_size=g, alpha=alpha, w_bits=w_bits)
+    assert torch.equal(y, y_p)
+    xq, sa = act_quant_plain(x.reshape(E * C, K))
+    y_d = moe_gemm.fg_grouped_gemm_integer_scale(
+        xq.reshape(E, C, K), sa.reshape(E, C, 1), qv, iscale, group_size=g,
+        alpha=alpha, w_bits=w_bits, bm=bm)
+    assert torch.equal(y, y_d)  # ragged == dense grouped on zero padding
+    assert _build.LAUNCHES["moe_w4a8_is"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,K,N,g,counts", GROUPED)
+@pytest.mark.parametrize("g_mode", ["fine", "coarse"])
+@pytest.mark.parametrize("w_bits", [4, 8])
+def test_grouped_fs_kernel_vs_plain_and_ragged_equals_dense(
+        cuda, E, C, K, N, g, counts, g_mode, w_bits):
+    gs = g if g_mode == "fine" else -1
+    x, rc, _, _, _, _ = _grouped_operands(cuda, E, C, K, N, g, counts)
+    qs = [quant.quantize_weight(_normal(200 + e, (K, N), 0.05, cuda), w_bits,
+                                gs) for e in range(E)]
+    qv = torch.stack([packing.pack_int4(q.qvalue) if w_bits == 4
+                      else q.qvalue for q in qs])
+    scale = torch.stack([q.scale if gs > 0 else q.scale[None, :]
+                         for q in qs])
+    y = moe_gemm.fg_grouped_gemm_float_scale_ragged(
+        x, rc, qv, scale, group_size=gs, w_bits=w_bits)
+    y_p = moe_gemm.fg_grouped_gemm_float_scale_ragged_plain(
+        x, rc, qv, scale, group_size=gs, w_bits=w_bits)
+    if gs < 0:
+        assert torch.equal(y, y_p)  # coarse: the plain arithmetic exactly
+    else:
+        torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-4)
+    xq, sa = act_quant_plain(x.reshape(E * C, K))
+    y_d = moe_gemm.fg_grouped_gemm_float_scale(
+        xq.reshape(E, C, K), sa.reshape(E, C, 1), qv, scale, group_size=gs,
+        w_bits=w_bits)
+    assert torch.equal(y, y_d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,K,N,g,counts", GROUPED)
+@pytest.mark.parametrize("bm", [0, 16, 64])
+def test_grouped_w4a16_kernel_vs_plain_and_ragged_equals_dense(
+        cuda, E, C, K, N, g, counts, bm):
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain f32 product
+    x, rc, qv, fscale, _, _ = _grouped_operands(cuda, E, C, K, N, g, counts)
+    y = moe_gemm.grouped_w4a16_gemm_ragged(x, rc, qv, fscale, group_size=g,
+                                           bm=bm)
+    y_p = moe_gemm.grouped_w4a16_gemm_ragged_plain(x, rc, qv, fscale,
+                                                   group_size=g)
+    err = (y - y_p).abs().max().item()
+    assert err <= REL_TOLERANCE * y_p.abs().max().item(), err
+    y_d = moe_gemm.grouped_w4a16_gemm(x, qv, fscale, group_size=g, bm=bm)
+    assert torch.equal(y, y_d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_kernels_zero_past_counts_and_clamp(cuda, dtype):
+    """Rows past the counts are exact zeros even when the buffer holds
+    data there; counts above C act as C, negative ones as 0; None is all
+    C (the reference's ragged contracts)."""
+    E, C, K, N, g = 3, 24, 256, 128, 128
+    x, _, qv, fscale, iscale, alpha = _grouped_operands(
+        cuda, E, C, K, N, g, [C] * E, dtype=dtype)
+    for fn, w in ((lambda rc: moe_gemm.fg_grouped_gemm_integer_scale_ragged(
+                       x, rc, qv, iscale, group_size=g, alpha=alpha), iscale),
+                  (lambda rc: moe_gemm.fg_grouped_gemm_float_scale_ragged(
+                      x, rc, qv, fscale, group_size=g), fscale),
+                  (lambda rc: moe_gemm.grouped_w4a16_gemm_ragged(
+                      x, rc, qv, fscale, group_size=g), fscale)):
+        counts = torch.tensor([9, 0, 100], dtype=torch.int32, device=cuda)
+        y = fn(counts)
+        assert not y[0, 9:].any() and not y[1].any() and y[0, :9].any()
+        assert torch.equal(y[2], fn(None)[2])
+        assert torch.equal(fn(torch.tensor([-3, 24, 24], device=cuda)),
+                           fn(torch.tensor([0, 24, 24], device=cuda)))
+
+
+@pytest.mark.cuda
+def test_grouped_kernel_reads_counts_on_the_device(cuda):
+    """The wrapper never reads the counts on the host: a CUDA graph captured
+    once follows counts written in place before each replay."""
+    E, C, K, N, g = 4, 8, 256, 128, 128
+    x, _, qv, _, iscale, alpha = _grouped_operands(cuda, E, C, K, N, g,
+                                                   [C] * E)
+    rc = torch.zeros(E, dtype=torch.int32, device=cuda)
+    moe_gemm.fg_grouped_gemm_integer_scale_ragged(  # build + load outside
+        x, rc, qv, iscale, group_size=g, alpha=alpha)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = moe_gemm.fg_grouped_gemm_integer_scale_ragged(
+            x, rc, qv, iscale, group_size=g, alpha=alpha)
+    for counts in ([0, 8, 3, 5], [8, 0, 0, 1]):
+        rc.copy_(torch.tensor(counts, dtype=torch.int32))
+        graph.replay()
+        want = moe_gemm.fg_grouped_gemm_integer_scale_ragged_plain(
+            x, rc, qv, iscale, group_size=g, alpha=alpha)
+        assert torch.equal(y, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["w4a8-is", "w4a8-fs", "w4a16-fg"])
+def test_moe_model_on_the_card_matches_plain_and_captures(cuda, name):
+    """The smoke Mixtral on the card: logits within 2e-2 of the largest
+    against the same weights on the CPU (plain versions); the grouped
+    kernel of the recipe launched; a decode step captured as a CUDA graph
+    (no host sync in the MoE layer) replays the eager step's logits."""
+    from repro_torch.core import ptq
+    from repro_torch.core.recipe import (DEFAULT_RECIPE, FLOAT_SCALE_RECIPE,
+                                         WEIGHT_ONLY_RECIPE)
+    from repro_torch.models.registry import get_arch, get_model
+    from repro_torch.nn import spec as S
+
+    recipe = {r.name: r for r in (DEFAULT_RECIPE, FLOAT_SCALE_RECIPE,
+                                  WEIGHT_ONLY_RECIPE)}[name]
+    kernel = {"w4a8-is": "moe_w4a8_is", "w4a8-fs": "moe_w4a8_fs",
+              "w4a16-fg": "moe_w4a16"}[name]
+    cfg = get_arch("mixtral-8x7b", smoke=True)
+    api = get_model(cfg)
+    params = ptq.quantize_by_layer(api, cfg, recipe, device=cuda)
+    model = api.build(cfg, params, recipe)
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (2, 16))).to(cuda)
+    _build.reset_launches()
+    with torch.inference_mode():
+        got = model(toks)[0]
+    assert _build.LAUNCHES[kernel] == 2 * 3  # 2 MoE layers x 3 linears
+    cpu = api.build(cfg, S.tree_map(lambda t: t.cpu(), params), recipe)
+    with torch.inference_mode():
+        want = cpu(toks.cpu())[0]
+    rel = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+    assert rel <= 2e-2, rel
+
+    cache = S.materialize(api.cache_specs(cfg, 4, 32), device=cuda)
+    last = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (4, 1))).to(cuda)
+    pos = torch.tensor([3, 7, 0, 12], device=cuda)
+    with torch.inference_mode():
+        eager = model(last, mode="decode", cache=cache, pos=pos)[0]
+        side = torch.cuda.Stream()  # warm up off the capture stream
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            model(last, mode="decode", cache=cache, pos=pos)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = model(last, mode="decode", cache=cache, pos=pos)[0]
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(out, eager)

@@ -255,7 +255,9 @@ def test_port_imports_and_runs_without_jax_or_repro():
         " 'repro_torch.obs.profile', 'repro_torch.obs.timeline',"
         " 'repro_torch.distributed.fault', 'repro_torch.data.pipeline',"
         " 'repro_torch.kernels.w4a8_gemm_fscale',"
-        " 'repro_torch.kernels.w4a16_gemm'} <= set(mods), mods",
+        " 'repro_torch.kernels.w4a16_gemm', 'repro_torch.kernels.moe_gemm',"
+        " 'repro_torch.models.moe', 'repro_torch.configs.mixtral_8x7b'}"
+        " <= set(mods), mods",
         "from repro_torch.models.config import ModelConfig",
         "from repro_torch.models.registry import get_model",
         "from repro_torch.nn import spec as S",
