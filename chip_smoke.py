@@ -9,7 +9,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
 2. Build every kernel from ``src/repro_torch/csrc`` (one nvcc per source,
-   started together) and print the build time and ptxas register counts.
+   started together) and print the build time and, per kernel entry,
+   ptxas's registers, static shared memory and spills.
 3. Hold each kernel against its plain PyTorch version on the card at the
    main-path shapes of LLaMA-2-7B (g128: decode M 1..4 and prefill M 128
    for (K, N) in (4096, 4096), (4096, 11008), (11008, 4096); flash
@@ -23,9 +24,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    memory. act_quant, the IS GEMM (W4 and W8) and the coarse FS GEMM must
    be bit-exact; the fine FS GEMM (W4 at every shape, W8 at one decode
    shape) within rtol 1e-5 / atol 1e-4; W4A16 within ``REL_TOLERANCE`` x
-   max|y|; flash attention within ``TOLERANCE`` (bf16 output), also at
-   Mixtral's 32 query heads over 8 KV heads. Then the grouped (MoE)
-   kernels at Mixtral-8x7B's expert shapes, 8 experts, (4096 -> 14336) and
+   max|y|; flash attention within ``TOLERANCE`` (bf16 output; f32 inputs
+   at the prefill shape), also at Mixtral's 32 query heads over 8 KV
+   heads, with a window and at a ragged length, each timed beside SDPA.
+   W4A16 and flash must give the same bits on a second launch. Then the
+   grouped (MoE) kernels at Mixtral-8x7B's expert shapes, 8 experts,
+   (4096 -> 14336) and
    (14336 -> 4096) at capacity 8 (4-slot decode) and 40 (128-token
    prefill), with seeded routed counts that include an empty expert, a
    full one and counts that are no multiple of the row tile: IS (W4, and
@@ -50,15 +54,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    prompt 0 is the argmax of that model's logits. For IS the first
    layers, copied to the CPU where every wrapper takes its plain version,
    must also agree with the same layers on the card within a stated
-   bound. One 4-slot decode step is timed eagerly and as a replayed CUDA
-   graph (the difference is the host's share of a decode tick).
+   bound. One 4-slot decode step and one 128-token prefill are timed
+   eagerly and as replayed CUDA graphs (the difference is the host's
+   share).
 6. Breaker drill: serve the IS weights with the FS weights as the
    circuit breaker's fallback (threshold 2) while a ``ChaosMonkey``
    fails the decode at tick 3 twice; the engine must fall back once and
    serve every request ``ok`` through ``w4a8_gemm_fs``.
-7. Profile one IS decode step under ``obs.trace_window`` and print the
-   eight device kernels with the most CUDA time. Free the llama2-7b
-   weights.
+7. Profile one IS and one W4A16 decode step under ``obs.trace_window``
+   and print the eight device kernels with the most CUDA time in each.
+   Free the llama2-7b weights.
 8. ``mixtral-8x7b`` at full width (32 layers, 8 experts top-2, expert d_ff
    14336), built block by block (``ptq.quantize_by_layer``: one block's
    fp weights on the card at a time) under IS, FS and W4A16, one recipe at
@@ -177,6 +182,21 @@ def bound(bytes_moved: float, *ops: tuple[float, float]):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = max(n / rate * 1e3 for n, rate in ops)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_report(text: str) -> dict[str, str]:
+    """Registers, static shared memory and spills of each kernel entry in
+    nvcc's ``-Xptxas -v`` output, keyed by the mangled entry name."""
+    out: dict[str, str] = {}
+    fn = None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            out[fn] = ""
+        elif fn and ("spill" in line or "registers" in line):
+            info = line.split(":", 1)[-1].strip()
+            out[fn] += ("; " if out[fn] else "") + info
+    return out
 
 
 def check_act_quant(gen, rows):
@@ -314,9 +334,14 @@ def check_gemms(gen, rows):
                 mm = time_ms(matmul, [(xs[2], d["wd"]) for d in sets])
             for (name, variant), (kern, plain, opnds, how) in gemms.items():
                 args = [(*xs, *opnds(d)) for d in sets]
-                e = _check(f"{name} {variant}", [M, K, N], kern(*args[0]),
+                y = kern(*args[0])
+                e = _check(f"{name} {variant}", [M, K, N], y,
                            plain(*args[0]), how)
                 errs[name] = max(errs.get(name, 0.0), e)
+                if name == "w4a16_gemm" and not torch.equal(y,
+                                                             kern(*args[0])):
+                    raise AssertionError(f"w4a16_gemm {[M, K, N]}: two "
+                                         "launches gave different bits")
                 if M not in TIMED_M:
                     continue
                 scale_bytes = (K // GROUP if variant == "fine" else 1) * N * 4
@@ -376,6 +401,7 @@ def check_flash(gen, rows):
                                   (1, 128, 32, 8, 128, None),  # Mixtral GQA
                                   (2, 200, 8, 2, 128, 64),
                                   (1, 77, 4, 1, 64, None)):
+        shape = (B, S, Hq, Hkv, D, win)
         q, k, v = (torch.randn((B, S, h, D), generator=gen, device="cuda"
                                ).to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
         ok_ = flash_attention(q, k, v, window=win)
@@ -384,22 +410,38 @@ def check_flash(gen, rows):
         e = (ok_.float() - op.float()).abs().max().item()
         err = max(err, e)
         if not e <= TOLERANCE:
-            raise AssertionError(f"flash ({B},{S},{Hq},{Hkv},{D},{win}): "
-                                 f"max abs {e} > {TOLERANCE}")
-        if S == 128:
-            ms = time_ms(lambda *a: flash_attention(*a), [(q, k, v)])
-            pms = time_ms(lambda *a: flash_attention_plain(*a), [(q, k, v)])
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            lib = time_ms(lambda *a: F.scaled_dot_product_attention(
-                *a, is_causal=True, enable_gqa=Hq != Hkv), [(qt, kt, vt)])
-            pairs = S * (S + 1) // 2
-            b, by = bound(2 * B * S * (Hq + Hkv) * D * 2,
-                          (4 * B * Hq * pairs * D, BF16_FLOPS_PER_S))
-            rows.append(dict(kernel="flash_attention",
-                             variant="" if Hq == Hkv else f"gqa kv{Hkv}",
-                             shape=[B, S, Hq, D], ms=ms, plain_ms=pms,
-                             bound_ms=b, bound_by=by, library_ms=lib,
-                             bf16_matmul_ms=None))
+            raise AssertionError(f"flash {shape}: max abs {e} > {TOLERANCE}")
+        if not torch.equal(ok_, flash_attention(q, k, v, window=win)):
+            raise AssertionError(f"flash {shape}: two launches gave "
+                                 "different bits")
+        if S == 128 and Hq == Hkv:  # the f32 kernel, at the prefill shape
+            qf, kf, vf = (t.float() for t in (q, k, v))
+            ef = (flash_attention(qf, kf, vf)
+                  - flash_attention_plain(qf, kf, vf)).abs().max().item()
+            if not ef <= TOLERANCE:
+                raise AssertionError(f"flash f32 {shape}: max abs {ef}")
+            log(f"[kernel] flash_attention f32 {list(shape)}: max abs diff "
+                f"vs plain {ef:.2e}")
+        ms = time_ms(lambda *a: flash_attention(*a, window=win), [(q, k, v)])
+        pms = time_ms(lambda *a: flash_attention_plain(*a, window=win),
+                      [(q, k, v)])
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = torch.ones((S, S), dtype=torch.bool, device="cuda").tril()
+        if win is not None:
+            mask &= ~torch.ones_like(mask).tril(-win)
+        masking = (dict(is_causal=True) if win is None
+                   else dict(attn_mask=mask))
+        lib = time_ms(lambda *a: F.scaled_dot_product_attention(
+            *a, enable_gqa=Hq != Hkv, **masking), [(qt, kt, vt)])
+        pairs = int(mask.sum())  # the (query, key) pairs the mask keeps
+        b, by = bound(2 * B * S * (Hq + Hkv) * D * 2,
+                      (4 * B * Hq * pairs * D, BF16_FLOPS_PER_S))
+        rows.append(dict(kernel="flash_attention",
+                         variant=("" if Hq == Hkv else f"gqa kv{Hkv}")
+                         + ("" if win is None else f" window {win}"),
+                         shape=[B, S, Hq, D], ms=ms, plain_ms=pms,
+                         bound_ms=b, bound_by=by, library_ms=lib,
+                         bf16_matmul_ms=None))
     return err
 
 
@@ -618,12 +660,31 @@ def time_decode_step(api, cfg, model, sc, reps=5):
     calls between CUDA events, and the same call captured as a CUDA graph
     and replayed. The graph's time is the device's; the difference is the
     host time the eager step adds."""
-    import torch
-
     cache, toks, pos = _decode_inputs(api, cfg, sc)
+    out = time_eager_and_graph(
+        lambda: model(toks, mode="decode", cache=cache, pos=pos)[0], reps)
+    del cache
+    return out
 
-    def step():
-        return model(toks, mode="decode", cache=cache, pos=pos)[0]
+
+def time_prefill(api, cfg, model, sc, reps=3):
+    """ms of one batch-1 prefill of ``sc.prefill_len`` tokens as the engine
+    runs it (full-sequence logits, writing the cache), eager and as a
+    replayed CUDA graph, as :func:`time_decode_step`."""
+    import torch
+    from repro_torch.nn import spec as S
+
+    cache = S.materialize(api.cache_specs(cfg, 1, sc.max_seq), device="cuda")
+    toks = torch.ones((1, sc.prefill_len), dtype=torch.int64, device="cuda")
+    out = time_eager_and_graph(
+        lambda: model(toks, mode="train", cache=cache, pos=0)[0], reps)
+    del cache
+    return out
+
+
+def time_eager_and_graph(step, reps):
+    """(eager ms, graph-replay ms) of ``step()``, between CUDA events."""
+    import torch
 
     with torch.inference_mode():
         side = torch.cuda.Stream()
@@ -652,7 +713,7 @@ def time_decode_step(api, cfg, model, sc, reps=5):
         end.record()
         end.synchronize()
         replay = start.elapsed_time(end) / reps
-    del graph, cache
+    del graph
     torch.cuda.empty_cache()
     return eager, replay
 
@@ -729,6 +790,7 @@ def report_serve(tag, name, api, cfg, eng, outs, launches, reg, wall, sc):
     """Time one decode step (eager, and as a replayed CUDA graph), log the
     serving numbers of one recipe and return them."""
     step_eager, step_graph = time_decode_step(api, cfg, eng.model, sc)
+    pre_eager, pre_graph = time_prefill(api, cfg, eng.model, sc)
     ntok = sum(len(o) for o in outs)
     phase = reg.histogram("engine_phase_seconds", "", ("phase",))
     dev = reg.histogram("engine_phase_device_seconds", "", ("phase",))
@@ -747,6 +809,7 @@ def report_serve(tag, name, api, cfg, eng, outs, launches, reg, wall, sc):
         decode_device_s=mean(dev, phase="decode"),
         prefill_device_s=mean(dev, phase="prefill"),
         step_eager_ms=step_eager, step_graph_ms=step_graph,
+        prefill_eager_ms=pre_eager, prefill_graph_ms=pre_graph,
         launches=launches)
     log(f"[{tag}] {name}: {cfg.num_layers} layers, {len(outs)} requests "
         f"ok, {ntok} tokens in {wall:.3f} s = {st['tokens_per_s']:.1f} "
@@ -758,7 +821,9 @@ def report_serve(tag, name, api, cfg, eng, outs, launches, reg, wall, sc):
     log(f"[{tag}] {name}: one 4-slot decode step eager "
         f"{step_eager:.3f} ms, CUDA graph replay {step_graph:.3f} ms "
         f"(device idle share of the eager step "
-        f"{1 - step_graph / step_eager:.3f}); first token of prompt 0 is "
+        f"{1 - step_graph / step_eager:.3f}); one {sc.prefill_len}-token "
+        f"prefill eager {pre_eager:.3f} ms, CUDA graph replay "
+        f"{pre_graph:.3f} ms; first token of prompt 0 is "
         f"the argmax of the logits; launches {json.dumps(launches)}")
     return st
 
@@ -848,10 +913,11 @@ def main() -> int:
     times = _build.build()
     log(f"[build] {len(times)} kernels in {time.perf_counter() - t0:.1f} s "
         + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
-    for name, text in _build.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+    ptxas = {name: ptxas_report(text)
+             for name, text in _build.BUILD_LOG.items()}
+    for name, fns in ptxas.items():
+        for fn, info in fns.items():
+            log(f"[build] {name}: {fn}: {info}")
 
     # -- 3. kernels against their plain versions --------------------------------
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -896,6 +962,7 @@ def main() -> int:
     n0 = len(prompts[0])
     launches_total = {k: 0 for k in _build.KERNELS}
     serve_stats: dict[str, dict] = {}
+    models = {}  # the IS and W4A16 served models, profiled in phase 7
     rel = cpu_s = None
     for name, recipe in recipes.items():
         eng, outs, launches, reg, wall = serve_recipe(
@@ -910,12 +977,10 @@ def main() -> int:
                                      n0, PLAIN_CHECK_LAYERS)
         serve_stats[name] = report_serve(
             "serve", name, api, cfg, eng, outs, launches, reg, wall, sc)
-        if name != DEFAULT_RECIPE.name:
-            del eng
-            torch.cuda.empty_cache()
-        else:
-            is_model = eng.model
-            del eng
+        if name in (DEFAULT_RECIPE.name, WEIGHT_ONLY_RECIPE.name):
+            models[name] = eng.model
+        del eng
+        torch.cuda.empty_cache()
 
     # -- 6. breaker drill: IS -> FS on the card -----------------------------------
     eng, outs, launches, reg, wall = serve_recipe(
@@ -939,14 +1004,17 @@ def main() -> int:
     del eng
     torch.cuda.empty_cache()
 
-    # -- 7. profile one IS decode step ---------------------------------------------
-    prof_total, prof_top = profile_decode_step(api, cfg, is_model, sc)
-    log(f"[profile] one IS 4-slot decode step: {prof_total:.3f} ms of device "
-        "kernels; top 8:")
-    for p in prof_top:
-        log(f"[profile]   {p['ms']:.3f} ms  x{p['count']}  {p['name']}")
+    # -- 7. profile one IS and one W4A16 decode step ------------------------
+    profiles = {}
+    for name in (DEFAULT_RECIPE.name, WEIGHT_ONLY_RECIPE.name):
+        total, top = profile_decode_step(api, cfg, models[name], sc)
+        profiles[name] = {"device_ms": total, "top": top}
+        log(f"[profile] one {name} 4-slot decode step: {total:.3f} ms of "
+            "device kernels; top 8:")
+        for p in top:
+            log(f"[profile]   {p['ms']:.3f} ms  x{p['count']}  {p['name']}")
 
-    del is_model, qparams
+    del models, qparams
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1056,7 +1124,7 @@ def main() -> int:
         "card": smi, "torch": torch.__version__, "kernels": kernels,
         "shapes": rows, "serve": serve_stats, "breaker_drill": drill,
         "launches_total": launches_total,
-        "profile": {"device_ms": prof_total, "top": prof_top},
+        "profile": profiles, "ptxas": ptxas,
         "check": {"plain_logit_rel": rel, "plain_layers": PLAIN_CHECK_LAYERS,
                   "plain_cpu_s": cpu_s, "mixtral_plain_logit_rel": mrel,
                   "mixtral_plain_layers": MIXTRAL_PLAIN_CHECK_LAYERS,

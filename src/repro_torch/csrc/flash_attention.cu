@@ -2,23 +2,35 @@
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_tpu, the
 //   Pallas TPU kernel (body _kernel).
-// What bounds it on the H100: at the serving prefill (Sq = Sk = 128,
-//   head_dim 128) the q/k/v/o bytes and the score/value FLOPs are both small;
-//   this version runs scalar f32 FMAs from shared memory, so its time is set
-//   by the CUDA-core FMA rate and shared-memory loads, well above either
-//   bound. It never writes the (Sq, Sk) score matrix to device memory.
-// What the design does about it: one block per (batch * query head,
-//   64-row query tile); each of its 4 warps owns 16 query rows and keeps
-//   their online-softmax state (m, l) and f32 output accumulator in
-//   registers across the key/value tiles, so nothing but P (a warp's own
-//   rows) goes through shared memory between the two products. Key tiles
-//   wholly past the causal diagonal or before the window are skipped: the
-//   reference's masked blocks contribute exactly zero there. The TPU kernel's
-//   semantics are kept: q is scaled in f32 before the dot, masked scores are
-//   NEG_INF = -1e30 (not -inf), padded keys are masked by k_pos < sk, query
-//   head r reads kv head r / G, and the epilogue floors the denominator at
-//   1e-30. There is no q offset: prefill starts at position 0. No tensor
-//   cores yet: a simple kernel that is right comes first.
+// What bounds it on the H100: at the serving prefill (B = 1, Sq = Sk = 128,
+//   32 heads of 128) the q/k/v/o bytes (4 MB, 1.25 us at 3.35 TB/s) and the
+//   score/value FLOPs (0.13 GFLOP) are both small, so the time is set by
+//   latency: how many blocks run at once and how fast each walks its key
+//   tiles. It never writes the (Sq, Sk) score matrix to device memory.
+// What the design does about it (second design, bf16): an FA2-style
+//   forward on the tensor cores. One block of 2 warps per (query tile of
+//   32 rows, batch * query head): 128 blocks at the serving prefill (the
+//   first design's 64-row tiles gave 64). Q, K and V stay bf16 in shared
+//   memory and arrive by 16-byte cp.async, K and V double-buffered, so the
+//   next key tile loads while this one is computed. Each warp owns 16
+//   query rows: S = Q K^T on mma.sync m16n8k16 (bf16 in, f32 accumulate;
+//   Q fragments loaded once with ldmatrix and kept in registers, K's with
+//   ldmatrix), the softmax scale applied to the f32 scores, the online
+//   softmax on the accumulator fragments with quad shuffles for the row
+//   max and sum, and P packed to bf16 registers as the A operand of P V
+//   (V through ldmatrix.trans); the output accumulator stays in registers.
+//   P goes in as two bf16 parts (hi and the rest, two MMAs), since P in
+//   bf16 alone moved outputs of magnitude 2 to 4 by a bf16 ulp (0.0156),
+//   near the 2e-2 bound, and one of magnitude 4 to 8 would cross it. Query
+//   tiles run latest first, as the causal ones do the most work.
+// f32 inputs keep the first design: scalar f32 FMAs from shared memory,
+//   one block per (batch * query head, 64-row query tile).
+// Both keep the TPU kernel's semantics: masked scores are NEG_INF = -1e30
+//   (not -inf), padded keys are masked by k_pos < sk, query head r reads kv
+//   head r / G, key tiles wholly past the causal diagonal or before the
+//   window are skipped (the reference's masked blocks contribute exactly
+//   zero there), and the epilogue floors the denominator at 1e-30. There is
+//   no q offset: prefill starts at position 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,9 +42,7 @@ constexpr int RPW = BQ / (kThreads / 32);  // query rows per warp: 16
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -187,6 +197,288 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int TQ = 32, TK = 64, kTcThreads = 64;  // 2 warps x 16 query rows
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct TcSmem {
+  static constexpr int stride = D + 8;  // bf16 row stride (ldmatrix banks)
+  static constexpr int q = TQ * stride;
+  static constexpr int kv = TK * stride;
+  static constexpr int bytes = (q + 4 * kv) * 2;  // Q, K x 2, V x 2
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !pred
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// (a, b) as bf16 pairs hi = bf16(a, b) and lo = bf16(a - hi, b - hi)
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  lo = pack_bf16(a - __uint_as_float(hi << 16),
+                 b - __uint_as_float(hi & 0xffff0000u));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                __nv_bfloat16* __restrict__ o, int Sq, int Sk, int Hq, int Hkv,
+                float scale, int causal, int window) {
+  using L = TcSmem<D>;
+  constexpr int ST = L::stride;
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  extern __shared__ __align__(16) __nv_bfloat16 sm[];
+  __nv_bfloat16* Qs = sm;
+  __nv_bfloat16* Ks = Qs + L::q;       // two buffers of TK rows
+  __nv_bfloat16* Vs = Ks + 2 * L::kv;  // two buffers of TK rows
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TQ;  // latest tile first
+  const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // element (b, s, h, d) of a (B, S, H, D) tensor
+  const int64_t qs = static_cast<int64_t>(Hq) * D;
+  const int64_t ks = static_cast<int64_t>(Hkv) * D;
+  const __nv_bfloat16* qb = q + (static_cast<int64_t>(b) * Sq * Hq + h) * D;
+  const __nv_bfloat16* kb = k + (static_cast<int64_t>(b) * Sk * Hkv + hk) * D;
+  const __nv_bfloat16* vb = v + (static_cast<int64_t>(b) * Sk * Hkv + hk) * D;
+  __nv_bfloat16* ob = o + (static_cast<int64_t>(b) * Sq * Hq + h) * D;
+
+  const int q_last = min(q0 + TQ, Sq) - 1;
+  int kt_end = (Sk + TK - 1) / TK;
+  if (causal) kt_end = min(kt_end, q_last / TK + 1);
+  const int kt_begin = window >= 0 ? max(0, q0 - window + 1) / TK : 0;
+
+  for (int i = tid; i < TQ * CH; i += kTcThreads) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool in = q0 + r < Sq;
+    cp16(Qs + r * ST + c, qb + (in ? (q0 + r) * qs : 0) + c, in);
+  }
+  auto load_kv = [&](int buf, int kt) {
+    const int k0 = kt * TK;
+    for (int i = tid; i < TK * CH; i += kTcThreads) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const bool in = k0 + r < Sk;
+      const int64_t off = (in ? (k0 + r) * ks : 0) + c;
+      cp16(Ks + buf * L::kv + r * ST + c, kb + off, in);
+      cp16(Vs + buf * L::kv + r * ST + c, vb + off, in);
+    }
+  };
+  if (kt_begin < kt_end) load_kv(0, kt_begin);
+  cp_commit();
+
+  const float sl2 = scale * LOG2E;  // scores in the log2 domain
+  const int qr0 = q0 + warp * 16 + g, qr1 = qr0 + 8;  // this thread's rows
+  uint32_t qf[D / 16][4];
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  }
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1, k0 = kt * TK;
+    __syncthreads();  // every warp is done with the other buffer
+    if (kt + 1 < kt_end) load_kv(buf ^ 1, kt + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();  // this key tile (and Q) landed for every thread
+    if (kt == kt_begin) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * ST + kk * 16 +
+                            (lane >> 4) * 8);
+      }
+    }
+    const __nv_bfloat16* Kt = Ks + buf * L::kv;
+    const __nv_bfloat16* Vt = Vs + buf * L::kv;
+
+    // S = Q K^T: 16 rows x 64 keys per warp, 8 n8-fragments of keys
+    float s[TK / 8][4];
+#pragma unroll
+    for (int j = 0; j < TK / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int j2 = 0; j2 < TK / 16; ++j2) {
+        uint32_t bk[4];  // keys 16 j2 .. +7 and +8 .. +15
+        ldsm_x4(bk, Kt + (j2 * 16 + (lane >> 4) * 8 + (lane & 7)) * ST +
+                        kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * j2], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * j2 + 1], qf[kk], bk[2], bk[3]);
+      }
+    }
+
+    // mask, scale, and the online-softmax update of rows qr0 and qr1
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < TK / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kp = k0 + j * 8 + 2 * t + (i & 1);
+        const int qp = i < 2 ? qr0 : qr1;
+        bool ok = kp < Sk;
+        if (causal) ok = ok && kp <= qp;
+        if (window >= 0) ok = ok && kp > qp - window;
+        s[j][i] = ok ? s[j][i] * sl2 : NEG_INF;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < TK / 8; ++j) {
+      s[j][0] = exp2f(s[j][0] - mn0);
+      s[j][1] = exp2f(s[j][1] - mn0);
+      s[j][2] = exp2f(s[j][2] - mn1);
+      s[j][3] = exp2f(s[j][3] - mn1);
+      ps0 += s[j][0] + s[j][1];
+      ps1 += s[j][2] + s[j][3];
+    }
+    l0 = l0 * c0 + ps0;  // this thread's columns; summed over the quad last
+    l1 = l1 * c1 + ps1;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][0] *= c0;
+      acc[j][1] *= c0;
+      acc[j][2] *= c1;
+      acc[j][3] *= c1;
+    }
+
+    // acc += P V, V through ldmatrix.trans. P from the score fragments as
+    // two bf16 parts, hi = bf16(p) and lo = bf16(p - hi), each the A
+    // operand of its own MMA: p - hi - lo is below 2^-16 p (see the header
+    // for why P in bf16 alone is not enough)
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* p = &s[2 * kk + (i >> 1)][(i & 1) * 2];
+        split_bf16(p[0], p[1], ph[i], pl[i]);
+      }
+#pragma unroll
+      for (int d2 = 0; d2 < D / 16; ++d2) {
+        uint32_t bv[4];  // dims 16 d2 .. +7 and +8 .. +15
+        ldsm_x4_t(bv, Vt +
+                          (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ST +
+                          d2 * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * d2], ph, bv[0], bv[1]);
+        mma_bf16(acc[2 * d2 + 1], ph, bv[2], bv[3]);
+        mma_bf16(acc[2 * d2], pl, bv[0], bv[1]);
+        mma_bf16(acc[2 * d2 + 1], pl, bv[2], bv[3]);
+      }
+    }
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    if (qr0 < Sq) {
+      *reinterpret_cast<uint32_t*>(ob + qr0 * qs + c) =
+          pack_bf16(acc[j][0] / d0, acc[j][1] / d0);
+    }
+    if (qr1 < Sq) {
+      *reinterpret_cast<uint32_t*>(ob + qr1 * qs + c) =
+          pack_bf16(acc[j][2] / d1, acc[j][3] / d1);
+    }
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
+              int Sq, int Sk, int Hq, int Hkv, float scale, int causal,
+              int window, cudaStream_t st) {
+  constexpr int bytes = TcSmem<D>::bytes;
+  static bool attr[64] = {};  // the attribute is per kernel and device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || !attr[dev]) {
+    err = cudaFuncSetAttribute(flash_tc_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) attr[dev] = true;
+  }
+  const dim3 grid((Sq + TQ - 1) / TQ, B * Hq);
+  flash_tc_kernel<D><<<grid, kTcThreads, bytes, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      Sq, Sk, Hq, Hkv, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), o (B, Sq, Hq, D); all contiguous,
@@ -204,8 +496,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return D == 128
-        ? launch<__nv_bfloat16, 128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st)
-        : launch<__nv_bfloat16, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
+        ? launch_tc<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st)
+        : launch_tc<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
   }
   return D == 128
       ? launch<float, 128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st)

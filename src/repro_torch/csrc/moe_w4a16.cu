@@ -13,7 +13,7 @@
 //   group scales, a quarter of its bf16 weight's bytes; at the 128-token
 //   prefill (C = 40) bf16 tensor-core operations and bytes of the same
 //   order.
-// What the design does about it: the dense W4A16 kernel's loop
+// What the design does about it: the first dense W4A16 design's loop
 //   (w4a16_tile.cuh: int4 unpack and bit-identical bf16 dequantization in
 //   shared memory, mma.sync m16n8k16 bf16 with f32 accumulation), with the
 //   expert as blockIdx.z, 64-bit per-expert bases and the row counts read

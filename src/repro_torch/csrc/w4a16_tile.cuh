@@ -1,5 +1,7 @@
-// The tile loop shared by the W4A16 GEMMs: the dense one (w4a16_gemm.cu)
-// and the ragged batched-expert one (moe_w4a16.cu).
+// The W4A16 tile loop of the ragged batched-expert GEMM (moe_w4a16.cu),
+// its one remaining user. The dense W4A16 GEMM (w4a16_gemm.cu) ran on it
+// until its second design (split K, a cp.async ring of packed bytes and
+// dequantization straight into the MMA fragments), which no longer uses it.
 //
 // Per 128-row packing unit, the bf16 activations are copied to shared
 // memory with 16-byte loads, and the packed int4 weights are unpacked (the
@@ -16,7 +18,7 @@
 // [e*C, e*C + C), its weights and scales the e-th slabs, with 64-bit bases;
 // only rows below min(counts[e], C) are routed, an m-tile wholly past that
 // writes zeros and returns, and unrouted rows of an active tile are written
-// as exact zeros. The dense GEMM is the case E = 1, C = M, no counts.
+// as exact zeros. The dense-grouped entry point is the case of no counts.
 #pragma once
 
 #include <cuda_bf16.h>

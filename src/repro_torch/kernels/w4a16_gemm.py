@@ -13,10 +13,17 @@ f32, so only the order of the f32 sum differs: max abs diff <=
 product is itself full f32 (``torch.backends.cuda.matmul.allow_tf32``
 off): TF32 would round the bf16 operands' products and dominate the
 difference.
+
+The kernel splits K on packing-unit boundaries (:func:`launch_plan`) so
+that every shape fills the card; the splits' partial sums go to an f32
+workspace and are added in a fixed order, so a launch is deterministic.
+It takes any N (rows of packed bytes that are not 16-byte aligned are
+staged by plain loads).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,7 +35,41 @@ from .w4a8_gemm import pick_tile_m
 #: max |kernel - plain| as a fraction of max |plain| (f32 sum order)
 REL_TOLERANCE = 1e-4
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+BN = 64          # output columns per block (csrc/w4a16_gemm.cu)
+MAX_SPLITS = 16
+
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def launch_plan(M: int, N: int, K: int, sms: int, bm: int = 0) -> dict:
+    """The kernel's launch for an (M, K) x (K, N) product on a card with
+    ``sms`` SMs: row tile ``bm`` (16 for decode, 64 above, as the W4A8
+    GEMMs), number of K ``splits`` (split s takes packing units
+    [s U / splits, (s + 1) U / splits) of the U = K / 128) and the f32
+    ``workspace`` elements (0 without a split).
+
+    K is split so that about two blocks run on each SM, and never fewer
+    blocks than SMs where K has the units for it (on the H100 two a SM
+    measured fastest at LLaMA-2-7B's shapes, decode and prefill)."""
+    bm = pick_tile_m(M, bm)
+    base = -(-N // BN) * -(-M // bm)
+    splits = max(-(-sms // base), (2 * sms + base // 2) // base)
+    splits = max(1, min(splits, K // LAYOUT_UNIT, MAX_SPLITS))
+    return {"bm": bm, "splits": splits,
+            "workspace": splits * M * N if splits > 1 else 0}
+
+
+def launch_plan_on(device: torch.device, M: int, N: int, K: int,
+                   bm: int = 0) -> dict:
+    """:func:`launch_plan` on the CUDA ``device`` (its SM count)."""
+    index = device.index
+    return launch_plan(M, N, K, _sm_count(
+        torch.cuda.current_device() if index is None else index), bm)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def w4a16_gemm_plain(
@@ -57,7 +98,8 @@ def w4a16_gemm(
     bm: int = 0,
 ) -> torch.Tensor:
     """W4A16 GEMM; returns f32 (M, N). CPU tensors take the plain version;
-    CUDA tensors launch the kernel (``bm`` picks its row tile, 0 = by M)."""
+    CUDA tensors launch the kernel (``bm`` forces its row tile, 0 = by M;
+    the K split follows from the shape, :func:`launch_plan`)."""
     if x.device.type == "cpu":
         return w4a16_gemm_plain(x, qvalue, scale, group_size=group_size)
     _build.require_cuda("w4a16_gemm", x, qvalue, scale)
@@ -74,16 +116,24 @@ def w4a16_gemm(
             or tuple(qvalue.shape) != (K // 2, N)
             or tuple(scale.shape) != (K // gs, N)):
         raise ValueError("w4a16_gemm: operands do not match the contract")
-    x = x.to(torch.bfloat16).contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()
-    qvalue, scale = qvalue.contiguous(), scale.contiguous()
+    x, qvalue, scale = (_aligned(t) for t in
+                        (x.to(torch.bfloat16), qvalue, scale))
+    plan = launch_plan_on(x.device, M, N, K, bm)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    ws = (torch.empty(plan["workspace"], dtype=torch.float32,
+                      device=x.device) if plan["workspace"] else None)
     fn = _build.function("w4a16_gemm", "w4a16_gemm_launch", _ARGS)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), qvalue.data_ptr(), scale.data_ptr(),
-                 out.data_ptr(), M, N, K, gs, pick_tile_m(M, bm),
+                 out.data_ptr(), None if ws is None else ws.data_ptr(),
+                 M, N, K, gs, plan["bm"], plan["splits"],
                  _build.stream_of(x))
     _build.check(err, "w4a16_gemm")
     _build.count("w4a16_gemm")
     return out
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, with a 16-byte aligned base (the kernel's cp.async)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t

@@ -12,10 +12,12 @@ int32 sum, then the same two multiplies). The fine float-scale GEMM sums
 its f32 group terms in another order than ``torch.sum``: rtol 1e-5, atol
 1e-4. W4A16 dequantizes bit-identically and differs only in the f32 sum
 order: max abs diff <= ``w4a16_gemm.REL_TOLERANCE`` x max|plain|, with TF32
-off. Flash attention in bf16 is held to ``flash_attention.TOLERANCE``.
-The grouped (MoE) kernels keep the same bounds against their plain
-versions, and the ragged entry points equal the dense-grouped ones bit for
-bit on a buffer zero-filled past the counts. The CPU side of the same
+off. Flash attention (bf16 and f32) is held to
+``flash_attention.TOLERANCE``. The dense W4A16 GEMM and bf16 flash
+attention give the same bits on repeated launches. The grouped (MoE)
+kernels keep the same bounds against their plain versions, and the ragged
+entry points equal the dense-grouped ones bit for bit on a buffer
+zero-filled past the counts. The CPU side of the same
 wrappers is tested against the JAX reference in
 ``tests/test_torch_kernels.py`` and ``tests/test_torch_moe.py``.
 """
@@ -114,10 +116,18 @@ def test_fs_gemm_kernel_vs_plain(cuda, M, K, N, g, w_bits, bm):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N,g", SHAPES + [(2, 256, 64, 64)])
+@pytest.mark.parametrize("M,K,N,g", SHAPES + [(2, 256, 64, 64),
+                                              (3, 384, 80, 48),
+                                              (5, 256, 72, 128),
+                                              (3, 512, 37, 64)])
 @pytest.mark.parametrize("bm", [0, 16, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_w4a16_kernel_vs_plain(cuda, M, K, N, g, bm, dtype):
+    """Every row tile (``bm``; 0 picks by M) over shapes whose K splits
+    differ (one split up to 86), a group of 64 and one of 48 (a packing
+    unit spans three scale rows), N = 80 (a partial column tile), and
+    N = 72 and 37 (rows not 16-byte aligned: the plain-load path; at 37
+    also an odd number of outputs for the split reduction)."""
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain f32 product
     qw = quant.quantize_weight(_normal(0, (K, N), 0.05, cuda), 4, g)
     x = _normal(1, (M, K), 1.0, cuda).to(dtype)
@@ -127,6 +137,40 @@ def test_w4a16_kernel_vs_plain(cuda, M, K, N, g, bm, dtype):
     assert y.dtype == torch.float32 and y.shape == (M, N)
     err = (y - y_p).abs().max().item()
     assert err <= REL_TOLERANCE * y_p.abs().max().item(), err
+
+
+LLAMA_KN = [(4096, 4096), (4096, 11008), (11008, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", LLAMA_KN)
+@pytest.mark.parametrize("M", [1, 4, 17, 128, 200])
+def test_w4a16_kernel_at_llama_shapes(cuda, K, N, M):
+    """LLaMA-2-7B's three linear shapes at decode, mid and prefill row
+    counts (the splits of ``launch_plan``; M = 200 takes four row tiles
+    of 64)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qw = quant.quantize_weight(_normal(K, (K, N), 0.05, cuda), 4, 128)
+    x = _normal(M, (M, K), 1.0, cuda).to(torch.bfloat16)
+    w = packing.pack_int4(qw.qvalue)
+    before = _build.LAUNCHES["w4a16_gemm"]
+    y = w4a16_gemm(x, w, qw.scale)
+    assert _build.LAUNCHES["w4a16_gemm"] == before + 1
+    y_p = w4a16_gemm_plain(x, w, qw.scale, group_size=128)
+    err = (y - y_p).abs().max().item()
+    assert err <= REL_TOLERANCE * y_p.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(4, 11008, 4096), (128, 4096, 4096),
+                                   (4, 4096, 11008)])
+def test_w4a16_kernel_is_deterministic(cuda, M, K, N):
+    """Two launches on the same inputs give the same bits: the K splits
+    are added in a fixed order, with no atomics."""
+    qw = quant.quantize_weight(_normal(5, (K, N), 0.05, cuda), 4, 128)
+    x = _normal(6, (M, K), 1.0, cuda).to(torch.bfloat16)
+    w = packing.pack_int4(qw.qvalue)
+    assert torch.equal(w4a16_gemm(x, w, qw.scale), w4a16_gemm(x, w, qw.scale))
 
 
 @pytest.mark.cuda
@@ -157,10 +201,16 @@ def test_w8a16_raises_on_the_card(cuda):
         ops.qgemm(torch.ones((2, 256), device=cuda), params, spec)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,S,Hq,Hkv,D,window", [
+FLASH_SHAPES = [  # (B, S, Hq, Hkv, D, window)
     (1, 128, 32, 32, 128, None), (2, 200, 8, 2, 128, 64),
-    (1, 77, 4, 1, 64, None)])
+    (1, 77, 4, 1, 64, None),
+    (1, 128, 32, 8, 128, None),   # Mixtral-8x7B's GQA at the prefill
+    (1, 45, 4, 2, 128, 16),       # S no multiple of the query tile, window
+    (3, 300, 2, 1, 64, 100)]      # several key tiles, window across them
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window", FLASH_SHAPES)
 def test_flash_kernel_vs_plain(cuda, B, S, Hq, Hkv, D, window):
     q, k, v = (_normal(i, (B, S, h, D), 1.0, cuda).to(torch.bfloat16)
                for i, h in enumerate((Hq, Hkv, Hkv)))
@@ -168,6 +218,28 @@ def test_flash_kernel_vs_plain(cuda, B, S, Hq, Hkv, D, window):
     ref = flash_attention_plain(q, k, v, window=window)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     assert (out.float() - ref.float()).abs().max().item() <= TOLERANCE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window", FLASH_SHAPES[:4])
+def test_flash_kernel_f32_vs_plain(cuda, B, S, Hq, Hkv, D, window):
+    """f32 inputs take the scalar f32 kernel, held to the same bound."""
+    q, k, v = (_normal(i, (B, S, h, D), 1.0, cuda)
+               for i, h in enumerate((Hq, Hkv, Hkv)))
+    before = _build.LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, window=window)
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    ref = flash_attention_plain(q, k, v, window=window)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert (out - ref).abs().max().item() <= TOLERANCE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_is_deterministic(cuda, dtype):
+    q, k, v = (_normal(i, (1, 128, h, 128), 1.0, cuda).to(dtype)
+               for i, h in enumerate((32, 8, 8)))
+    assert torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
 
 
 @pytest.mark.cuda

@@ -15,6 +15,7 @@ kernel). W4A16: bf16 operands, 2e-2 as the reference's own test.
 ``ops.qgemm`` for every scheme vs the reference ``qgemm`` in interpret
 mode within those tolerances.
 """
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -291,6 +292,81 @@ def test_ctypes_argtypes_match_c_signatures(name, symbol, module):
               for p in sig.split(",")]
     mod = importlib.import_module(f"repro_torch.kernels.{module}")
     assert mod._ARGS == [kinds[p] for p in params]
+
+
+def _cu_constant(name: str, symbol: str) -> int:
+    """An integer constexpr of csrc/<name>.cu."""
+    import re
+
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    return int(re.search(rf"\b{symbol} = (\d+)", src).group(1))
+
+
+# LLaMA-2-7B's linears (K, N) at decode (M 1..4) and the 128-token prefill
+LLAMA_GEMMS = [(M, K, N) for M in (1, 2, 3, 4, 128)
+               for K, N in ((4096, 4096), (4096, 11008), (11008, 4096))]
+
+
+def _w4a16_blocks_and_ranges(plan: dict, M: int, N: int, K: int):
+    """Blocks of the W4A16 launch and the packing units [u0, u1) of each
+    split, as csrc/w4a16_gemm.cu computes them from the plan."""
+    bn = _cu_constant("w4a16_gemm", "BN")
+    units, splits = K // 128, plan["splits"]
+    blocks = -(-N // bn) * -(-M // plan["bm"]) * splits
+    return blocks, [(z * units // splits, (z + 1) * units // splits)
+                    for z in range(splits)]
+
+
+@pytest.mark.parametrize("M,K,N", LLAMA_GEMMS)
+def test_w4a16_launch_plan_fills_the_card(M, K, N):
+    """The K split of the W4A16 kernel on an H100 (132 SMs): at least one
+    block per SM, splits on packing-unit boundaries that cover K exactly
+    once (K = 11008 is 86 units), and the f32 workspace of the splits."""
+    from repro_torch.kernels import w4a16_gemm as w
+
+    assert w.BN == _cu_constant("w4a16_gemm", "BN")
+    plan = w.launch_plan(M, N, K, sms=132)
+    assert plan["bm"] == (16 if M <= 16 else 64)
+    blocks, ranges = _w4a16_blocks_and_ranges(plan, M, N, K)
+    assert blocks >= 132
+    assert ranges[0][0] == 0 and ranges[-1][1] == K // 128
+    assert all(a < b for a, b in ranges)  # no empty split
+    assert all(r[1] == n[0] for r, n in zip(ranges, ranges[1:]))
+    assert plan["workspace"] == (plan["splits"] * M * N
+                                 if plan["splits"] > 1 else 0)
+
+
+@pytest.mark.parametrize("M,K,N,sms", [(1, 128, 64, 132), (3, 384, 80, 132),
+                                       (200, 4096, 11008, 132),
+                                       (4, 11008, 4096, 16)])
+def test_w4a16_launch_plan_edges(M, K, N, sms):
+    """One packing unit cannot split; a partial column tile counts as a
+    block; many row tiles or few SMs need no split."""
+    from repro_torch.kernels import w4a16_gemm as w
+
+    plan = w.launch_plan(M, N, K, sms=sms)
+    units = K // 128
+    assert 1 <= plan["splits"] <= min(units, w.MAX_SPLITS)
+    blocks, ranges = _w4a16_blocks_and_ranges(plan, M, N, K)
+    assert sum(b - a for a, b in ranges) == units
+    if units == 1 or blocks // plan["splits"] >= 2 * sms:
+        assert plan["splits"] == 1 and plan["workspace"] == 0
+    eight = _w4a16_blocks_and_ranges({"bm": 16, "splits": 8}, 4, 4096,
+                                     11008)[1]
+    assert eight == [(0, 10), (10, 21), (21, 32), (32, 43),
+                     (43, 53), (53, 64), (64, 75), (75, 86)]
+
+
+@pytest.mark.parametrize("B,S,Hq,dtype,blocks", [
+    (1, 128, 32, torch.bfloat16, 128), (1, 77, 4, torch.bfloat16, 12),
+    (1, 128, 32, torch.float32, 64)])
+def test_flash_launch_plan(B, S, Hq, dtype, blocks):
+    """The serving prefill (1 x 128 tokens x 32 heads) launches 128 blocks
+    of the bf16 kernel (query tile TQ of csrc/flash_attention.cu); the f32
+    kernel keeps its 64-row tile (BQ). Each grid is query tiles x B Hq."""
+    tile = _cu_constant("flash_attention",
+                        "TQ" if dtype == torch.bfloat16 else "BQ")
+    assert -(-S // tile) * B * Hq == blocks
 
 
 def test_cuda_mode_on_cpu_tensor_raises():
