@@ -27,7 +27,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    max|y|; flash attention within ``TOLERANCE`` (bf16 output; f32 inputs
    at the prefill shape), also at Mixtral's 32 query heads over 8 KV
    heads, with a window and at a ragged length, each timed beside SDPA.
-   W4A16 and flash must give the same bits on a second launch. Then the
+   The GEMMs (IS, FS, W4A16) and flash must give the same bits on a
+   second launch; each timed GEMM shape logs its launch plan (row tile,
+   K split) and the paper's ratios (IS / FS, IS / W4A16, each / the bf16
+   matmul, share of the bound). Then the
    grouped (MoE) kernels at Mixtral-8x7B's expert shapes, 8 experts,
    (4096 -> 14336) and
    (14336 -> 4096) at capacity 8 (4-slot decode) and 40 (128-token
@@ -36,7 +39,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    W8 at one decode shape) and coarse FS bit-exact, fine FS within rtol
    1e-5 / atol 1e-4, W4A16 within ``REL_TOLERANCE`` x max|y|; each ragged
    entry point must equal its dense-grouped one (pre-quantized codes, no
-   counts) bit for bit on the same zero-padded buffer. Beside each: the
+   counts) bit for bit on the same zero-padded buffer, and W4A16 repeat
+   its bits on a second launch. Beside each: the
    plain version, one bf16 ``torch.bmm`` over the same (E, C, K) buffer
    (the FP16 baseline; for W4A16 also the library call) and the bound
    (the routed experts' weight and scale bytes, or the routed rows'
@@ -62,7 +66,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    fails the decode at tick 3 twice; the engine must fall back once and
    serve every request ``ok`` through ``w4a8_gemm_fs``.
 7. Profile one IS and one W4A16 decode step under ``obs.trace_window``
-   and print the eight device kernels with the most CUDA time in each.
+   and print each step's device time, the share of it in the quantized
+   GEMMs and their split reductions, and the eight device kernels with
+   the most CUDA time.
    Free the llama2-7b weights.
 8. ``mixtral-8x7b`` at full width (32 layers, 8 experts top-2, expert d_ff
    14336), built block by block (``ptq.quantize_by_layer``: one block's
@@ -118,6 +124,9 @@ FS_RTOL, FS_ATOL = 1e-5, 1e-4
 # activation code, and through all 32 random layers the flips grow to
 # several percent of the logits, so the check stops after two layers
 PLAIN_CHECK_LAYERS = 2
+# substrings of the quantized GEMM kernels' device names (both designs),
+# for the profile's GEMM share
+GEMM_KERNELS = ("w4a8_", "w4a16_", "splitk_reduce")
 PLAIN_LOGIT_REL_TOL = 5e-2
 KERNELS_OF = {  # recipe -> kernels its serve must launch; the rest must not
     "w4a8-is": {"act_quant", "w4a8_gemm_is", "flash_attention"},
@@ -277,6 +286,34 @@ def _check(name, shape, y, y_plain, how):
     return e
 
 
+def launch_plan(M, N, K, experts=1):
+    """The K split the port's GEMM kernels take at this shape on this
+    card (None for a tree whose kernels have no launch plan)."""
+    import torch
+    from repro_torch.kernels import w4a8_gemm
+
+    plan_on = getattr(w4a8_gemm, "launch_plan_on", None)
+    if plan_on is None:
+        return None
+    return plan_on(torch.device("cuda"), M, N, K, experts=experts)
+
+
+def log_is_vs_fs(rows, shape):
+    """The paper's comparisons at one dense shape, from the rows just
+    timed: IS / FS time, IS against the W4A16 kernel and the bf16 matmul,
+    and each W4A8 kernel's share of its bound."""
+    got = {(r["kernel"], r["variant"]): r for r in rows
+           if r["shape"] == shape}
+    is_, fs = got[("w4a8_gemm_is", "fine")], got[("w4a8_gemm_fs", "fine")]
+    wo = got[("w4a16_gemm", "fine")]
+    log(f"[kernel] {shape}: IS / FS {is_['ms'] / fs['ms']:.3f}; IS / W4A16 "
+        f"{is_['ms'] / wo['ms']:.3f}; IS / bf16 matmul "
+        f"{is_['ms'] / is_['bf16_matmul_ms']:.3f}; FS / bf16 matmul "
+        f"{fs['ms'] / fs['bf16_matmul_ms']:.3f}; share of bound IS "
+        f"{is_['bound_ms'] / is_['ms']:.3f}, FS "
+        f"{fs['bound_ms'] / fs['ms']:.3f}; plan {is_['plan']}")
+
+
 def check_gemms(gen, rows):
     """IS, FS (fine and coarse) and W4A16 GEMMs against their plain
     versions at every main-path shape; timed at M = 4 and 128."""
@@ -338,10 +375,9 @@ def check_gemms(gen, rows):
                 e = _check(f"{name} {variant}", [M, K, N], y,
                            plain(*args[0]), how)
                 errs[name] = max(errs.get(name, 0.0), e)
-                if name == "w4a16_gemm" and not torch.equal(y,
-                                                             kern(*args[0])):
-                    raise AssertionError(f"w4a16_gemm {[M, K, N]}: two "
-                                         "launches gave different bits")
+                if not torch.equal(y, kern(*args[0])):
+                    raise AssertionError(f"{name} {variant} {[M, K, N]}: "
+                                         "two launches gave different bits")
                 if M not in TIMED_M:
                     continue
                 scale_bytes = (K // GROUP if variant == "fine" else 1) * N * 4
@@ -358,7 +394,10 @@ def check_gemms(gen, rows):
                     plain_ms=time_ms(plain, args[:2], iters=3, reps=3),
                     bound_ms=b, bound_by=by,
                     library_ms=mm if name == "w4a16_gemm" else None,
-                    bf16_matmul_ms=mm, copies=copies))
+                    bf16_matmul_ms=mm, copies=copies,
+                    plan=launch_plan(M, N, K)))
+            if M in TIMED_M:
+                log_is_vs_fs(rows, [M, K, N])
         del sets, x, xq_all, sa_all, xb_all
         torch.cuda.empty_cache()
 
@@ -378,8 +417,13 @@ def check_gemms(gen, rows):
         errs[name] = max(errs[name], e)
         b, by = bound(M * K + M * 4 + K * N + (K // GROUP) * N * 4 + M * N * 4,
                       (2 * M * K * N, INT8_OPS_PER_S))
+        if not torch.equal(kern(*args[0], w_bits=8),
+                           kern(*args[0], w_bits=8)):
+            raise AssertionError(f"{name} w8: two launches gave different "
+                                 "bits")
         rows.append(dict(
-            kernel=name, variant="w8", shape=[M, K, N],
+            kernel=name, variant="w8", shape=[M, K, N], plan=launch_plan(
+                M, N, K),
             ms=time_ms(lambda *a: kern(*a, w_bits=8), args),
             plain_ms=time_ms(lambda *a: plain(*a, w_bits=8), args[:2],
                              iters=3, reps=3),
@@ -548,6 +592,9 @@ def check_grouped(gen, rows):
         if not torch.equal(y, y_d):
             raise AssertionError(f"{name} {variant} {shape}: ragged != "
                                  "dense grouped")
+        if name == "moe_w4a16" and not torch.equal(y, ragged(x, rc, w)):
+            raise AssertionError(f"{name} {shape}: two launches gave "
+                                 "different bits")
         counts = [min(int(c), C) for c in rc.tolist()]
         routed, active = sum(counts), sum(c > 0 for c in counts)
         wbytes = K * N // (2 if w_bits == 4 else 1)
@@ -565,6 +612,7 @@ def check_grouped(gen, rows):
         return dict(
             kernel=name, variant=variant if w_bits == 4 else "w8",
             shape=shape, counts=counts,
+            plan=launch_plan(C, N, K, MOE_E) if wo else None,
             ms=time_ms(lambda *a: ragged(*a, **kw), [(x, rc, w)]),
             plain_ms=time_ms(lambda *a: ragged_plain(*a, **kw), [(x, rc, w)],
                              iters=2, reps=2),
@@ -719,8 +767,9 @@ def time_eager_and_graph(step, reps):
 
 
 def profile_decode_step(api, cfg, model, sc, top=8):
-    """One decode step under ``obs.trace_window``: the ``top`` device
-    kernels by CUDA time, and the step's total device time (ms)."""
+    """One decode step under ``obs.trace_window``: the step's total device
+    time (ms), the part of it in the quantized GEMM kernels and their
+    split reductions (ms), and the ``top`` device kernels by CUDA time."""
     import torch
     from torch.autograd import DeviceType
     from repro_torch import obs
@@ -738,10 +787,13 @@ def profile_decode_step(api, cfg, model, sc, top=8):
     if not kernels:
         raise AssertionError("the profiler recorded no device kernels")
     total = sum(e.self_device_time_total for e in kernels) / 1e3
+    gemm = sum(e.self_device_time_total for e in kernels
+               if any(k in e.key for k in GEMM_KERNELS)) / 1e3
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     del cache
-    return total, [dict(name=e.key[:120], count=e.count,
-                        ms=e.self_device_time_total / 1e3) for e in ranked]
+    return total, gemm, [dict(name=e.key[:120], count=e.count,
+                              ms=e.self_device_time_total / 1e3)
+                         for e in ranked]
 
 
 def serve_recipe(api, cfg, qparams, recipe, sc, prompts, *, drill=False,
@@ -935,6 +987,8 @@ def main() -> int:
             f" counts {r['counts']}; dense grouped {r['dense_ms']:.4f} ms, "
             f"plain {r['dense_plain_ms']:.4f} ms, bound "
             f"{r['dense_bound_ms']:.5f} ms ({r['dense_bound_by']})")
+        if r.get("plan"):
+            extra += f"; plan {r['plan']}"
         log(f"[kernel] {r['kernel']} {r['variant']} {r['shape']}: "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library "
@@ -1007,10 +1061,11 @@ def main() -> int:
     # -- 7. profile one IS and one W4A16 decode step ------------------------
     profiles = {}
     for name in (DEFAULT_RECIPE.name, WEIGHT_ONLY_RECIPE.name):
-        total, top = profile_decode_step(api, cfg, models[name], sc)
-        profiles[name] = {"device_ms": total, "top": top}
+        total, gemm, top = profile_decode_step(api, cfg, models[name], sc)
+        profiles[name] = {"device_ms": total, "gemm_ms": gemm, "top": top}
         log(f"[profile] one {name} 4-slot decode step: {total:.3f} ms of "
-            "device kernels; top 8:")
+            f"device kernels, {gemm:.3f} ms ({gemm / total:.3f}) in the "
+            "quantized GEMMs and their split reductions; top 8:")
         for p in top:
             log(f"[profile]   {p['ms']:.3f} ms  x{p['count']}  {p['name']}")
 

@@ -8,9 +8,9 @@ holds
     high nibble -> k = unit_start + 64 + b
 
 so unpacking a unit needs two shift pairs and no permutation, and the
-activations need no re-layout (the Hopper GEMM in ``csrc/w4a8_gemm_is.cu``
-unpacks exactly this layout into shared memory). Small K (smoke configs)
-packs the whole K as one unit.
+activations need no re-layout (the Hopper GEMMs in ``csrc/`` read
+exactly this layout; ``w4a8_ring.cuh`` and ``w4a16_ring.cuh`` unpack it
+in registers). Small K (smoke configs) packs the whole K as one unit.
 
 Packed shape: (K/2, N) int8. Port of ``repro/core/packing.py``.
 """

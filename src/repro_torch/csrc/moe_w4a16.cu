@@ -13,30 +13,29 @@
 //   group scales, a quarter of its bf16 weight's bytes; at the 128-token
 //   prefill (C = 40) bf16 tensor-core operations and bytes of the same
 //   order.
-// What the design does about it: the first dense W4A16 design's loop
-//   (w4a16_tile.cuh: int4 unpack and bit-identical bf16 dequantization in
-//   shared memory, mma.sync m16n8k16 bf16 with f32 accumulation), with the
-//   expert as blockIdx.z, 64-bit per-expert bases and the row counts read
-//   on the device: an m-tile wholly past its expert's count writes zeros
-//   and returns, with no host sync. No activation quantization: weight-only
-//   keeps bf16 activations. No wgmma or TMA yet: a simple kernel that is
-//   right comes first.
+// What the design does about it (second design; the first unpacked and
+//   dequantized the weights through shared memory in a single-stage loop):
+//   the dense W4A16 GEMM's loop (w4a16_ring.cuh: the cp.async ring of raw
+//   packed bytes, dequantization into the mma.sync fragments, split K where
+//   the grid is small), with the expert as part of blockIdx.z, 64-bit
+//   per-expert bases and the row counts read on the device: an m-tile
+//   wholly past its expert's count writes zeros and returns, with no host
+//   sync. No activation quantization: weight-only keeps bf16 activations.
 // bf16 x bf16 products are exact in f32, so only the order of the f32 sum
 //   differs from the plain version; the ragged entry equals the
 //   dense-grouped one bit for bit on zero-filled padding.
-#include "w4a16_tile.cuh"
+#include "w4a16_ring.cuh"
 
-// x (E*C, K) bf16, 16-byte aligned; counts (E,) int32 or null (every row
-// routed); w (E, K/2, N) packed int4; s (E, K/gs, N) f32; out (E*C, N) f32.
-// All contiguous. K % 128 == 0, K % gs == 0, gs % 16 == 0. bm is 16 or 64.
-// Returns cudaGetLastError() after the launch.
+// x (E*C, K) bf16; counts (E,) int32 or null (every row routed); w (E, K/2,
+// N) packed int4; s (E, K/gs, N) f32; out (E*C, N) f32; ws (splits, E*C,
+// N) f32 when splits > 1 (else unused). All contiguous and 16-byte
+// aligned. K % 128 == 0, K % gs == 0, gs % 16 == 0, 1 <= splits <= K / 128,
+// E * splits <= 65535; bm is 16 or 64. Returns cudaGetLastError() after
+// the launches.
 extern "C" int moe_w4a16_launch(const void* x, const void* counts,
                                 const void* w, const void* s, void* out,
-                                int E, int C, int N, int K, int gs, int bm,
-                                void* stream) {
-  const WoArgs a{static_cast<const __nv_bfloat16*>(x),
-                 static_cast<const int8_t*>(w), static_cast<const float*>(s),
-                 static_cast<float*>(out), static_cast<const int*>(counts), C,
-                 N, K, gs};
-  return w4a16_launch(a, E, bm, stream);
+                                void* ws, int E, int C, int N, int K, int gs,
+                                int bm, int splits, void* stream) {
+  return w4a16_launch(x, counts, w, s, out, ws, E, C, N, K, gs, bm, splits,
+                      stream);
 }

@@ -6,31 +6,31 @@
 // Replaces: src/repro/kernels/w4a8_gemm.py::fg_gemm_integer_scale, the
 //   Pallas TPU kernel (_kernel, _group_accumulate(integer=True),
 //   _unpack_wblock).
-// What bounds it on the H100: at decode (M <= 4) device-memory bytes, since
-//   the packed weights (K*N/2 bytes) are read once for a handful of rows; at
-//   prefill (M = 128) the int8 tensor-core operations and the bytes are of
-//   the same order (about 6 us each for a 4096 x 11008 layer at the card's
-//   peaks).
-// What the design does about it: the tile loop of w4a8_tile.cuh (int8
-//   tensor-core MMAs one quantization group at a time into a per-group
-//   int32 partial, weights unpacked in shared memory); at the end of each
-//   group the partial is multiplied by the int32 group scale and added into
-//   an int32 accumulator in registers. There is no float in the loop, which
-//   is the paper's point; the epilogue is one convert times s_a / alpha.
-//   No wgmma or TMA yet: a simple kernel that is right comes first.
+// What bounds it on the H100, and what the design does about it: see
+//   w4a8_ring.cuh, the loop this kernel shares with the float-scale GEMM
+//   (split K with a fixed-order reduction, a 4-stage cp.async ring of the
+//   raw packed bytes, the int8 MMA operands built in registers). Under the
+//   IntegerScale policy the end of each group multiplies the int32 partial
+//   by the int32 group scale and adds it into an int32 accumulator in
+//   registers: there is no float in the loop, which is the paper's point;
+//   the epilogue is one convert times s_a / alpha.
 // Integer sums do not depend on order, so the output is bit-identical to the
-//   plain PyTorch version. Integer arithmetic wraps (two's complement) like
-//   the reference's int32; the quantizer caps alpha so it never does.
-#include "w4a8_tile.cuh"  // the loop and the IntegerScale policy
+//   plain PyTorch version at every split count. Integer arithmetic wraps
+//   (two's complement) like the reference's int32; the quantizer caps alpha
+//   so it never does.
+#include "w4a8_ring.cuh"
 
 // xq (M, K) int8; fac (M,) f32 = s_a / alpha; w (K/2, N) packed int4
 // (w_bits = 4) or (K, N) int8 (w_bits = 8); s (K/gs, N) int32; out (M, N)
-// f32. All contiguous, xq 16-byte aligned. K % 128 == 0, K % gs == 0,
-// gs % 32 == 0. bm is 16 or 64. Returns cudaGetLastError() after the launch.
+// f32; ws (splits, M, N) int32 when splits > 1 (else unused). All
+// contiguous and 16-byte aligned. K % 128 == 0, K % gs == 0, gs % 32 == 0,
+// gs <= 65536, 1 <= splits <= K / 128; bm is 16 or 64. Returns
+// cudaGetLastError() after the launches.
 extern "C" int w4a8_gemm_is_launch(const void* xq, const void* fac,
                                    const void* w, const void* s, void* out,
-                                   int M, int N, int K, int gs, int w_bits,
-                                   int bm, void* stream) {
-  return w4a8_launch<IntegerScale>(xq, fac, w, s, out, M, N, K, gs, w_bits,
-                                   bm, stream);
+                                   void* ws, int M, int N, int K, int gs,
+                                   int w_bits, int bm, int splits,
+                                   void* stream) {
+  return w4a8_ring_launch<IntegerScale>(xq, fac, w, s, out, ws, M, N, K, gs,
+                                        w_bits, bm, splits, stream);
 }

@@ -1,19 +1,21 @@
-// The tile loop shared by the W4A8 / W8A8 GEMMs: Integer Scale (paper
-// Eq. 2; w4a8_gemm_is.cu, and grouped over experts moe_w4a8_is.cu) and
-// float scale (Eq. 1; w4a8_gemm_fs.cu and moe_w4a8_fs.cu).
+// The tile loop of the grouped (batched-expert) W4A8 / W8A8 GEMMs: Integer
+// Scale (paper Eq. 2; moe_w4a8_is.cu) and float scale (Eq. 1;
+// moe_w4a8_fs.cu). The dense GEMMs ran on it until their second design
+// (w4a8_ring.cuh: split K, a cp.async ring of packed bytes, unpacking in
+// registers), which no longer uses it.
 //
 // The kernels differ only in what happens when a quantization group ends
-// (the Scale policy's group(): IntegerScale or FloatScale below) and in the
-// epilogue (out()); all include this one loop, so a time difference between
-// IS and FS measures only the per-group step. The loop: each stage stages
-// one 128-row packing unit; the int8 activations are put in shared memory
-// by the activation-source policy (Act, below) and the packed int4 weights
-// are unpacked there (two shift pairs per byte, sign-extended, k-contiguous
-// per output column), so both operands of the int8 tensor-core MMA
-// (mma.sync m16n8k32 s8 -> s32) are read with conflict-free 32-bit shared
-// loads. Each group's int32 partial is handed to the policy at the group's
-// end. The tile is BM x 64 outputs with BM = 16 for decode and BM = 64 for
-// prefill.
+// (the Scale policy's group(): IntegerScale or FloatScale, w4a8_common.cuh)
+// and in the epilogue (out()); both include this one loop, so a time
+// difference between IS and FS measures only the per-group step. The loop:
+// each stage stages one 128-row packing unit; the int8 activations are put
+// in shared memory by the activation-source policy (Act, below) and the
+// packed int4 weights are unpacked there (two shift pairs per byte,
+// sign-extended, k-contiguous per output column), so both operands of the
+// int8 tensor-core MMA (mma.sync m16n8k32 s8 -> s32) are read with
+// conflict-free 32-bit shared loads. Each group's int32 partial is handed
+// to the policy at the group's end. The tile is BM x 64 outputs with
+// BM = 16 for decode and BM = 64 for prefill.
 //
 // Experts: blockIdx.z is the expert e. Its rows are rows [e*C, e*C + C) of
 // the (E*C, K) activations and output, its weights and scales the e-th
@@ -23,12 +25,14 @@
 // at or past rc writes zeros and returns (the TPU kernel's skipped m-tiles),
 // and inside an active tile rows at or past rc are staged as zero codes and
 // written as exact zeros. Rows at or past C belong to the next expert and
-// are never touched. The dense GEMMs are the case E = 1, C = M, no counts.
+// are never touched.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "w4a8_common.cuh"  // mma_s8 and the Scale policies
 
 namespace {
 
@@ -54,15 +58,6 @@ struct TileArgs {
   int C, N, K, gs;
   float qm;            // raw activations: the largest code (2^(bits-1) - 1)
 };
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // sign-extended low / high nibble of a sign-extended packed byte
 __device__ __forceinline__ int lo_nibble(int v) {
@@ -90,45 +85,6 @@ __device__ __forceinline__ void write_zero_tile(float* out, int64_t row0,
     if (r < C && n < N) out[(row0 + r) * N + n] = 0.f;
   }
 }
-
-// ---------------------------------------------------------------------------
-// Scale policies: Scale::Acc / Scale::Value are the accumulator and
-// group-scale types, Scale::group(acc, part, s) folds one group's int32
-// partial into the accumulator, Scale::out(acc, fac) is the epilogue.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ int wrap_mad(int acc, int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(acc) +
-                          static_cast<unsigned>(a) * static_cast<unsigned>(b));
-}
-
-// Eq. 2: the group step in int32 (two's complement wrap like the
-// reference's int32; the quantizer caps alpha so it never wraps), one
-// I32 -> F32 convert in the epilogue.
-struct IntegerScale {
-  using Acc = int;
-  using Value = int;
-  __device__ static __forceinline__ int group(int acc, int part, int s) {
-    return wrap_mad(acc, part, s);
-  }
-  __device__ static __forceinline__ float out(int acc, float fac) {
-    return __int2float_rn(acc) * fac;
-  }
-};
-
-// Eq. 1: the group step is an I32 -> F32 convert, multiply, add (explicit
-// _rn intrinsics, no fused multiply-add, so each step rounds as the plain
-// version's product-then-sum does).
-struct FloatScale {
-  using Acc = float;
-  using Value = float;
-  __device__ static __forceinline__ float group(float acc, int part, float s) {
-    return __fadd_rn(acc, __fmul_rn(__int2float_rn(part), s));
-  }
-  __device__ static __forceinline__ float out(float acc, float fac) {
-    return __fmul_rn(acc, fac);
-  }
-};
 
 // ---------------------------------------------------------------------------
 // Activation-source policies. Act::begin(a, row0, nrows, rs) runs once per
@@ -439,18 +395,6 @@ int w4a8_launch_act(const TileArgs& a, int E, int w_bits, int bm,
     }
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// The body of the dense GEMMs' C entry points: xq (M, K) int8 codes with
-// the per-row factor fac (M,).
-template <class Scale>
-int w4a8_launch(const void* xq, const void* fac, const void* w, const void* s,
-                void* out, int M, int N, int K, int gs, int w_bits, int bm,
-                void* stream) {
-  TileArgs a{xq, static_cast<const float*>(fac),
-             static_cast<const int8_t*>(w), s, static_cast<float*>(out),
-             nullptr, nullptr, M, N, K, gs, 0.f};
-  return w4a8_launch_act<Scale, ActCodes>(a, 1, w_bits, bm, stream);
 }
 
 // The body of the grouped GEMMs' C entry points. x_kind: 0 = int8 codes

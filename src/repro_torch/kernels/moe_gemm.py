@@ -45,13 +45,15 @@ from repro_torch.core.packing import LAYOUT_UNIT
 from . import _build
 from .act_quant import act_quant_plain
 from .w4a16_gemm import w4a16_gemm_plain
-from .w4a8_gemm import fg_gemm_integer_scale_plain, pick_tile_m
+from .w4a8_gemm import aligned as _aligned
+from .w4a8_gemm import (fg_gemm_integer_scale_plain, launch_plan_on,
+                        pick_tile_m)
 from .w4a8_gemm_fscale import fg_gemm_float_scale_plain
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _IS_ARGS = [_P, _I] + [_P] * 6 + [_I] * 7 + [_F, _P]
 _FS_ARGS = [_P, _I] + [_P] * 5 + [_I] * 7 + [_F, _P]
-_WO_ARGS = [_P] * 5 + [_I] * 6 + [_P]
+_WO_ARGS = [_P] * 6 + [_I] * 7 + [_P]
 
 # activation source of the W4A8 kernels: codes + sa, or raw rows
 _X_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
@@ -189,11 +191,6 @@ def ragged_tile_stats(row_counts, C: int, bm: int = 128) -> dict:
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    t = t.contiguous()
-    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _counts_arg(row_counts, device):
@@ -337,13 +334,17 @@ def _wo_launch(x, row_counts, qvalue, scale, *, group_size: int, bm: int):
         raise ValueError(f"{name}: operands do not match the contract")
     x = _aligned(x.to(torch.bfloat16))
     counts = _counts_arg(row_counts, x.device)
-    qvalue, scale = qvalue.contiguous(), scale.contiguous()
+    qvalue, scale = _aligned(qvalue), _aligned(scale)
+    plan = launch_plan_on(x.device, C, N, K, bm, experts=E)
     out = torch.empty((E, C, N), dtype=torch.float32, device=x.device)
+    ws = (torch.empty(plan["workspace"], dtype=torch.float32,
+                      device=x.device) if plan["workspace"] else None)
     fn = _build.function(name, f"{name}_launch", _WO_ARGS)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), None if counts is None else counts.data_ptr(),
-                 qvalue.data_ptr(), scale.data_ptr(), out.data_ptr(), E, C, N,
-                 K, gs, pick_tile_m(C, bm), _build.stream_of(x))
+                 qvalue.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                 None if ws is None else ws.data_ptr(), E, C, N, K, gs,
+                 plan["bm"], plan["splits"], _build.stream_of(x))
     _build.check(err, name)
     _build.count(name)
     return out

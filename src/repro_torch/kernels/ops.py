@@ -22,8 +22,9 @@ without it a static integer ``qspec.amplifier`` is the fallback, and a
 heuristic amplifier raises (it only exists per layer).
 
 Telemetry: every call increments ``qgemm_calls_total{scheme,kind,shape,
-block}`` (``block`` is the row x column tile; W4A16 on the card adds its K
-split, as in ``16x64/k8``). The port runs eagerly, so these count executions. The
+block}`` (``block`` is the row x column tile; on the card the dense
+kernels add their K split, as in ``16x64/k8``). The port runs eagerly,
+so these count executions. The
 reference also counts ragged m-tiles here when ``row_counts`` is concrete;
 in the port the counts stay on the device (reading them would be a host
 sync), so the serving engine counts m-tiles at its tick boundary instead.
@@ -41,9 +42,9 @@ from .act_quant import act_quant
 from .moe_gemm import (fg_grouped_gemm_float_scale_ragged,
                        fg_grouped_gemm_integer_scale_ragged,
                        grouped_w4a16_gemm_ragged)
-from .w4a16_gemm import BN as W4A16_BN
-from .w4a16_gemm import launch_plan_on, w4a16_gemm
-from .w4a8_gemm import TILE_M, TILE_N, fg_gemm_integer_scale, pick_tile_m
+from .w4a16_gemm import w4a16_gemm
+from .w4a8_gemm import (TILE_M, TILE_N, fg_gemm_integer_scale, launch_plan_on,
+                        pick_tile_m)
 from .w4a8_gemm_fscale import fg_gemm_float_scale
 
 
@@ -105,9 +106,9 @@ def qgemm(
     N = params["qvalue"].shape[-1]
     scheme = _scheme_of(qspec)
     block = f"{pick_tile_m(M, launch.bm)}x{TILE_N}"
-    if qspec.weight_only and x.device.type == "cuda":
+    if x.device.type == "cuda":
         plan = launch_plan_on(x.device, M, N, x.shape[1], launch.bm)
-        block = f"{plan['bm']}x{W4A16_BN}/k{plan['splits']}"
+        block = f"{plan['bm']}x{TILE_N}/k{plan['splits']}"
     obs.current_registry().counter(
         "qgemm_calls_total", "kernels.ops wrapper calls",
         ("scheme", "kind", "shape", "block"),

@@ -14,62 +14,30 @@ product is itself full f32 (``torch.backends.cuda.matmul.allow_tf32``
 off): TF32 would round the bf16 operands' products and dominate the
 difference.
 
-The kernel splits K on packing-unit boundaries (:func:`launch_plan`) so
-that every shape fills the card; the splits' partial sums go to an f32
-workspace and are added in a fixed order, so a launch is deterministic.
-It takes any N (rows of packed bytes that are not 16-byte aligned are
-staged by plain loads).
+The kernel (``csrc/w4a16_gemm.cu`` on the loop ``csrc/w4a16_ring.cuh``,
+which the grouped W4A16 kernel shares) splits K on packing-unit
+boundaries (:func:`~repro_torch.kernels.w4a8_gemm.launch_plan`, the plan
+of every GEMM kernel) so that every shape fills the card; the splits'
+partial sums go to an f32 workspace and are added in a fixed order, so a
+launch is deterministic. It takes any N (rows of packed bytes that are
+not 16-byte aligned are staged by plain loads).
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from repro_torch.core.packing import LAYOUT_UNIT, unpack_int4
 
 from . import _build
-from .w4a8_gemm import pick_tile_m
+from .w4a8_gemm import aligned as _aligned
+from .w4a8_gemm import launch_plan_on
 
 #: max |kernel - plain| as a fraction of max |plain| (f32 sum order)
 REL_TOLERANCE = 1e-4
 
-BN = 64          # output columns per block (csrc/w4a16_gemm.cu)
-MAX_SPLITS = 16
-
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-
-
-def launch_plan(M: int, N: int, K: int, sms: int, bm: int = 0) -> dict:
-    """The kernel's launch for an (M, K) x (K, N) product on a card with
-    ``sms`` SMs: row tile ``bm`` (16 for decode, 64 above, as the W4A8
-    GEMMs), number of K ``splits`` (split s takes packing units
-    [s U / splits, (s + 1) U / splits) of the U = K / 128) and the f32
-    ``workspace`` elements (0 without a split).
-
-    K is split so that about two blocks run on each SM, and never fewer
-    blocks than SMs where K has the units for it (on the H100 two a SM
-    measured fastest at LLaMA-2-7B's shapes, decode and prefill)."""
-    bm = pick_tile_m(M, bm)
-    base = -(-N // BN) * -(-M // bm)
-    splits = max(-(-sms // base), (2 * sms + base // 2) // base)
-    splits = max(1, min(splits, K // LAYOUT_UNIT, MAX_SPLITS))
-    return {"bm": bm, "splits": splits,
-            "workspace": splits * M * N if splits > 1 else 0}
-
-
-def launch_plan_on(device: torch.device, M: int, N: int, K: int,
-                   bm: int = 0) -> dict:
-    """:func:`launch_plan` on the CUDA ``device`` (its SM count)."""
-    index = device.index
-    return launch_plan(M, N, K, _sm_count(
-        torch.cuda.current_device() if index is None else index), bm)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def w4a16_gemm_plain(
@@ -99,7 +67,8 @@ def w4a16_gemm(
 ) -> torch.Tensor:
     """W4A16 GEMM; returns f32 (M, N). CPU tensors take the plain version;
     CUDA tensors launch the kernel (``bm`` forces its row tile, 0 = by M;
-    the K split follows from the shape, :func:`launch_plan`)."""
+    the K split follows from the shape,
+    :func:`~repro_torch.kernels.w4a8_gemm.launch_plan`)."""
     if x.device.type == "cpu":
         return w4a16_gemm_plain(x, qvalue, scale, group_size=group_size)
     _build.require_cuda("w4a16_gemm", x, qvalue, scale)
@@ -132,8 +101,3 @@ def w4a16_gemm(
     _build.count("w4a16_gemm")
     return out
 
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with a 16-byte aligned base (the kernel's cp.async)."""
-    t = t.contiguous()
-    return t.clone() if t.data_ptr() % 16 else t

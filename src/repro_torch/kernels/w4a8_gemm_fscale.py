@@ -8,23 +8,23 @@ int4 weights (K/2, N) (or int8 (K, N) with ``w_bits=8``), f32 group scales
 (K/g, N), or one row (1, N) with ``group_size=-1`` (coarse, per channel).
 
 Tolerances against :func:`fg_gemm_float_scale_plain`: coarse is
-bit-exact (one int32 sum over all of K, then ``* scale * sa`` in the same
-order); fine sums its f32 group terms in another order than
-``torch.sum``, so it agrees within rtol 1e-5, atol 1e-4 (f32 outputs).
+bit-exact (one int32 sum over all of K, its K splits included, then
+``* scale * sa`` in the same order); fine sums its f32 group terms in
+another order than ``torch.sum``, so it agrees within rtol 1e-5, atol
+1e-4 (f32 outputs). The kernel is the IS kernel's loop
+(``csrc/w4a8_ring.cuh``) with the float-scale group step, launched by the
+same plan (:func:`~repro_torch.kernels.w4a8_gemm.launch_plan`).
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.core.packing import LAYOUT_UNIT, unpack_int4
+from repro_torch.core.packing import unpack_int4
 from repro_torch.core.quant import group_partials
 
 from . import _build
-from .w4a8_gemm import pick_tile_m
-
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+from .w4a8_gemm import _ARGS  # noqa: F401  (the entry point's, as IS's)
+from .w4a8_gemm import aligned, check_group, launch_plan_on, launch_ring
 
 
 def fg_gemm_float_scale_plain(
@@ -55,39 +55,24 @@ def fg_gemm_float_scale(
     bm: int = 0,
 ) -> torch.Tensor:
     """Eq. 1 GEMM; returns f32 (M, N). CPU tensors take the plain version;
-    CUDA tensors launch the kernel (``bm`` picks its row tile, 0 = by M)."""
+    CUDA tensors launch the kernel (``bm`` picks its row tile, 0 = by M;
+    the K split follows from the shape)."""
     if xq.device.type == "cpu":
         return fg_gemm_float_scale_plain(xq, sa, qvalue, scale,
                                          group_size=group_size, w_bits=w_bits)
     _build.require_cuda("w4a8_gemm_fs", xq, sa, qvalue, scale)
     M, K = xq.shape
     N = qvalue.shape[1]
-    if K % LAYOUT_UNIT:
-        raise ValueError(f"w4a8_gemm_fs: K={K} is not a multiple of "
-                         f"{LAYOUT_UNIT}; only the plain version takes it")
-    # coarse: one group over all of K (the kernel's int32 partial cannot
-    # overflow there: |acc| <= K * 127 * 127 < 2^31 for K <= 11008)
+    # coarse: one group over all of K
     gs = group_size if group_size > 0 else K
-    if K % gs or gs % 32:
-        raise ValueError(f"w4a8_gemm_fs: group_size={gs} must divide K={K} "
-                         "and be a multiple of 32")
+    check_group("w4a8_gemm_fs", K, gs)
     rows = K // 2 if w_bits == 4 else K
     if (xq.dtype != torch.int8 or qvalue.dtype != torch.int8
             or scale.dtype != torch.float32 or w_bits not in (4, 8)
             or tuple(qvalue.shape) != (rows, N)
             or tuple(scale.shape) != (K // gs, N) or sa.numel() != M):
         raise ValueError("w4a8_gemm_fs: operands do not match the contract")
-    xq = xq.contiguous()
-    if xq.data_ptr() % 16:
-        xq = xq.clone()
     sa = sa.reshape(M).float().contiguous()
-    qvalue, scale = qvalue.contiguous(), scale.contiguous()
-    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
-    fn = _build.function("w4a8_gemm_fs", "w4a8_gemm_fs_launch", _ARGS)
-    with torch.cuda.device(xq.device):
-        err = fn(xq.data_ptr(), sa.data_ptr(), qvalue.data_ptr(),
-                 scale.data_ptr(), out.data_ptr(), M, N, K, gs, w_bits,
-                 pick_tile_m(M, bm), _build.stream_of(xq))
-    _build.check(err, "w4a8_gemm_fs")
-    _build.count("w4a8_gemm_fs")
-    return out
+    return launch_ring("w4a8_gemm_fs", aligned(xq), sa, aligned(qvalue),
+                       aligned(scale), gs, w_bits,
+                       launch_plan_on(xq.device, M, N, K, bm))

@@ -13,8 +13,10 @@ its f32 group terms in another order than ``torch.sum``: rtol 1e-5, atol
 1e-4. W4A16 dequantizes bit-identically and differs only in the f32 sum
 order: max abs diff <= ``w4a16_gemm.REL_TOLERANCE`` x max|plain|, with TF32
 off. Flash attention (bf16 and f32) is held to
-``flash_attention.TOLERANCE``. The dense W4A16 GEMM and bf16 flash
-attention give the same bits on repeated launches. The grouped (MoE)
+``flash_attention.TOLERANCE``. The IS and coarse FS GEMMs stay bit-exact
+at every K split (forced through ``w4a8_gemm.launch_ring``), and the
+dense GEMMs, grouped W4A16 and bf16 flash attention give the same bits
+on repeated launches. The grouped (MoE)
 kernels keep the same bounds against their plain versions, and the ragged
 entry points equal the dense-grouped ones bit for bit on a buffer
 zero-filled past the counts. The CPU side of the same
@@ -469,3 +471,159 @@ def test_moe_model_on_the_card_matches_plain_and_captures(cuda, name):
         graph.replay()
         torch.cuda.synchronize()
     assert torch.equal(out, eager)
+
+
+# -- the second designs: split K, the cp.async rings -----------------------
+
+
+def _w4a8_split(name, xq, fac, w, scale, g, w_bits, splits):
+    """The dense W4A8 kernel ``name`` at a forced K split (0: the
+    wrapper, with the split of its launch plan)."""
+    from repro_torch.kernels.w4a8_gemm import launch_ring, pick_tile_m
+
+    M, N = xq.shape[0], w.shape[1]
+    plan = {"bm": pick_tile_m(M), "splits": splits,
+            "workspace": splits * M * N if splits > 1 else 0}
+    return launch_ring(name, xq, fac.reshape(M).contiguous(), w, scale,
+                       g, w_bits, plan)
+
+
+def _w4a8_operands(cuda, M, K, N, g, w_bits, seed=0):
+    qw = quant.quantize_weight(_normal(seed, (K, N), 0.05, cuda), w_bits, g)
+    xq, sa = quant.quantize_activation(_normal(seed + 1, (M, K), 1.0, cuda))
+    w = packing.pack_int4(qw.qvalue) if w_bits == 4 else qw.qvalue
+    return qw, xq, sa, w
+
+
+# (M, K, N, g, splits): every split of a short K, a group of 32 and one of
+# 256 and 384 that splits cut, and LLaMA-2-7B's K = 11008 (86 units) with
+# its planned split (0) and forced ones
+SPLITS = ([(4, 1024, 256, 128, s) for s in range(1, 9)]
+          + [(3, 768, 128, 32, 5), (4, 1536, 128, 256, 5),
+             (70, 1536, 192, 384, 4), (4, 11008, 4096, 128, 0),
+             (4, 11008, 4096, 128, 1), (128, 11008, 4096, 128, 0),
+             (2, 11008, 256, 128, 86)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,g,splits", SPLITS)
+@pytest.mark.parametrize("w_bits", [4, 8])
+def test_is_gemm_bit_exact_at_every_split(cuda, M, K, N, g, splits, w_bits):
+    """Integer sums are exact in any order mod 2^32, so the IS kernel is
+    bit-exact at every K split, also where a split cuts a group."""
+    qw, xq, sa, w = _w4a8_operands(cuda, M, K, N, g, w_bits)
+    isw = isc.integerize(qw, 1024 if w_bits == 4 else "heuristic+6")
+    if splits:
+        y = _w4a8_split("w4a8_gemm_is", xq, sa / float(isw.alpha), w,
+                        isw.int_scale, g, w_bits, splits)
+    else:
+        y = fg_gemm_integer_scale(xq, sa, w, isw.int_scale, group_size=g,
+                                  alpha=float(isw.alpha), w_bits=w_bits)
+    y_p = fg_gemm_integer_scale_plain(xq, sa, w, isw.int_scale,
+                                      group_size=g, alpha=float(isw.alpha),
+                                      w_bits=w_bits)
+    assert torch.equal(y, y_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,g,splits", SPLITS)
+@pytest.mark.parametrize("w_bits", [4, 8])
+def test_fs_gemm_at_every_split(cuda, M, K, N, g, splits, w_bits):
+    """Coarse float scale sums its int32 partials over the k-halves and the
+    splits before its one float step: bit-exact at every split. Fine float
+    scale adds its splits' f32 sums in split order: rtol 1e-5 / atol
+    1e-4."""
+    for gs in (g, -1):
+        qw, xq, sa, w = _w4a8_operands(cuda, M, K, N, gs, w_bits, seed=3)
+        scale = qw.scale if gs > 0 else qw.scale[None, :]
+        if splits:
+            y = _w4a8_split("w4a8_gemm_fs", xq, sa, w, scale,
+                            gs if gs > 0 else K, w_bits, splits)
+        else:
+            y = fg_gemm_float_scale(xq, sa, w, scale, group_size=gs,
+                                    w_bits=w_bits)
+        y_p = fg_gemm_float_scale_plain(xq, sa, w, scale, group_size=gs,
+                                        w_bits=w_bits)
+        if gs < 0:
+            assert torch.equal(y, y_p)
+        else:
+            torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(4, 4096, 4096), (4, 11008, 4096),
+                                   (128, 4096, 11008), (5, 512, 72)])
+def test_dense_w4a8_kernels_are_deterministic(cuda, M, K, N):
+    """Two launches give the same bits (IS, fine and coarse FS; W8 too):
+    the K splits are added in a fixed order, with no atomics. N = 72
+    takes the plain-load path (rows not 16-byte aligned)."""
+    for w_bits in (4, 8):
+        qw, xq, sa, w = _w4a8_operands(cuda, M, K, N, 128, w_bits, seed=5)
+        isw = isc.integerize(qw, 1024 if w_bits == 4 else "heuristic+6")
+        qc = quant.quantize_weight(_normal(5, (K, N), 0.05, cuda), w_bits, -1)
+        wc = packing.pack_int4(qc.qvalue) if w_bits == 4 else qc.qvalue
+        for run in (
+                lambda: fg_gemm_integer_scale(
+                    xq, sa, w, isw.int_scale, alpha=float(isw.alpha),
+                    w_bits=w_bits),
+                lambda: fg_gemm_float_scale(xq, sa, w, qw.scale,
+                                            w_bits=w_bits),
+                lambda: fg_gemm_float_scale(xq, sa, wc, qc.scale[None, :],
+                                            group_size=-1, w_bits=w_bits)):
+            assert torch.equal(run(), run())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts", [[0, 0, 0], [24, 24, 24], [24, 0, 9],
+                                    [-3, 17, 100]])
+@pytest.mark.parametrize("K", [1024, 14336])
+def test_grouped_w4a16_splits_and_counts(cuda, counts, K):
+    """The grouped W4A16 kernel on a split launch (3 experts of 128
+    columns split K; the skipped m-tiles' zeros go through the workspace
+    and the reduction): counts 0, C, partial, negative and above C;
+    ragged == dense grouped bit for bit on zero padding, within the
+    bound of the plain version, and the same bits on a second launch."""
+    from repro_torch.kernels.w4a8_gemm import launch_plan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    E, C, N, g = 3, 24, 128, 128
+    assert launch_plan(C, N, K, sms=132, experts=E)["splits"] > 1
+    clamp = [min(max(c, 0), C) for c in counts]
+    x, _, qv, fscale, _, _ = _grouped_operands(cuda, E, C, K, N, g, clamp)
+    rc = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    y = moe_gemm.grouped_w4a16_gemm_ragged(x, rc, qv, fscale, group_size=g)
+    y_p = moe_gemm.grouped_w4a16_gemm_ragged_plain(x, rc, qv, fscale,
+                                                   group_size=g)
+    err = (y - y_p).abs().max().item()
+    assert err <= REL_TOLERANCE * max(y_p.abs().max().item(), 1e-30), err
+    for e, c in enumerate(clamp):
+        assert not y[e, c:].any()
+    assert torch.equal(y, moe_gemm.grouped_w4a16_gemm(x, qv, fscale,
+                                                      group_size=g))
+    assert torch.equal(y, moe_gemm.grouped_w4a16_gemm_ragged(
+        x, rc, qv, fscale, group_size=g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 14336])
+def test_grouped_w4a16_reads_counts_on_the_device(cuda, K):
+    """A CUDA graph of the grouped W4A16 kernel, captured once, follows
+    counts written in place before each replay (no host read), with its K
+    split in 2 (K = 256) and in 16 (K = 14336)."""
+    E, C, N, g = 4, 8, 128, 128
+    x, _, qv, fscale, _, _ = _grouped_operands(cuda, E, C, K, N, g, [C] * E)
+    rc = torch.zeros(E, dtype=torch.int32, device=cuda)
+    moe_gemm.grouped_w4a16_gemm_ragged(x, rc, qv, fscale, group_size=g)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = moe_gemm.grouped_w4a16_gemm_ragged(x, rc, qv, fscale,
+                                               group_size=g)
+    for counts in ([0, 8, 3, 5], [8, 0, 0, 1]):
+        rc.copy_(torch.tensor(counts, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = moe_gemm.grouped_w4a16_gemm_ragged(x, rc, qv, fscale,
+                                                  group_size=g)
+        assert torch.equal(y, want)
+        for e, c in enumerate(counts):
+            assert not y[e, c:].any() and (c == 0 or y[e, :c].any())

@@ -276,10 +276,14 @@ def test_wrappers_take_plain_versions_on_cpu():
     ("flash_attention", "flash_attention_launch", "flash_attention"),
     ("w4a8_gemm_fs", "w4a8_gemm_fs_launch", "w4a8_gemm_fscale"),
     ("w4a16_gemm", "w4a16_gemm_launch", "w4a16_gemm"),
+    ("moe_w4a8_is", "moe_w4a8_is_launch", "moe_gemm:_IS_ARGS"),
+    ("moe_w4a8_fs", "moe_w4a8_fs_launch", "moe_gemm:_FS_ARGS"),
+    ("moe_w4a16", "moe_w4a16_launch", "moe_gemm:_WO_ARGS"),
 ])
 def test_ctypes_argtypes_match_c_signatures(name, symbol, module):
     """The CUDA sources cannot compile here; hold each wrapper's declared
-    ctypes argtypes to the C entry point's parameter list instead."""
+    ctypes argtypes (``module:attribute``, default ``_ARGS``) to the C
+    entry point's parameter list instead."""
     import ctypes
     import importlib
     import re
@@ -290,15 +294,17 @@ def test_ctypes_argtypes_match_c_signatures(name, symbol, module):
              "float": ctypes.c_float}
     params = [re.sub(r"\s", "", re.sub(r"\bconst\b|\w+\s*$", "", p))
               for p in sig.split(",")]
+    module, _, attr = module.partition(":")
     mod = importlib.import_module(f"repro_torch.kernels.{module}")
-    assert mod._ARGS == [kinds[p] for p in params]
+    assert getattr(mod, attr or "_ARGS") == [kinds[p] for p in params]
+    assert name in _build.KERNELS
 
 
 def _cu_constant(name: str, symbol: str) -> int:
-    """An integer constexpr of csrc/<name>.cu."""
+    """An integer constexpr of csrc/<name> (``.cu`` when no suffix)."""
     import re
 
-    src = (_build.CSRC / f"{name}.cu").read_text()
+    src = (_build.CSRC / (name if "." in name else f"{name}.cu")).read_text()
     return int(re.search(rf"\b{symbol} = (\d+)", src).group(1))
 
 
@@ -309,8 +315,8 @@ LLAMA_GEMMS = [(M, K, N) for M in (1, 2, 3, 4, 128)
 
 def _w4a16_blocks_and_ranges(plan: dict, M: int, N: int, K: int):
     """Blocks of the W4A16 launch and the packing units [u0, u1) of each
-    split, as csrc/w4a16_gemm.cu computes them from the plan."""
-    bn = _cu_constant("w4a16_gemm", "BN")
+    split, as csrc/w4a16_ring.cuh computes them from the plan."""
+    bn = _cu_constant("w4a16_ring.cuh", "BN")
     units, splits = K // 128, plan["splits"]
     blocks = -(-N // bn) * -(-M // plan["bm"]) * splits
     return blocks, [(z * units // splits, (z + 1) * units // splits)
@@ -322,9 +328,9 @@ def test_w4a16_launch_plan_fills_the_card(M, K, N):
     """The K split of the W4A16 kernel on an H100 (132 SMs): at least one
     block per SM, splits on packing-unit boundaries that cover K exactly
     once (K = 11008 is 86 units), and the f32 workspace of the splits."""
-    from repro_torch.kernels import w4a16_gemm as w
+    from repro_torch.kernels import w4a8_gemm as w
 
-    assert w.BN == _cu_constant("w4a16_gemm", "BN")
+    assert w.TILE_N == _cu_constant("w4a16_ring.cuh", "BN")
     plan = w.launch_plan(M, N, K, sms=132)
     assert plan["bm"] == (16 if M <= 16 else 64)
     blocks, ranges = _w4a16_blocks_and_ranges(plan, M, N, K)
@@ -342,7 +348,7 @@ def test_w4a16_launch_plan_fills_the_card(M, K, N):
 def test_w4a16_launch_plan_edges(M, K, N, sms):
     """One packing unit cannot split; a partial column tile counts as a
     block; many row tiles or few SMs need no split."""
-    from repro_torch.kernels import w4a16_gemm as w
+    from repro_torch.kernels import w4a8_gemm as w
 
     plan = w.launch_plan(M, N, K, sms=sms)
     units = K // 128
@@ -415,3 +421,228 @@ def test_qgemm_resolves_alpha_like_reference():
         ops.qgemm(x, {k: v for k, v in params.items() if k != "alpha"}, spec)
     with pytest.raises(ValueError):
         ops.LaunchConfig(bm=32)
+
+
+# -- the dense W4A8 loop (csrc/w4a8_ring.cuh) and the shared launch plan ----
+
+
+@pytest.mark.parametrize("M,K,N", LLAMA_GEMMS)
+def test_w4a8_launch_plan_splits_on_packing_units(M, K, N):
+    """The dense IS and FS GEMMs take the one launch plan of every GEMM
+    kernel: at least one block per SM of an H100, splits on packing-unit
+    boundaries that cover K once, so at g128 every split boundary is a
+    group boundary; the column tile is the loop's BN."""
+    from repro_torch.kernels import w4a8_gemm as w
+
+    assert w.TILE_N == _cu_constant("w4a8_ring.cuh", "BN")
+    assert w.MAX_GROUP == 1 << 16  # MAX_GS = 1 << 16 in the loop
+    assert "MAX_GS = 1 << 16" in (_build.CSRC / "w4a8_ring.cuh").read_text()
+    plan = w.launch_plan(M, N, K, sms=132)
+    blocks, ranges = _w4a16_blocks_and_ranges(plan, M, N, K)
+    assert blocks >= 132
+    assert ranges[0][0] == 0 and ranges[-1][1] == K // 128
+    assert all(a < b for a, b in ranges)
+    assert plan["workspace"] == (plan["splits"] * M * N
+                                 if plan["splits"] > 1 else 0)
+
+
+@pytest.mark.parametrize("C", [8, 40])
+@pytest.mark.parametrize("K,N", [(4096, 14336), (14336, 4096)])
+def test_grouped_w4a16_launch_plan(C, K, N):
+    """Mixtral-8x7B's expert linears (8 experts) at the decode and the
+    prefill capacity: the experts count as blocks, so the grouped W4A16
+    kernel fills an H100 (132 SMs) at least twice over unsplit."""
+    from repro_torch.kernels.w4a8_gemm import launch_plan
+
+    plan = launch_plan(C, N, K, sms=132, experts=8)
+    assert plan == {"bm": 16 if C <= 16 else 64, "splits": 1,
+                    "workspace": 0}
+    assert -(-N // 64) * -(-C // plan["bm"]) * 8 >= 2 * 132
+    # a small grouped launch does split, and its workspace holds every
+    # expert's rows
+    small = launch_plan(C, 128, 512, sms=132, experts=3)
+    assert small["splits"] == 4 and small["workspace"] == 4 * 3 * C * 128
+
+
+def _to_int8(b: torch.Tensor) -> torch.Tensor:
+    """Low byte of each int64 as a signed int8 value."""
+    return ((b & 0xFF) ^ 0x80) - 0x80
+
+
+def test_nibble_times_16_unpack_is_exact():
+    """The loop's W4 unpack, in plain integer arithmetic over every int4
+    pair: a packed byte (low nibble lo, high nibble hi) masked with 0xF0
+    is 16 hi as an int8, and shifted left by 4 then masked, 16 lo. The
+    MMA's partial is then 16 x the true one; an arithmetic >> 4 restores
+    it, with no int32 overflow for a group of up to 2^16 rows even at the
+    extreme codes, and the IS group step at the largest amplifier the
+    quantizer admits (its overflow cap) matches the plain int32 sum."""
+    from repro_torch.core import integer_scale as isc
+    from repro_torch.core import packing, quant
+
+    lo, hi = torch.meshgrid(torch.arange(-8, 8), torch.arange(-8, 8),
+                            indexing="ij")
+    # pack_int4 puts k and k + 64 of a 128-row unit in one byte
+    q = torch.zeros((128, 256), dtype=torch.int8)
+    q[0] = lo.reshape(-1)
+    q[64] = hi.reshape(-1)
+    byte = packing.pack_int4(q)[0].to(torch.int64) & 0xFF
+    assert byte.shape == (256,) and len(set(byte.tolist())) == 256
+    assert torch.equal(_to_int8(byte & 0xF0), 16 * hi.reshape(-1))
+    assert torch.equal(_to_int8((byte << 4) & 0xF0), 16 * lo.reshape(-1))
+    del byte
+
+    # the extreme partials of a group of 2^16 rows: |16 w x| <= 2^14
+    for w16, x in ((-128, -128), (-128, 127), (112, -128), (112, 127)):
+        p16 = torch.tensor(w16 * x * (1 << 16), dtype=torch.int64)
+        assert -(1 << 31) <= p16 < (1 << 31)
+        assert torch.equal(p16.to(torch.int32) >> 4,
+                           torch.tensor(w16 // 16 * x * (1 << 16),
+                                        dtype=torch.int32))
+
+    # group sums at the largest admitted alpha: the worst-case activation
+    # codes (+-127 with each weight's sign), int32 all the way
+    K, N, g = 1024, 64, 128
+    rng = np.random.default_rng(12)
+    w = torch.from_numpy((rng.normal(size=(K, N)) * 0.05).astype(np.float32))
+    qw = quant.quantize_weight(w, 4, g)
+    alpha = isc.max_safe_amplifier(qw, 1 << 20)
+    isw = isc.integerize(qw, alpha)
+    assert not isc.would_overflow(isw)
+    xq = torch.where(qw.qvalue[:, :1] >= 0, 127, -127).T.to(torch.int8)
+    x64 = xq.to(torch.int64)
+    part16 = torch.stack([  # per group: 16 x the MMA's partial, as int32
+        (x64[:, k:k + g] @ (16 * qw.qvalue[k:k + g].to(torch.int64)))
+        for k in range(0, K, g)])
+    assert part16.abs().max() < (1 << 31)
+    acc = torch.sum((part16.to(torch.int32) >> 4) * isw.int_scale[:, None],
+                    dim=0, dtype=torch.int32)
+    want = fg_gemm_integer_scale_plain(
+        xq, torch.ones((1, 1)), packing.pack_int4(qw.qvalue), isw.int_scale,
+        group_size=g, alpha=1.0)
+    assert torch.equal(acc.float(), want)
+
+
+def _byte_perm(x: int, y: int, s: int) -> int:
+    """CUDA's __byte_perm (PRMT, default mode) on python ints."""
+    b = [(x >> 8 * i) & 0xFF for i in range(4)] + \
+        [(y >> 8 * i) & 0xFF for i in range(4)]
+    return sum(b[(s >> 4 * i) & 7] << 8 * i for i in range(4))
+
+
+def _transpose4(words: list[int]) -> list[int]:
+    """The loop's transpose4, run from its source: every ``v =
+    __byte_perm(a, b, s);`` line of the function in order."""
+    import re
+
+    src = (_build.CSRC / "w4a8_ring.cuh").read_text()
+    body = src[src.index("void transpose4("):]
+    body = body[:body.index("\n}\n")]
+    env = {f"w[{i}]": v for i, v in enumerate(words)}
+    steps = re.findall(r"(\w+(?:\[\d\])?) = __byte_perm\((\w+(?:\[\d\])?), "
+                       r"(\w+(?:\[\d\])?), (0x[0-9A-Fa-f]+)\);", body)
+    assert len(steps) == 8
+    for dst, a, b, sel in steps:
+        env[dst] = _byte_perm(env[a], env[b], int(sel, 16))
+    return [env[f"o[{f}]"] for f in range(4)]
+
+
+def test_w4a8_transpose4_builds_the_b_fragments():
+    """Four words (rows r..r+3 of columns 4j..4j+3 of a staged unit)
+    become four words, word f holding column f's rows r..r+3 in bytes
+    0..3: the k-contiguous operand of the int8 MMA."""
+    rng = np.random.default_rng(13)
+    for _ in range(50):
+        rows = rng.integers(0, 256, size=(4, 4))  # [row i][column f]
+        words = [int(sum(int(rows[i, f]) << 8 * f for f in range(4)))
+                 for i in range(4)]
+        out = _transpose4(words)
+        for f in range(4):
+            assert out[f] == sum(int(rows[i, f]) << 8 * i for i in range(4))
+
+
+def _ring_emulate(xq, w, scale, gs, splits, mode, kw=2):
+    """csrc/w4a8_ring.cuh's accumulation in plain integer and f32 torch
+    arithmetic: per split, ``kw`` warps along k (warp kh takes k-steps
+    32 kh + 32 kw j of each unit), each stepping its W4 partial (16 x,
+    then >> 4) into its accumulator when its next k-step is in another
+    group or its split ends; the k-halves summed, then the splits in
+    order, then the epilogue. ``mode``: "is" (int32 wrap), "fs" or
+    "defer" (one group over all of K: int32 sums first, one float step
+    last)."""
+    M, K = xq.shape
+    units = K // 128
+    x64, w64 = xq.to(torch.int64), w.to(torch.int64)
+
+    def wrap(v):
+        return ((v + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+    total = None
+    for z in range(splits):
+        u0, u1 = z * units // splits, (z + 1) * units // splits
+        halves = []
+        for kh in range(kw):
+            acc = torch.zeros((M, w.shape[1]),
+                              dtype=torch.float32 if mode == "fs"
+                              else torch.int64)
+            part = torch.zeros_like(acc, dtype=torch.int64)
+            for u in range(u0, u1):
+                lr = 128 * u % gs
+                for h in range(4 // kw):
+                    ka = 32 * kh + 32 * kw * h
+                    k = 128 * u + ka
+                    part += x64[:, k:k + 32] @ (16 * w64[k:k + 32])
+                    assert part.abs().max() < (1 << 31)
+                    if mode == "defer":
+                        continue
+                    grp = (lr + ka) // gs
+                    if (grp != (lr + ka + 32 * kw) // gs
+                            or (h == 4 // kw - 1 and u == u1 - 1)):
+                        s = scale[(128 * u + ka) // gs]
+                        p = part >> 4
+                        if mode == "is":
+                            acc = wrap(acc + p * s.to(torch.int64))
+                        else:
+                            acc = acc + p.float() * s
+                        part = torch.zeros_like(part)
+            halves.append(part >> 4 if mode == "defer" else acc)
+        split_sum = sum(halves[1:], halves[0])
+        total = split_sum if total is None else total + split_sum
+        if mode != "fs":
+            total = wrap(total)
+    return total
+
+
+@pytest.mark.parametrize("kw", [2, 1])
+@pytest.mark.parametrize("g,splits", [(128, 1), (128, 3), (32, 2), (64, 5),
+                                      (256, 3), (384, 2), (768, 4)])
+def test_w4a8_ring_accumulation_matches_plain(g, splits, kw):
+    """The loop's accumulation order against the plain versions, with two
+    warps along k (the decode tile) and one (the prefill tile): Integer
+    Scale bit-exact for every group size and split, also where a split
+    cuts a group (the int32 step is linear mod 2^32); one group over all
+    of K (coarse float scale) bit-exact with its int32 sums first; fine
+    float scale within rtol 1e-5 / atol 1e-4."""
+    M, K, N = 5, 768, 32
+    xq, sa, packed, ints, alpha = _gemm_operands(20 + g, M, K, N, g)
+    xq, sa, packed, ints = (_t(a) for a in (xq, sa, packed, ints))
+    w = jpacking.unpack_int4(jnp.asarray(packed.numpy()))
+    w = torch.from_numpy(np.array(w))
+    fac = sa.reshape(M) / alpha
+    acc = _ring_emulate(xq, w, ints, g, splits, "is", kw)
+    y = acc.to(torch.int32).float() * fac[:, None]
+    assert torch.equal(y, fg_gemm_integer_scale_plain(
+        xq, sa, packed, ints, group_size=g, alpha=alpha))
+
+    rng = np.random.default_rng(g)
+    fscale = torch.from_numpy(rng.uniform(1e-3, 2e-2, size=(K // g, N))
+                              .astype(np.float32))
+    y = _ring_emulate(xq, w, fscale, g, splits, "fs", kw) * sa
+    torch.testing.assert_close(y, fg_gemm_float_scale_plain(
+        xq, sa, packed, fscale, group_size=g), **FS_TOL)
+
+    cscale = fscale[:1]
+    p = _ring_emulate(xq, w, cscale, K, splits, "defer", kw).to(torch.int32)
+    y = (p.float() * cscale) * sa
+    assert torch.equal(y, fg_gemm_float_scale_plain(
+        xq, sa, packed, cscale, group_size=-1))
