@@ -39,12 +39,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    W8 at one decode shape) and coarse FS bit-exact, fine FS within rtol
    1e-5 / atol 1e-4, W4A16 within ``REL_TOLERANCE`` x max|y|; each ragged
    entry point must equal its dense-grouped one (pre-quantized codes, no
-   counts) bit for bit on the same zero-padded buffer, and W4A16 repeat
-   its bits on a second launch. Beside each: the
+   counts) bit for bit on the same zero-padded buffer, and repeat its
+   bits on a second launch. The ragged W4A8 entries quantize the routed
+   rows once (act_quant's routed entry, held bit-exact to its plain
+   version and timed alone) before the GEMM; they are timed whole, as
+   serving pays them, and once more at a forced K split (the split
+   reduction's path; IS and coarse bit-exact there too). Beside each: the
    plain version, one bf16 ``torch.bmm`` over the same (E, C, K) buffer
    (the FP16 baseline; for W4A16 also the library call) and the bound
    (the routed experts' weight and scale bytes, or the routed rows'
-   operations).
+   operations); per shape the paper's §5.5 ratios (grouped IS / FS, each
+   / bmm, IS / W4A16, share of the bound). A tree whose grouped W4A8
+   wrappers take no ``splits=`` (an earlier commit) skips the routed and
+   forced-split parts.
 4. Build ``llama2-7b`` at its full published widths (32 layers) in bf16
    from a seeded generator on the card, and RTN-quantize it under four
    recipes: W4A8 IS g128 alpha=1024 (the paper's), W4A8 FS g128 (Eq. 1),
@@ -144,6 +151,9 @@ MOE_KERNEL_OF = {"w4a8-is": "moe_w4a8_is", "w4a8-fs": "moe_w4a8_fs",
 MOE_E = 8
 MOE_KN = ((4096, 14336), (14336, 4096))
 MOE_C = (8, 40)
+# the forced K split of the grouped W4A8 kernels: Mixtral's down
+# projection at the decode capacity (its plan runs unsplit)
+MOE_SPLIT = (14336, 4096, 8, 4)  # K, N, C, splits
 # kernels vs plain versions on Mixtral's first layers: two, as for
 # llama2-7b (the CPU's plain grouped GEMMs take about 15 s a layer on the
 # card's 8-core host), with the same bound
@@ -312,6 +322,25 @@ def log_is_vs_fs(rows, shape):
         f"{fs['ms'] / fs['bf16_matmul_ms']:.3f}; share of bound IS "
         f"{is_['bound_ms'] / is_['ms']:.3f}, FS "
         f"{fs['bound_ms'] / fs['ms']:.3f}; plan {is_['plan']}")
+
+
+def log_grouped_is_vs_fs(rows, shape):
+    """The paper's §5.5 comparisons at one grouped (Mixtral) shape, from the
+    ragged rows just timed: IS / FS (fine and coarse), IS / W4A16, each /
+    the bf16 bmm over the same buffer, and each W4A8 kernel's share of its
+    bound."""
+    got = {(r["kernel"], r["variant"]): r for r in rows
+           if r["shape"] == shape and "counts" in r}
+    is_, fs = got[("moe_w4a8_is", "fine")], got[("moe_w4a8_fs", "fine")]
+    co, wo = got[("moe_w4a8_fs", "coarse")], got[("moe_w4a16", "fine")]
+    bmm = is_["bf16_matmul_ms"]
+    log(f"[kernel] grouped {shape}: IS / FS {is_['ms'] / fs['ms']:.3f}; IS / "
+        f"coarse {is_['ms'] / co['ms']:.3f}; IS / W4A16 "
+        f"{is_['ms'] / wo['ms']:.3f}; / bf16 bmm IS {is_['ms'] / bmm:.3f}, "
+        f"FS {fs['ms'] / bmm:.3f}, coarse {co['ms'] / bmm:.3f}; dense "
+        f"grouped IS / FS {is_['dense_ms'] / fs['dense_ms']:.3f}; share of "
+        f"bound IS {is_['bound_ms'] / is_['ms']:.3f}, FS "
+        f"{fs['bound_ms'] / fs['ms']:.3f}")
 
 
 def check_gemms(gen, rows):
@@ -519,10 +548,21 @@ def check_grouped(gen, rows):
     version, ragged == dense grouped on the same zero-padded buffer; each
     timed with its plain version, a bf16 ``torch.bmm`` over the same
     buffer, and its bound."""
+    import inspect
+
     import torch
+    from repro_torch.kernels import act_quant as aq
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels.act_quant import act_quant_plain
     from repro_torch.kernels.w4a16_gemm import REL_TOLERANCE
+
+    # this tree's grouped W4A8 kernels run the launch plan, quantize the
+    # routed rows in act_quant's routed entry and take a forced split
+    ring = "splits" in inspect.signature(
+        mg.fg_grouped_gemm_integer_scale_ragged).parameters
+    if not ring:
+        log("[kernel] grouped W4A8: this tree has no routed act_quant "
+            "entry and no splits=; its forced-split case is skipped")
 
     def on_weights(fn, q, sc, **fixed):
         """(a, b, w) -> fn(a, b, w[q], w[sc]): a grouped entry point over
@@ -578,13 +618,15 @@ def check_grouped(gen, rows):
     def bmm(x, wd):
         return torch.bmm(x, wd)
 
-    def one(name, variant, C, K, N, x, rc, xq, sa, w, fns, w_bits=4):
+    def one(name, variant, C, K, N, x, rc, xq, sa, w, fns, w_bits=4,
+            splits=0):
         ragged, ragged_plain, dense, dense_plain, how = fns
         kw = {} if w_bits == 4 else dict(w_bits=8)
+        kk = dict(kw, splits=splits) if splits else kw  # the kernels' kwargs
         shape = [MOE_E, C, K, N]
         dargs = (x, None, w) if name == "moe_w4a16" else (xq, sa, w)
-        y = ragged(x, rc, w, **kw)
-        y_d = dense(*dargs, **kw)
+        y = ragged(x, rc, w, **kk)
+        y_d = dense(*dargs, **kk)
         for tag, got, want in (("ragged", y, ragged_plain(x, rc, w, **kw)),
                                ("dense", y_d, dense_plain(*dargs, **kw))):
             e = _check(f"{name} {variant} {tag}", shape, got, want, how)
@@ -592,9 +634,9 @@ def check_grouped(gen, rows):
         if not torch.equal(y, y_d):
             raise AssertionError(f"{name} {variant} {shape}: ragged != "
                                  "dense grouped")
-        if name == "moe_w4a16" and not torch.equal(y, ragged(x, rc, w)):
-            raise AssertionError(f"{name} {shape}: two launches gave "
-                                 "different bits")
+        if not torch.equal(y, ragged(x, rc, w, **kk)):
+            raise AssertionError(f"{name} {variant} {shape}: two launches "
+                                 "gave different bits")
         counts = [min(int(c), C) for c in rc.tolist()]
         routed, active = sum(counts), sum(c > 0 for c in counts)
         wbytes = K * N // (2 if w_bits == 4 else 1)
@@ -609,18 +651,42 @@ def check_grouped(gen, rows):
         db, dby = bound(MOE_E * (wbytes + sbytes) + out_bytes
                         + MOE_E * C * (K * 2 if wo else K + 4),
                         (2 * MOE_E * C * K * N, rate))
+        plan = launch_plan(C, N, K, MOE_E) if wo or ring else None
+        if splits:
+            plan = dict(plan, splits=splits,
+                        workspace=splits * MOE_E * C * N)
         return dict(
-            kernel=name, variant=variant if w_bits == 4 else "w8",
-            shape=shape, counts=counts,
-            plan=launch_plan(C, N, K, MOE_E) if wo else None,
-            ms=time_ms(lambda *a: ragged(*a, **kw), [(x, rc, w)]),
+            kernel=name, variant=(variant if w_bits == 4 else "w8")
+            + (f" split{splits}" if splits else ""),
+            shape=shape, counts=counts, plan=plan,
+            ms=time_ms(lambda *a: ragged(*a, **kk), [(x, rc, w)]),
             plain_ms=time_ms(lambda *a: ragged_plain(*a, **kw), [(x, rc, w)],
                              iters=2, reps=2),
             bound_ms=b, bound_by=by,
-            dense_ms=time_ms(lambda *a: dense(*a, **kw), [dargs]),
+            dense_ms=time_ms(lambda *a: dense(*a, **kk), [dargs]),
             dense_plain_ms=time_ms(lambda *a: dense_plain(*a, **kw), [dargs],
                                    iters=2, reps=2),
             dense_bound_ms=db, dense_bound_by=dby)
+
+    def routed_quant(C, K, x, rc, alpha):
+        """act_quant's routed entry (the grouped W4A8 kernels' first
+        launch) against its plain version, bit for bit, and timed."""
+        got = aq.act_quant_routed(x, rc, alpha)
+        want = aq.act_quant_routed_plain(x, rc, alpha)
+        for g_, w_ in zip(got, want):
+            e = _check("act_quant routed", [MOE_E, C, K], g_.float(),
+                       w_.float(), "exact")
+            errs["act_quant"] = max(errs.get("act_quant", 0.0), e)
+        routed = sum(min(max(int(c), 0), C) for c in rc.tolist())
+        b, by = bound(routed * K * 2 + MOE_E * C * (K + 4),
+                      (2 * routed * K, F32_FLOPS_PER_S))
+        return dict(kernel="act_quant", variant="routed",
+                    shape=[MOE_E, C, K], ms=time_ms(
+                        aq.act_quant_routed, [(x, rc, alpha)]),
+                    plain_ms=time_ms(aq.act_quant_routed_plain,
+                                     [(x, rc, alpha)]),
+                    bound_ms=b, bound_by=by, library_ms=None,
+                    bf16_matmul_ms=None)
 
     def inputs(C, K, counts):
         """A bf16 (E, C, K) dispatch buffer zero past ``counts``, its
@@ -637,11 +703,21 @@ def check_grouped(gen, rows):
         w = moe_weights(gen, K, N)
         for C in MOE_C:
             x, rc, xq, sa = inputs(C, K, moe_counts(C, seed=C * K))
+            if ring:
+                rows.append(routed_quant(C, K, x, rc, w["alpha"]))
             mm = time_ms(bmm, [(x, w["wd"])])
             for (name, variant), fns in groups.items():
                 r = one(name, variant, C, K, N, x, rc, xq, sa, w, fns)
                 rows.append(dict(r, library_ms=mm if name == "moe_w4a16"
                                  else None, bf16_matmul_ms=mm, copies=1))
+            log_grouped_is_vs_fs(rows, [MOE_E, C, K, N])
+            if ring and (K, N, C) == MOE_SPLIT[:3]:
+                for key in (("moe_w4a8_is", "fine"), ("moe_w4a8_fs", "fine"),
+                            ("moe_w4a8_fs", "coarse")):
+                    r = one(*key, C, K, N, x, rc, xq, sa, w, groups[key],
+                            splits=MOE_SPLIT[3])
+                    rows.append(dict(r, library_ms=None, bf16_matmul_ms=mm,
+                                     copies=1))
             del x, xq, sa
         del w
         torch.cuda.empty_cache()
@@ -976,8 +1052,9 @@ def main() -> int:
     rows: list[dict] = []
     errs = {"act_quant": check_act_quant(gen, rows),
             **check_gemms(gen, rows),
-            "flash_attention": check_flash(gen, rows),
-            **check_grouped(gen, rows)}
+            "flash_attention": check_flash(gen, rows)}
+    for k, v in check_grouped(gen, rows).items():
+        errs[k] = max(errs.get(k, 0.0), v)
 
     def opt(v):
         return "-" if v is None else f"{v:.4f} ms"

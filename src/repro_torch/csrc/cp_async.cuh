@@ -1,7 +1,9 @@
 // Staging helpers shared by the cp.async ring kernels (w4a16_ring.cuh and
 // w4a8_ring.cuh): 16-byte global -> shared copies, their commit groups and
 // waits, the plain-load path for rows that are not 16-byte aligned,
-// ldmatrix, and the small integer quotient both loops track groups with.
+// ldmatrix, the small integer quotient both loops track groups with, and
+// the routed-row count of an expert that the grouped launches read on the
+// device (also act_quant.cu's routed entry).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,6 +54,14 @@ __device__ __forceinline__ void copy16_tail(void* dst, const T* src, int n) {
 // in f32 with a half-unit margin, far above its rounding error
 __device__ __forceinline__ int div_small(int n, float inv_gs) {
   return __float2int_rz((static_cast<float>(n) + 0.5f) * inv_gs);
+}
+
+// Routed rows of expert e: min(counts[e], C), clamped at 0 (C without
+// counts).
+__device__ __forceinline__ int routed_rows(const int* counts, int e, int C) {
+  if (counts == nullptr) return C;
+  const int c = counts[e];
+  return c < 0 ? 0 : (c < C ? c : C);
 }
 
 // Sets a kernel's dynamic shared memory limit once per device (the

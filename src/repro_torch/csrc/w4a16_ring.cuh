@@ -143,14 +143,6 @@ __device__ __forceinline__ uint32_t deq2(float c0, float c1, float s) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// Routed rows of expert e: min(counts[e], C), clamped at 0 (C without
-// counts).
-__device__ __forceinline__ int routed_rows(const int* counts, int e, int C) {
-  if (counts == nullptr) return C;
-  const int c = counts[e];
-  return c < 0 ? 0 : (c < C ? c : C);
-}
-
 // One block: a BM x BN output tile of expert e over the packing units
 // [u0, u1) of its split. blockIdx = (n-block, m-block, e * splits + split).
 // dst is out (one split) or the workspace (splits, E*C, N). VEC: N % 16 ==

@@ -1,8 +1,8 @@
 // What the W4A8 / W8A8 GEMM loops share: the int8 tensor-core MMA and the
 // Scale policies of Integer Scale (paper Eq. 2) and float scale (Eq. 1).
-// The grouped kernels' loop (w4a8_tile.cuh) and the dense GEMMs' loop
-// (w4a8_ring.cuh) both take a policy, so within each loop IS and FS differ
-// only in what happens when a quantization group ends and in the epilogue.
+// The loop of every W4A8 GEMM, dense and grouped (w4a8_ring.cuh), takes a
+// policy, so IS and FS differ only in what happens when a quantization
+// group ends and in the epilogue.
 #pragma once
 
 #include <cuda_runtime.h>

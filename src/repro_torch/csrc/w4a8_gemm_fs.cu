@@ -40,6 +40,8 @@ extern "C" int w4a8_gemm_fs_launch(const void* xq, const void* sa,
                                    void* ws, int M, int N, int K, int gs,
                                    int w_bits, int bm, int splits,
                                    void* stream) {
-  return w4a8_ring_launch<FloatScale>(xq, sa, w, s, out, ws, M, N, K, gs,
-                                      w_bits, bm, splits, stream);
+  // one expert of M rows, every row routed
+  return w4a8_ring_launch<FloatScale, false>(
+      xq, sa, nullptr, w, s, out, ws, 1, M, N, K, gs, w_bits, bm, splits,
+      stream);
 }

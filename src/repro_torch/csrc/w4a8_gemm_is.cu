@@ -31,6 +31,8 @@ extern "C" int w4a8_gemm_is_launch(const void* xq, const void* fac,
                                    void* ws, int M, int N, int K, int gs,
                                    int w_bits, int bm, int splits,
                                    void* stream) {
-  return w4a8_ring_launch<IntegerScale>(xq, fac, w, s, out, ws, M, N, K, gs,
-                                        w_bits, bm, splits, stream);
+  // one expert of M rows, every row routed
+  return w4a8_ring_launch<IntegerScale, false>(
+      xq, fac, nullptr, w, s, out, ws, 1, M, N, K, gs, w_bits, bm, splits,
+      stream);
 }

@@ -1,11 +1,16 @@
-// The loop of the dense W4A8 / W8A8 GEMMs: Integer Scale (paper Eq. 2;
-// w4a8_gemm_is.cu) and float scale (Eq. 1, fine and coarse;
-// w4a8_gemm_fs.cu), the same template under the two Scale policies of
-// w4a8_common.cuh, so a time difference between IS and FS measures only the
-// per-group step and the epilogue (the paper's Table 3 comparison).
+// The loop of the W4A8 / W8A8 GEMMs: Integer Scale (paper Eq. 2) and float
+// scale (Eq. 1, fine and coarse), dense (w4a8_gemm_is.cu, w4a8_gemm_fs.cu)
+// and ragged batched-expert (moe_w4a8_is.cu, moe_w4a8_fs.cu), the same
+// template under the two Scale policies of w4a8_common.cuh, so a time
+// difference between IS and FS measures only the per-group step and the
+// epilogue (the paper's Table 3 comparison, and §5.5's on Mixtral).
 //
+//   per expert e, row m < rc = min(counts[e], C):
 //   O[m, n] = out(sum over groups g of group(part_g[m, n], s[g, n]), fac[m])
 //   part_g = sum over k in g of xq[m, k] * w[k, n]        (int32)
+//   rows at or past rc: exact +0.0
+//
+// The dense GEMMs are the case E = 1, C = M, no counts.
 //
 // What bounds it on the H100: at decode (M <= 16) device-memory bytes: the
 //   packed int4 weights (K*N/2 bytes) and the 4-byte group scales
@@ -14,8 +19,9 @@
 //   bytes are of the same order. The unpacking of the weights into MMA
 //   operands must stay below the byte time.
 // What the design does about it (second design; the first, w4a8_tile.cuh,
-//   which the grouped kernels still use, ran 64 blocks at N = 4096, read
-//   one byte per load and unpacked through shared memory):
+//   now deleted, ran 64 blocks at N = 4096, read one byte per load,
+//   unpacked through shared memory and, in the grouped kernels, quantized
+//   the activations again in every n-block):
 //   - Split K on 128-row packing-unit boundaries where the grid would not
 //     fill the card (the wrapper's launch_plan, shared with the W4A16 GEMM:
 //     about two blocks per SM). Each split writes 4-byte partials to a
@@ -69,6 +75,24 @@
 //     (float(P) * s[n]) * sa[m], the plain arithmetic exactly: bit-exact.
 // Any N: when N % 16 != 0 the rows of bytes and scales are not 16-byte
 //   aligned, and an instance stages them by plain loads (VEC = false).
+// Experts: blockIdx.z is (expert e, split), as in w4a16_ring.cuh; the
+//   expert's rows are rows [e*C, e*C + C) of the (E*C, K) codes, the
+//   factors and the output, its weights and scales the e-th slabs. Its
+//   offsets are 32-bit row indices (E*C rows, E*K/gs scale rows) times
+//   64-bit strides, as the dense loop indexed its operands. The expert
+//   dimension is a template flag (GROUPED): the dense entry points compile
+//   it away, because on the H100 its runtime arithmetic and 64-bit bases
+//   cost the dense GEMMs up to 12 registers and 2-9 % of their time. The
+//   codes come quantized (act_quant.cu's routed entry, once
+//   per launch), so the loop reads int8 rows as the dense GEMMs do. Only
+//   rows below rc are routed; counts are read on the device (no host sync,
+//   so a MoE step captures as a CUDA graph). A block whose m-tile starts at
+//   or past rc writes zeros (into out, or into its split's slab) and
+//   returns; the routed rows' zero tail of a live tile is written as +0.0
+//   without reading its factor, and the split reduction writes +0.0 at every
+//   row at or past rc, so nothing a buffer holds past the counts (NaN, inf)
+//   reaches the output. Rows at or past C belong to the next expert and are
+//   never touched.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -161,29 +185,30 @@ __device__ __forceinline__ float add_p(float a, float b) {
   return __fadd_rn(a, b);
 }
 
-// The output of one element from its summed partial
+// The output of column n from its summed partial and its row's factor f;
+// s is the expert's one scale row, which only DEFER reads
 template <class Scale, bool DEFER>
 __device__ __forceinline__ float finish(Part<Scale, DEFER> p,
-                                        const void* sc, const float* fac,
-                                        int m, int n) {
-  using Value = typename Scale::Value;
+                                        const typename Scale::Value* s,
+                                        float f, int n) {
   if constexpr (DEFER) {
-    const Value s = static_cast<const Value*>(sc)[n];  // the one scale row
-    return Scale::out(Scale::group(typename Scale::Acc(0), p, s), fac[m]);
+    return Scale::out(Scale::group(typename Scale::Acc(0), p, s[n]), f);
   } else {
-    return Scale::out(p, fac[m]);
+    return Scale::out(p, f);
   }
 }
 
-// One block: a BM x BN output tile over the packing units [u0, u1) of its
-// split. blockIdx = (n-block, m-block, split). With one split the block
-// writes out; else its Part sums go to the split's (M, N) slab of ws.
-template <int BM, bool W4, bool VEC, class Scale, bool DEFER>
+// One block: a BM x BN output tile of expert e over the packing units
+// [u0, u1) of its split. blockIdx = (n-block, m-block, e * splits + split).
+// With one split the block writes out; else its Part sums go to the
+// split's (E*C, N) slab of ws. !GROUPED: E = 1 and no counts.
+template <int BM, bool W4, bool VEC, class Scale, bool DEFER, bool GROUPED>
 __global__ void __launch_bounds__(kThreads, BM == 16 ? 512 / kThreads : 3)
 w4a8_ring_kernel(const int8_t* __restrict__ x, const float* __restrict__ fac,
                  const uint8_t* __restrict__ wq, const void* __restrict__ sc,
-                 float* __restrict__ out, void* __restrict__ ws, int M, int N,
-                 int K, int gs, int splits) {
+                 float* __restrict__ out, void* __restrict__ ws,
+                 const int* __restrict__ counts, int E, int C, int N, int K,
+                 int gs, int splits) {
   using L = Smem<BM, W4>;
   using Acc = typename Scale::Acc;
   using Value = typename Scale::Value;
@@ -194,22 +219,46 @@ w4a8_ring_kernel(const int8_t* __restrict__ x, const float* __restrict__ fac,
   extern __shared__ __align__(16) uint8_t smem[];
 
   const int units = K / KU;
-  const int z = blockIdx.z;
+  const int e = GROUPED ? static_cast<int>(blockIdx.z) / splits : 0;
+  const int z = static_cast<int>(blockIdx.z) - e * splits;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int tid = threadIdx.x;
+  // this block's rows of its expert: [m0, m0 + wrows) written, the first
+  // nrows of them routed; row0 is the first one's row of the E*C (the
+  // expert's offsets are folded into 32-bit row indices, as the dense
+  // loop indexed its operands, so no 64-bit base stays live in the loop)
+  const int wrows = C - m0 < BM ? C - m0 : BM;
+  const int rc = GROUPED ? routed_rows(counts, e, C) : C;
+  const int row0 = e * C + m0;
+  // the element of out (one split) or of the split's slab of ws where the
+  // tile's first row starts
+  auto at0 = [&]() {
+    const int64_t rows = static_cast<int64_t>(GROUPED ? E : 1) * C;
+    return (splits == 1 ? row0 : z * rows + row0) * static_cast<int64_t>(N);
+  };
+  if (m0 >= rc) {  // no routed row in this m-tile: zeros (+0.0 or int 0)
+    uint32_t* d =
+        static_cast<uint32_t*>(splits == 1 ? static_cast<void*>(out) : ws) +
+        at0();
+    for (int i = tid; i < wrows * BN; i += kThreads) {
+      const int r = i / BN, c = i % BN;
+      if (n0 + c < N) d[static_cast<int64_t>(r) * N + n0 + c] = 0u;
+    }
+    return;
+  }
+  const int nrows = rc - m0 < BM ? rc - m0 : BM;
   const int u0 = static_cast<int>(static_cast<int64_t>(z) * units / splits);
   const int u1 =
       static_cast<int>(static_cast<int64_t>(z + 1) * units / splits);
   const int nu = u1 - u0;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int nrows = M - m0 < BM ? M - m0 : BM;
 
-  const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;  // mma groupID / thread-in-group
   const int cg = warp % WARPS_N;           // 32-column slice of the tile
   const int kh = KW == 2 ? warp / WARPS_N : 0;  // k-half
   const int r0 = KW == 2 ? 0 : (warp / WARPS_N) * MT * 16;  // first row
 
-  // activation rows past M stay zero in every stage
+  // activation rows past the routed ones stay zero in every stage
   constexpr int XCH = XS / 16;  // 16-byte chunks of a staged row
   for (int i = tid; i < STAGES * BM * XCH; i += kThreads) {
     const int s = i / (BM * XCH), r = (i / XCH) % BM, c = i % XCH;
@@ -229,14 +278,16 @@ w4a8_ring_kernel(const int8_t* __restrict__ x, const float* __restrict__ fac,
   constexpr int XCP = (BM * (KU / 16) + kThreads - 1) / kThreads;
   const int wr = tid / (BN / 16), wc = tid % (BN / 16);
   const bool win = n0 + wc * 16 < N;
-  const uint8_t* wsrc = wq + static_cast<int64_t>(u0) * WROWS * N +
-                        static_cast<int64_t>(wr) * N +
-                        (win ? n0 + wc * 16 : 0);
+  const uint8_t* wsrc =
+      wq + (static_cast<int64_t>(e) * (K / KU) + u0) * WROWS * N +
+      static_cast<int64_t>(wr) * N + (win ? n0 + wc * 16 : 0);
   const int sr = tid / (BN / 4), scc = (tid % (BN / 4)) * 4;
   const bool sin = n0 + scc < N;
   const float inv_gs = 1.f / static_cast<float>(gs);
   const int q128 = KU / gs, r128 = KU % gs;  // 128 = q128 * gs + r128
-  int lg = static_cast<int>(static_cast<int64_t>(u0) * KU / gs);
+  // lg counts scale rows from the expert's first (K / gs rows an expert)
+  int lg = e * (K / gs) +
+           static_cast<int>(static_cast<int64_t>(u0) * KU / gs);
   int lr = static_cast<int>(static_cast<int64_t>(u0) * KU % gs);
   int crr = lr;
   int lu = u0;  // the unit to load next
@@ -278,7 +329,7 @@ w4a8_ring_kernel(const int8_t* __restrict__ x, const float* __restrict__ fac,
       const int r = i / (KU / 16), c = (i % (KU / 16)) * 16;
       if (r < nrows && i < BM * (KU / 16)) {
         cp16(xs + r * XS + c,
-             x + static_cast<int64_t>(m0 + r) * K + lu * KU + c, true);
+             x + static_cast<int64_t>(row0 + r) * K + lu * KU + c, true);
       }
     }
     ++lu;
@@ -356,7 +407,7 @@ w4a8_ring_kernel(const int8_t* __restrict__ x, const float* __restrict__ fac,
       }
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        uint32_t a[4];  // rows past M are zeros in the stage
+        uint32_t a[4];  // unrouted rows are zeros in the stage
         ldmatrix_x4(a, xs + (r0 + mt * 16 + (lane & 15)) * XS + ka +
                            (lane >> 4) * 16);
 #pragma unroll
@@ -422,144 +473,166 @@ w4a8_ring_kernel(const int8_t* __restrict__ x, const float* __restrict__ fac,
     }
   }
   __syncthreads();
-  P* slab = static_cast<P*>(ws) + static_cast<int64_t>(z) * M * N;
-  for (int i = tid; i < nrows * (BN / 4); i += kThreads) {
+  const int64_t base = at0();
+  // DEFER's one scale row of the expert (gs == K)
+  const Value* srow =
+      static_cast<const Value*>(sc) + static_cast<int64_t>(e) * N;
+  for (int i = tid; i < wrows * (BN / 4); i += kThreads) {
     const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
     if (n0 + c >= N) continue;
-    const int m = m0 + r;
+    const bool live = !GROUPED || r < nrows;  // routed (else +0.0)
+    const float f = live ? fac[row0 + r] : 0.f;
     float o[4];
     alignas(16) P v[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      v[j] = red[r * BN + c + j];
-      if constexpr (KW == 2) v[j] = add_p(v[j], red[(BM + r) * BN + c + j]);
-      if (splits == 1 && n0 + c + j < N) {
-        o[j] = finish<Scale, DEFER>(v[j], sc, fac, m, n0 + c + j);
-      }
+      P a = red[r * BN + c + j];
+      if constexpr (KW == 2) a = add_p(a, red[(BM + r) * BN + c + j]);
+      v[j] = live ? a : P(0);
+      o[j] = live && splits == 1 && n0 + c + j < N
+                 ? finish<Scale, DEFER>(a, srow, f, n0 + c + j)
+                 : 0.f;
     }
-    const int64_t at = static_cast<int64_t>(m) * N + n0 + c;
+    const int64_t o0 = base + static_cast<int64_t>(r) * N + n0 + c;
     if (splits == 1) {
       if constexpr (VEC) {
-        *reinterpret_cast<float4*>(out + at) =
+        *reinterpret_cast<float4*>(out + o0) =
             make_float4(o[0], o[1], o[2], o[3]);
       } else {
-        for (int j = 0; j < 4 && n0 + c + j < N; ++j) out[at + j] = o[j];
+        for (int j = 0; j < 4 && n0 + c + j < N; ++j) out[o0 + j] = o[j];
       }
     } else {
+      P* slab = static_cast<P*>(ws);
       if constexpr (VEC) {
-        *reinterpret_cast<int4*>(slab + at) =
+        *reinterpret_cast<int4*>(slab + o0) =
             *reinterpret_cast<const int4*>(v);
       } else {
-        for (int j = 0; j < 4 && n0 + c + j < N; ++j) slab[at + j] = v[j];
+        for (int j = 0; j < 4 && n0 + c + j < N; ++j) slab[o0 + j] = v[j];
       }
     }
   }
 }
 
-// out[m, n] = finish(ws[0][m, n] + ws[1][m, n] + ... + ws[splits - 1][m, n]),
-// the splits added in that order
-template <class Scale, bool DEFER>
+// out[i] = finish(ws[0][i] + ws[1][i] + ... + ws[splits - 1][i]), the
+// splits added in that order, over the n = E*C*N outputs; +0.0 at every row
+// at or past its expert's count (whatever the slabs hold there)
+template <class Scale, bool DEFER, bool GROUPED>
 __global__ void __launch_bounds__(256)
 w4a8_splitk_reduce(const Part<Scale, DEFER>* __restrict__ ws,
                    const void* __restrict__ sc, const float* __restrict__ fac,
-                   float* __restrict__ out, int M, int N, int splits) {
-  const int64_t n = static_cast<int64_t>(M) * N;
+                   float* __restrict__ out, const int* __restrict__ counts,
+                   int C, int N, int64_t n, int splits) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
   if (i >= n) return;
+  const int row = static_cast<int>(i / N), col = static_cast<int>(i % N);
+  const int e = GROUPED ? row / C : 0;
+  if (GROUPED && row - e * C >= routed_rows(counts, e, C)) {
+    out[i] = 0.f;
+    return;
+  }
   Part<Scale, DEFER> a = ws[i];
   for (int s = 1; s < splits; ++s) a = add_p(a, ws[s * n + i]);
-  out[i] = finish<Scale, DEFER>(a, sc, fac, static_cast<int>(i / N),
-                                static_cast<int>(i % N));
+  // DEFER's one scale row of the expert (gs == K)
+  const auto* srow = static_cast<const typename Scale::Value*>(sc) +
+                     static_cast<int64_t>(e) * N;
+  out[i] = finish<Scale, DEFER>(a, srow, fac[row], col);
 }
 
-template <int BM, bool W4, bool VEC, class Scale, bool DEFER>
-cudaError_t ring_launch(const int8_t* x, const float* fac, const uint8_t* w,
-                        const void* s, float* out, void* ws, int M, int N,
-                        int K, int gs, int splits, cudaStream_t st) {
+// The operands of one launch (see w4a8_ring_launch)
+struct RingArgs {
+  const int8_t* x;
+  const float* fac;
+  const uint8_t* w;
+  const void* s;
+  float* out;
+  void* ws;
+  const int* counts;
+  int E, C, N, K, gs, splits;
+};
+
+template <int BM, bool W4, bool VEC, class Scale, bool DEFER, bool GROUPED>
+cudaError_t ring_launch(const RingArgs& a, cudaStream_t st) {
   constexpr int bytes = Smem<BM, W4>::bytes;
   static bool attr[64] = {};
-  auto* kernel = w4a8_ring_kernel<BM, W4, VEC, Scale, DEFER>;
+  auto* kernel = w4a8_ring_kernel<BM, W4, VEC, Scale, DEFER, GROUPED>;
   cudaError_t err = allow_smem(kernel, bytes, attr);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  kernel<<<grid, kThreads, bytes, st>>>(x, fac, w, s, out, ws, M, N, K, gs,
-                                        splits);
+  const dim3 grid((a.N + BN - 1) / BN, (a.C + BM - 1) / BM, a.E * a.splits);
+  kernel<<<grid, kThreads, bytes, st>>>(a.x, a.fac, a.w, a.s, a.out, a.ws,
+                                        a.counts, a.E, a.C, a.N, a.K, a.gs,
+                                        a.splits);
   err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const int64_t n = static_cast<int64_t>(M) * N;
-  w4a8_splitk_reduce<Scale, DEFER>
+  if (err != cudaSuccess || a.splits == 1) return err;
+  const int64_t n = static_cast<int64_t>(a.E) * a.C * a.N;
+  w4a8_splitk_reduce<Scale, DEFER, GROUPED>
       <<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-          static_cast<const Part<Scale, DEFER>*>(ws), s, fac, out, M, N,
-          splits);
+          static_cast<const Part<Scale, DEFER>*>(a.ws), a.s, a.fac, a.out,
+          a.counts, a.C, a.N, n, a.splits);
   return cudaGetLastError();
 }
 
-template <class Scale, bool DEFER, int BM, bool W4>
-cudaError_t ring_launch_vec(bool vec, const int8_t* x, const float* fac,
-                            const uint8_t* w, const void* s, float* out,
-                            void* ws, int M, int N, int K, int gs,
-                            int splits, cudaStream_t st) {
-  return vec ? ring_launch<BM, W4, true, Scale, DEFER>(
-                   x, fac, w, s, out, ws, M, N, K, gs, splits, st)
-             : ring_launch<BM, W4, false, Scale, DEFER>(
-                   x, fac, w, s, out, ws, M, N, K, gs, splits, st);
+template <class Scale, bool DEFER, bool G, int BM, bool W4>
+cudaError_t ring_launch_vec(bool vec, const RingArgs& a, cudaStream_t st) {
+  return vec ? ring_launch<BM, W4, true, Scale, DEFER, G>(a, st)
+             : ring_launch<BM, W4, false, Scale, DEFER, G>(a, st);
 }
 
-template <class Scale, bool DEFER>
-cudaError_t ring_launch_tile(int bm, int w_bits, bool vec, const int8_t* x,
-                             const float* fac, const uint8_t* w,
-                             const void* s, float* out, void* ws, int M,
-                             int N, int K, int gs, int splits,
+template <class Scale, bool DEFER, bool G>
+cudaError_t ring_launch_tile(int bm, int w_bits, bool vec, const RingArgs& a,
                              cudaStream_t st) {
   if (bm == 16) {
     return w_bits == 4
-               ? ring_launch_vec<Scale, DEFER, 16, true>(
-                     vec, x, fac, w, s, out, ws, M, N, K, gs, splits, st)
-               : ring_launch_vec<Scale, DEFER, 16, false>(
-                     vec, x, fac, w, s, out, ws, M, N, K, gs, splits, st);
+               ? ring_launch_vec<Scale, DEFER, G, 16, true>(vec, a, st)
+               : ring_launch_vec<Scale, DEFER, G, 16, false>(vec, a, st);
   }
-  return w_bits == 4
-             ? ring_launch_vec<Scale, DEFER, 64, true>(
-                   vec, x, fac, w, s, out, ws, M, N, K, gs, splits, st)
-             : ring_launch_vec<Scale, DEFER, 64, false>(
-                   vec, x, fac, w, s, out, ws, M, N, K, gs, splits, st);
+  return w_bits == 4 ? ring_launch_vec<Scale, DEFER, G, 64, true>(vec, a, st)
+                     : ring_launch_vec<Scale, DEFER, G, 64, false>(vec, a, st);
 }
 
-// The body of the dense GEMMs' C entry points. xq (M, K) int8 codes; fac
-// (M,) f32, the per-row factor of the epilogue; w (K/2, N) packed int4
-// (w_bits = 4) or (K, N) int8 (w_bits = 8); s (K/gs, N) of Scale::Value;
-// out (M, N) f32; ws (splits, M, N) of 4-byte elements when splits > 1
+// The body of the W4A8 C entry points, dense and grouped. xq (E*C, K) int8
+// codes; fac (E*C,) f32, the per-row factor of the epilogue; counts (E,)
+// int32 or null (every row routed); w (E, K/2, N) packed int4 (w_bits = 4)
+// or (E, K, N) int8 (w_bits = 8); s (E, K/gs, N) of Scale::Value; out
+// (E*C, N) f32; ws (splits, E*C, N) of 4-byte elements when splits > 1
 // (else unused). All contiguous and 16-byte aligned. K % 128 == 0,
-// K % gs == 0, gs % 32 == 0, gs <= 2^16, 1 <= splits <= K / 128; bm is 16
-// or 64. gs == K is one group over all of K (coarse). Returns
-// cudaGetLastError() after the launches.
-template <class Scale>
-int w4a8_ring_launch(const void* xq, const void* fac, const void* w,
-                     const void* s, void* out, void* ws, int M, int N, int K,
-                     int gs, int w_bits, int bm, int splits, void* stream) {
+// K % gs == 0, gs % 32 == 0, gs <= 2^16, 1 <= splits <= K / 128,
+// E * splits <= 65535, E * C < 2^31; bm is 16 or 64. gs == K is one group
+// over all of K (coarse). The dense GEMMs pass E = 1, C = M, no counts and
+// GROUPED = false. Returns cudaGetLastError() after the launches.
+template <class Scale, bool GROUPED>
+int w4a8_ring_launch(const void* xq, const void* fac, const void* counts,
+                     const void* w, const void* s, void* out, void* ws, int E,
+                     int C, int N, int K, int gs, int w_bits, int bm,
+                     int splits, void* stream) {
   if ((w_bits != 4 && w_bits != 8) || K % KU != 0 || gs <= 0 ||
       gs % 32 != 0 || gs > MAX_GS || K % gs != 0 || splits < 1 ||
-      splits > K / KU || splits > 65535 || (splits > 1 && ws == nullptr) ||
-      (bm != 16 && bm != 64)) {
+      splits > K / KU || E < 1 || (!GROUPED && (E != 1 || counts != nullptr)) ||
+      static_cast<int64_t>(E) * splits > 65535 ||
+      static_cast<int64_t>(E) * C > INT32_MAX ||
+      (splits > 1 && ws == nullptr) || (bm != 16 && bm != 64)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
+  if (C <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* x = static_cast<const int8_t*>(xq);
-  const auto* f = static_cast<const float*>(fac);
-  const auto* wb = static_cast<const uint8_t*>(w);
-  auto* o = static_cast<float*>(out);
+  const RingArgs a{static_cast<const int8_t*>(xq),
+                   static_cast<const float*>(fac),
+                   static_cast<const uint8_t*>(w),
+                   s,
+                   static_cast<float*>(out),
+                   ws,
+                   static_cast<const int*>(counts),
+                   E, C, N, K, gs, splits};
   const bool vec = N % 16 == 0;
   // one group over all of K: for float scale the step waits for the int32
   // sums (bit-exact); the integer step is exact in any split
   if constexpr (!std::is_same<typename Scale::Acc, int>::value) {
     if (gs == K) {
-      return static_cast<int>(ring_launch_tile<Scale, true>(
-          bm, w_bits, vec, x, f, wb, s, o, ws, M, N, K, gs, splits, st));
+      return static_cast<int>(
+          ring_launch_tile<Scale, true, GROUPED>(bm, w_bits, vec, a, st));
     }
   }
-  return static_cast<int>(ring_launch_tile<Scale, false>(
-      bm, w_bits, vec, x, f, wb, s, o, ws, M, N, K, gs, splits, st));
+  return static_cast<int>(
+      ring_launch_tile<Scale, false, GROUPED>(bm, w_bits, vec, a, st));
 }
 
 }  // namespace

@@ -13,17 +13,22 @@ and scales ``(E, K/g, N)``:
   (integer scale: per-expert ``alpha`` folded as ``sa / alpha[e]``).
 * ``*_ragged``: the serving path (``ops.qgemm_grouped``). They take the
   RAW dispatch buffer and ``row_counts`` (int32 ``(E,)``, routed rows per
-  expert, clamped to ``[0, C]``; ``None`` = all C) and quantize the
-  activations inside the kernel; m-tiles wholly past an expert's count
-  are skipped and, with every other unrouted row, written as exact zeros.
+  expert, clamped to ``[0, C]``; ``None`` = all C); the W4A8 ones quantize
+  the routed rows once per launch (``act_quant.act_quant_routed``, which
+  also folds ``sa / alpha[e]``), then run the GEMM on the codes; m-tiles
+  wholly past an expert's count are skipped and, with every other
+  unrouted row, written as exact +0.0.
 
-On the card each pair is one CUDA kernel with two entry points (the
-reference's dense kernels are its ragged ones with every count equal to C
-and the codes quantized before the call), so ragged == dense grouped bit
-for bit on zero-filled padding, which is the reference's central MoE
-invariant. The counts are read on the device: no wrapper copies them to
-the host, so a decode step stays free of host syncs and capturable as a
-CUDA graph.
+On the card each W4A8 scheme is one GEMM kernel (the loop of the dense
+W4A8 GEMMs, ``csrc/w4a8_ring.cuh``, with the expert in the grid) that
+both entry points launch: the dense-grouped one on the caller's codes
+with every row and its factor divided by alpha as a tensor, the ragged
+one after the routed quantization. So ragged == dense grouped bit for bit
+on zero-filled padding, which is the reference's central MoE invariant;
+grouped W4A16 is likewise one kernel. The counts are read on the device:
+no wrapper copies them to the host, so a decode step stays free of host
+syncs and capturable as a CUDA graph. ``splits=`` forces the W4A8
+kernels' K split (0: the launch plan's, unsplit at Mixtral's shapes).
 
 Tolerances against the plain versions: integer scale and coarse float
 scale are bit-exact (integer sums; the same final multiplies); fine float
@@ -43,20 +48,17 @@ import torch
 from repro_torch.core.packing import LAYOUT_UNIT
 
 from . import _build
-from .act_quant import act_quant_plain
+from .act_quant import act_quant_plain, act_quant_routed
 from .w4a16_gemm import w4a16_gemm_plain
 from .w4a8_gemm import aligned as _aligned
-from .w4a8_gemm import (fg_gemm_integer_scale_plain, launch_plan_on,
-                        pick_tile_m)
+from .w4a8_gemm import (check_group, fg_gemm_integer_scale_plain,
+                        launch_plan_on)
 from .w4a8_gemm_fscale import fg_gemm_float_scale_plain
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_IS_ARGS = [_P, _I] + [_P] * 6 + [_I] * 7 + [_F, _P]
-_FS_ARGS = [_P, _I] + [_P] * 5 + [_I] * 7 + [_F, _P]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_IS_ARGS = [_P] * 7 + [_I] * 8 + [_P]
+_FS_ARGS = _IS_ARGS  # the same entry point under the other policy
 _WO_ARGS = [_P] * 6 + [_I] * 7 + [_P]
-
-# activation source of the W4A8 kernels: codes + sa, or raw rows
-_X_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 
 
 # ---------------------------------------------------------------------------
@@ -201,55 +203,50 @@ def _counts_arg(row_counts, device):
         torch.int32).contiguous()
 
 
-def _check_shapes(name, E, C, K, N, qvalue, scale, gs, w_bits, scale_dtype):
-    if K % LAYOUT_UNIT:
-        raise ValueError(f"{name}: K={K} is not a multiple of {LAYOUT_UNIT}; "
-                         "only the plain version takes it")
-    if gs <= 0 or K % gs or gs % 32:
-        raise ValueError(f"{name}: group_size={gs} must divide K={K} and be "
-                         "a multiple of 32")
-    rows = K // 2 if w_bits == 4 else K
-    if (qvalue.dtype != torch.int8 or scale.dtype != scale_dtype
-            or w_bits not in (4, 8)
-            or tuple(qvalue.shape) != (E, rows, N)
-            or tuple(scale.shape) != (E, K // gs, N)):
-        raise ValueError(f"{name}: operands do not match the contract")
-
-
-def _a8_launch(name: str, x, fac, row_counts, qvalue, scale, alpha, *,
-               group_size: int, a_bits: int, w_bits: int, bm: int):
+def _a8_launch(name: str, x, sa, row_counts, qvalue, scale, alpha, *,
+               group_size: int, a_bits: int, w_bits: int, bm: int,
+               splits: int):
     """Launch ``moe_w4a8_is`` (alpha given) or ``moe_w4a8_fs`` (alpha None)
-    on int8 codes with their scales ``fac`` or on raw bf16/f32 rows."""
+    on int8 codes with their scales ``sa`` (every row; the factor
+    ``sa / alpha[e]`` divided here), or on raw bf16/f32 rows, whose routed
+    rows ``act_quant_routed`` quantizes first."""
     _build.require_cuda(name, x, qvalue, scale,
-                        *(t for t in (fac, row_counts, alpha)
+                        *(t for t in (sa, row_counts, alpha)
                           if isinstance(t, torch.Tensor)))
     E, C, K = x.shape
     N = qvalue.shape[2]
     gs = group_size if group_size > 0 else K  # coarse: one group over K
-    _check_shapes(name, E, C, K, N, qvalue, scale, gs, w_bits,
-                  torch.int32 if alpha is not None else torch.float32)
-    if x.dtype not in _X_KIND or (x.dtype == torch.int8) != (fac is not None):
+    check_group(name, K, gs)
+    rows = K // 2 if w_bits == 4 else K
+    if (qvalue.dtype != torch.int8 or w_bits not in (4, 8)
+            or scale.dtype != (torch.float32 if alpha is None
+                               else torch.int32)
+            or tuple(qvalue.shape) != (E, rows, N)
+            or tuple(scale.shape) != (E, K // gs, N)):
+        raise ValueError(f"{name}: operands do not match the contract")
+    if x.dtype not in (torch.int8, torch.bfloat16, torch.float32) or (
+            x.dtype == torch.int8) != (sa is not None):
         raise ValueError(f"{name}: activations must be int8 codes with their "
                          f"scales, or raw bf16/f32 rows; got {x.dtype}")
-    x = _aligned(x)
-    fac = None if fac is None else fac.reshape(E * C).float().contiguous()
-    counts = _counts_arg(row_counts, x.device)
     a = None if alpha is None else _expert_alpha(alpha, E, x.device)
-    qvalue, scale = qvalue.contiguous(), scale.contiguous()
+    counts = _counts_arg(row_counts, x.device)
+    if sa is None:
+        xq, fac = act_quant_routed(x, counts, a, bits=a_bits)
+    else:
+        xq, fac = _aligned(x), sa.reshape(E, C).float()
+        fac = (fac if a is None else fac / a[:, None]).contiguous()
+    qvalue, scale = _aligned(qvalue), _aligned(scale)
+    plan = launch_plan_on(x.device, C, N, K, bm, experts=E, splits=splits)
     out = torch.empty((E, C, N), dtype=torch.float32, device=x.device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    head = [x.data_ptr(), _X_KIND[x.dtype], ptr(fac)]
-    if a is not None:
-        head.append(a.data_ptr())
-    fn = _build.function(name, f"{name}_launch",
-                         _IS_ARGS if a is not None else _FS_ARGS)
+    ws = (torch.empty(plan["workspace"], dtype=torch.float32,
+                      device=x.device) if plan["workspace"] else None)
+    fn = _build.function(name, f"{name}_launch", _IS_ARGS)
     with torch.cuda.device(x.device):
-        err = fn(*head, ptr(counts), qvalue.data_ptr(), scale.data_ptr(),
-                 out.data_ptr(), E, C, N, K, gs, w_bits, pick_tile_m(C, bm),
-                 float(2 ** (a_bits - 1) - 1), _build.stream_of(x))
+        err = fn(xq.data_ptr(), fac.data_ptr(),
+                 None if counts is None else counts.data_ptr(),
+                 qvalue.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                 None if ws is None else ws.data_ptr(), E, C, N, K, gs,
+                 w_bits, plan["bm"], plan["splits"], _build.stream_of(x))
     _build.check(err, name)
     _build.count(name)
     return out
@@ -258,7 +255,7 @@ def _a8_launch(name: str, x, fac, row_counts, qvalue, scale, alpha, *,
 def fg_grouped_gemm_integer_scale(
     xq: torch.Tensor, sa: torch.Tensor, qvalue: torch.Tensor,
     int_scale: torch.Tensor, *, group_size: int = 128, alpha=1024.0,
-    w_bits: int = 4, bm: int = 0,
+    w_bits: int = 4, bm: int = 0, splits: int = 0,
 ) -> torch.Tensor:
     """Dense batched-expert Eq. 2 on pre-quantized (E, C, K) codes; returns
     f32 (E, C, N). CPU tensors take the plain version."""
@@ -267,13 +264,14 @@ def fg_grouped_gemm_integer_scale(
             xq, sa, qvalue, int_scale, group_size=group_size, alpha=alpha,
             w_bits=w_bits)
     return _a8_launch("moe_w4a8_is", xq, sa, None, qvalue, int_scale, alpha,
-                      group_size=group_size, a_bits=8, w_bits=w_bits, bm=bm)
+                      group_size=group_size, a_bits=8, w_bits=w_bits, bm=bm,
+                      splits=splits)
 
 
 def fg_grouped_gemm_float_scale(
     xq: torch.Tensor, sa: torch.Tensor, qvalue: torch.Tensor,
     scale: torch.Tensor, *, group_size: int = 128, w_bits: int = 4,
-    bm: int = 0,
+    bm: int = 0, splits: int = 0,
 ) -> torch.Tensor:
     """Dense batched-expert Eq. 1 (``group_size=-1``: coarse) on
     pre-quantized codes; returns f32 (E, C, N)."""
@@ -281,37 +279,41 @@ def fg_grouped_gemm_float_scale(
         return fg_grouped_gemm_float_scale_plain(
             xq, sa, qvalue, scale, group_size=group_size, w_bits=w_bits)
     return _a8_launch("moe_w4a8_fs", xq, sa, None, qvalue, scale, None,
-                      group_size=group_size, a_bits=8, w_bits=w_bits, bm=bm)
+                      group_size=group_size, a_bits=8, w_bits=w_bits, bm=bm,
+                      splits=splits)
 
 
 def fg_grouped_gemm_integer_scale_ragged(
     x: torch.Tensor, row_counts, qvalue: torch.Tensor,
     int_scale: torch.Tensor, *, group_size: int = 128, alpha=1024.0,
-    a_bits: int = 8, w_bits: int = 4, bm: int = 0,
+    a_bits: int = 8, w_bits: int = 4, bm: int = 0, splits: int = 0,
 ) -> torch.Tensor:
-    """Ragged batched-expert Eq. 2 with fused act-quant over the raw
-    (E, C, K) buffer; returns f32 (E, C, N), zeros past the counts."""
+    """Ragged batched-expert Eq. 2 over the raw (E, C, K) buffer (its
+    routed rows quantized once, then the GEMM); returns f32 (E, C, N),
+    +0.0 past the counts."""
     if x.device.type == "cpu":
         return fg_grouped_gemm_integer_scale_ragged_plain(
             x, row_counts, qvalue, int_scale, group_size=group_size,
             alpha=alpha, a_bits=a_bits, w_bits=w_bits)
     return _a8_launch("moe_w4a8_is", x, None, row_counts, qvalue, int_scale,
                       alpha, group_size=group_size, a_bits=a_bits,
-                      w_bits=w_bits, bm=bm)
+                      w_bits=w_bits, bm=bm, splits=splits)
 
 
 def fg_grouped_gemm_float_scale_ragged(
     x: torch.Tensor, row_counts, qvalue: torch.Tensor, scale: torch.Tensor,
     *, group_size: int = 128, a_bits: int = 8, w_bits: int = 4, bm: int = 0,
+    splits: int = 0,
 ) -> torch.Tensor:
-    """Ragged batched-expert Eq. 1 (fine or coarse) with fused act-quant."""
+    """Ragged batched-expert Eq. 1 (fine or coarse), as the integer-scale
+    one."""
     if x.device.type == "cpu":
         return fg_grouped_gemm_float_scale_ragged_plain(
             x, row_counts, qvalue, scale, group_size=group_size,
             a_bits=a_bits, w_bits=w_bits)
     return _a8_launch("moe_w4a8_fs", x, None, row_counts, qvalue, scale,
                       None, group_size=group_size, a_bits=a_bits,
-                      w_bits=w_bits, bm=bm)
+                      w_bits=w_bits, bm=bm, splits=splits)
 
 
 def _wo_launch(x, row_counts, qvalue, scale, *, group_size: int, bm: int):

@@ -13,7 +13,8 @@ their plain versions. ``qgemm_grouped(x, params, qspec, row_counts=,
 launch=)`` is the batched-expert (MoE) counterpart over an ``(E, C, K)``
 dispatch buffer and stacked per-expert params, with the same scheme
 dispatch onto the ragged grouped kernels of ``kernels/moe_gemm.py``
-(activation quantization fused; m-tiles past ``row_counts`` skipped).
+(W4A8: the routed rows quantized once per call; m-tiles past
+``row_counts`` skipped).
 
 ``params["alpha"]`` (the integer-scale amplifier) is resolved as in the
 reference: the stored per-layer value wins and, being a tensor, is folded
@@ -149,11 +150,12 @@ def qgemm_grouped(
     """Batched-expert quantized GEMM; returns f32 (E, C, N).
 
     Always routes through the ragged grouped kernels
-    (``kernels.moe_gemm``): activation quantization happens inside the
-    kernel, and m-tiles wholly past an expert's ``row_counts`` are skipped
-    (their rows, and every row at or past the count, come out as zeros;
-    the MoE dispatch zero-fills them anyway). ``row_counts`` stays a
-    device tensor; ``None`` treats every capacity slot as routed.
+    (``kernels.moe_gemm``): W4A8 quantizes the routed rows once per call
+    (``act_quant``'s routed entry) before its GEMM, and m-tiles wholly
+    past an expert's ``row_counts`` are skipped (their rows, and every row
+    at or past the count, come out as zeros; the MoE dispatch zero-fills
+    them anyway). ``row_counts`` stays a device tensor; ``None`` treats
+    every capacity slot as routed.
     """
     if not isinstance(params, dict):
         raise TypeError("qgemm_grouped takes the stacked qlinear param dict "

@@ -11,8 +11,8 @@ bit-identical to :func:`fg_gemm_integer_scale_plain` at every K split.
 
 The module also holds the tiling that every GEMM kernel of the port
 shares: the row tiles (:func:`pick_tile_m`) and the K split
-(:func:`launch_plan`), used by this kernel, the float-scale one and the
-W4A16 ones (dense and grouped).
+(:func:`launch_plan`), used by this kernel, the float-scale one, the
+grouped W4A8 ones and the W4A16 ones (dense and grouped).
 """
 from __future__ import annotations
 
@@ -67,7 +67,7 @@ def pick_tile_m(M: int, bm: int = 0) -> int:
 
 
 def launch_plan(M: int, N: int, K: int, sms: int, bm: int = 0,
-                experts: int = 1) -> dict:
+                experts: int = 1, splits: int = 0) -> dict:
     """The launch of a GEMM kernel for ``experts`` products (M, K) x (K, N)
     on a card with ``sms`` SMs: row tile ``bm`` (:func:`pick_tile_m`),
     number of K ``splits`` (split s takes packing units
@@ -78,22 +78,27 @@ def launch_plan(M: int, N: int, K: int, sms: int, bm: int = 0,
     blocks than SMs where K has the units for it (on the H100 two a SM
     measured fastest at LLaMA-2-7B's shapes, decode and prefill). The
     experts count as blocks: Mixtral's grouped shapes (8 experts) fill
-    the card unsplit."""
+    the card unsplit. ``splits`` forces the split (1 .. K / 128)."""
     bm = pick_tile_m(M, bm)
-    base = -(-N // TILE_N) * -(-M // bm) * experts
-    splits = max(-(-sms // base), (2 * sms + base // 2) // base)
-    splits = max(1, min(splits, K // LAYOUT_UNIT, MAX_SPLITS))
+    if splits:
+        if not 1 <= splits <= K // LAYOUT_UNIT:
+            raise ValueError(f"splits={splits}: K={K} has "
+                             f"{K // LAYOUT_UNIT} packing units")
+    else:
+        base = -(-N // TILE_N) * -(-M // bm) * experts
+        splits = max(-(-sms // base), (2 * sms + base // 2) // base)
+        splits = max(1, min(splits, K // LAYOUT_UNIT, MAX_SPLITS))
     return {"bm": bm, "splits": splits,
             "workspace": splits * experts * M * N if splits > 1 else 0}
 
 
 def launch_plan_on(device: torch.device, M: int, N: int, K: int,
-                   bm: int = 0, experts: int = 1) -> dict:
+                   bm: int = 0, experts: int = 1, splits: int = 0) -> dict:
     """:func:`launch_plan` on the CUDA ``device`` (its SM count)."""
     index = device.index
     return launch_plan(M, N, K, _sm_count(
         torch.cuda.current_device() if index is None else index), bm,
-        experts)
+        experts, splits)
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,9 +17,13 @@ off. Flash attention (bf16 and f32) is held to
 at every K split (forced through ``w4a8_gemm.launch_ring``), and the
 dense GEMMs, grouped W4A16 and bf16 flash attention give the same bits
 on repeated launches. The grouped (MoE)
-kernels keep the same bounds against their plain versions, and the ragged
-entry points equal the dense-grouped ones bit for bit on a buffer
-zero-filled past the counts. The CPU side of the same
+kernels keep the same bounds against their plain versions, at every
+forced K split for W4A8, and the ragged entry points equal the
+dense-grouped ones bit for bit on a buffer zero-filled past the counts;
+rows past the counts are +0.0 whatever the buffer holds there, and the
+counts are read on the device (CUDA-graph replays). The routed-row
+quantization the grouped W4A8 kernels launch first is bit-exact to its
+plain version. The CPU side of the same
 wrappers is tested against the JAX reference in
 ``tests/test_torch_kernels.py`` and ``tests/test_torch_moe.py``.
 """
@@ -31,7 +35,9 @@ from repro_torch.core import integer_scale as isc
 from repro_torch.core import packing, qlinear, quant
 from repro_torch.core.recipe import QuantSpec
 from repro_torch.kernels import _build, moe_gemm, ops
-from repro_torch.kernels.act_quant import act_quant, act_quant_plain
+from repro_torch.kernels.act_quant import (act_quant, act_quant_plain,
+                                           act_quant_routed,
+                                           act_quant_routed_plain)
 from repro_torch.kernels.flash_attention import (TOLERANCE, flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.w4a16_gemm import (REL_TOLERANCE, w4a16_gemm,
@@ -76,6 +82,38 @@ def test_act_quant_kernel_bit_exact(cuda, M, K, dtype):
     q_p, s_p = act_quant_plain(x)
     assert torch.equal(q, q_p) and torch.equal(s, s_p)
     assert _build.LAUNCHES["act_quant"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,K", [(8, 4096), (40, 14336), (5, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_act_quant_routed_kernel_bit_exact(cuda, C, K, dtype):
+    """The routed rows of a dispatch buffer (act_quant's routed entry, one
+    launch counted as act_quant): codes equal to the unfused act_quant's,
+    the factor sa / alpha[e] (or sa) bit for bit, zero codes and factor
+    +0.0 past the counts (negative and above-C counts clamped) with data,
+    NaN and inf there; None routes every row."""
+    E = 4
+    x = _normal(C * K, (E, C, K), 3.0, cuda)
+    x[0] = float("nan")  # count 0 (negative)
+    x[2, 3:, ::7] = float("inf")
+    x = x.to(dtype)
+    counts = torch.tensor([-2, C, 3, 100], dtype=torch.int32, device=cuda)
+    alpha = torch.tensor([1024.0, 4096.0, 256.0, 512.0], device=cuda)
+    for a in (alpha, None):
+        before = _build.LAUNCHES["act_quant"]
+        q, fac = act_quant_routed(x, counts, a)
+        assert _build.LAUNCHES["act_quant"] == before + 1
+        q_p, fac_p = act_quant_routed_plain(x, counts, a)
+        assert torch.equal(q, q_p) and torch.equal(fac, fac_p)
+        assert not q[0].any() and not q[2, 3:].any()
+        assert not fac[0].any() and not torch.signbit(fac).any()
+        q_u, s_u = act_quant_plain(x[1])
+        assert torch.equal(q[1], q_u)
+        assert torch.equal(fac[1], s_u[:, 0] / a[1] if a is not None
+                           else s_u[:, 0])
+    q, fac = act_quant_routed(x[1:2].contiguous(), None, None)
+    assert torch.equal(q[0], act_quant_plain(x[1])[0])
 
 
 @pytest.mark.cuda
@@ -398,6 +436,33 @@ def test_grouped_kernels_zero_past_counts_and_clamp(cuda, dtype):
         assert torch.equal(fn(torch.tensor([-3, 24, 24], device=cuda)),
                            fn(torch.tensor([0, 24, 24], device=cuda)))
 
+    # data, NaN and inf past the counts: exact +0.0 there, and the same
+    # bits as the zero-filled buffer; the W4A8 kernels also through a
+    # forced K split (the split reduction knows the counts)
+    counts = torch.tensor([9, 0, 100], dtype=torch.int32, device=cuda)
+    bad = x.clone()
+    bad[0, 9:, ::3] = float("nan")
+    bad[0, 9:, 1::3] = float("inf")
+    bad[1] = -float("inf")
+    bad[1, ::2, ::5] = float("nan")
+    clean = x.clone()
+    clean[0, 9:] = 0
+    clean[1] = 0
+    runs = [lambda b: moe_gemm.grouped_w4a16_gemm_ragged(
+        b, counts, qv, fscale, group_size=g)]
+    for sp in (0, 2):
+        runs += [lambda b, sp=sp: moe_gemm.fg_grouped_gemm_integer_scale_ragged(
+                     b, counts, qv, iscale, group_size=g, alpha=alpha,
+                     splits=sp),
+                 lambda b, sp=sp: moe_gemm.fg_grouped_gemm_float_scale_ragged(
+                     b, counts, qv, fscale, group_size=g, splits=sp)]
+    for run in runs:
+        y = run(bad)
+        assert torch.equal(y, run(clean))
+        assert not y[0, 9:].any() and not y[1].any()
+        assert not torch.signbit(y[0, 9:]).any()
+        assert not torch.signbit(y[1]).any()
+
 
 @pytest.mark.cuda
 def test_grouped_kernel_reads_counts_on_the_device(cuda):
@@ -625,5 +690,121 @@ def test_grouped_w4a16_reads_counts_on_the_device(cuda, K):
         want = moe_gemm.grouped_w4a16_gemm_ragged(x, rc, qv, fscale,
                                                   group_size=g)
         assert torch.equal(y, want)
+        for e, c in enumerate(counts):
+            assert not y[e, c:].any() and (c == 0 or y[e, :c].any())
+
+
+# -- the grouped W4A8 kernels on the ring loop ------------------------------
+# (K, g, splits): every split of a short K, groups that splits cut, and
+# Mixtral's down projection K = 14336 at the largest planned split
+GROUPED_SPLITS = ([(1024, 128, s) for s in range(1, 9)]
+                  + [(768, 256, 5), (1536, 384, 4), (14336, 128, 16)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,g,splits", GROUPED_SPLITS)
+@pytest.mark.parametrize("C", [8, 24])
+@pytest.mark.parametrize("w_bits", [4, 8])
+@pytest.mark.parametrize("scheme", ["is", "fs", "coarse"])
+def test_grouped_w4a8_at_every_split(cuda, scheme, w_bits, C, K, g, splits):
+    """The grouped IS and FS kernels at forced K splits (3 experts: one
+    empty, one full, one partial): IS and coarse FS bit-exact against
+    their plain versions, fine FS within rtol 1e-5 / atol 1e-4; ragged ==
+    dense grouped bit for bit at the same split; a second launch gives the
+    same bits; +0.0 past the counts."""
+    E, N = 3, 192
+    counts = [0, C, 5]
+    gs = g if scheme != "coarse" else -1
+    x, rc, _, _, _, _ = _grouped_operands(cuda, E, C, K, N, 128, counts)
+    qs = [quant.quantize_weight(_normal(300 + e, (K, N), 0.05, cuda),
+                                w_bits, gs) for e in range(E)]
+    qv = torch.stack([packing.pack_int4(q.qvalue) if w_bits == 4
+                      else q.qvalue for q in qs])
+    xq, sa = act_quant_plain(x.reshape(E * C, K))
+    xq, sa = xq.reshape(E, C, K), sa.reshape(E, C, 1)
+    if scheme == "is":
+        isws = [isc.integerize(q, "heuristic+6") for q in qs]
+        scale = torch.stack([w.int_scale for w in isws])
+        alpha = torch.tensor([float(w.alpha) for w in isws], device=cuda)
+
+        def ragged(**kw):
+            return moe_gemm.fg_grouped_gemm_integer_scale_ragged(
+                x, rc, qv, scale, group_size=g, alpha=alpha, w_bits=w_bits,
+                **kw)
+
+        y_p = moe_gemm.fg_grouped_gemm_integer_scale_ragged_plain(
+            x, rc, qv, scale, group_size=g, alpha=alpha, w_bits=w_bits)
+        y_d = moe_gemm.fg_grouped_gemm_integer_scale(
+            xq, sa, qv, scale, group_size=g, alpha=alpha, w_bits=w_bits,
+            splits=splits)
+    else:
+        scale = torch.stack([q.scale if gs > 0 else q.scale[None, :]
+                             for q in qs])
+
+        def ragged(**kw):
+            return moe_gemm.fg_grouped_gemm_float_scale_ragged(
+                x, rc, qv, scale, group_size=gs, w_bits=w_bits, **kw)
+
+        y_p = moe_gemm.fg_grouped_gemm_float_scale_ragged_plain(
+            x, rc, qv, scale, group_size=gs, w_bits=w_bits)
+        y_d = moe_gemm.fg_grouped_gemm_float_scale(
+            xq, sa, qv, scale, group_size=gs, w_bits=w_bits, splits=splits)
+    before = _build.LAUNCHES["moe_w4a8_is" if scheme == "is"
+                             else "moe_w4a8_fs"]
+    y = ragged(splits=splits)
+    assert _build.LAUNCHES["moe_w4a8_is" if scheme == "is"
+                           else "moe_w4a8_fs"] == before + 1
+    if scheme == "fs":
+        torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-4)
+    else:
+        assert torch.equal(y, y_p)
+    assert torch.equal(y, y_d)
+    assert torch.equal(y, ragged(splits=splits))
+    assert not y[0].any() and not y[2, 5:].any() and y[1].any()
+    assert not torch.signbit(y[0]).any() and not torch.signbit(y[2, 5:]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [0, 3])
+@pytest.mark.parametrize("scheme", ["is", "fs"])
+def test_grouped_w4a8_reads_counts_on_the_device(cuda, scheme, splits):
+    """A CUDA graph of the ragged IS or FS wrapper (the routed
+    quantization, the GEMM and, split, its reduction), captured once,
+    follows counts written in place before each replay: the wrappers
+    never read the counts on the host."""
+    E, C, K, N, g = 4, 8, 384, 128, 128
+    x, _, qv, fscale, iscale, alpha = _grouped_operands(cuda, E, C, K, N, g,
+                                                        [C] * E)
+    rc = torch.zeros(E, dtype=torch.int32, device=cuda)
+    if scheme == "is":
+        def run():
+            return moe_gemm.fg_grouped_gemm_integer_scale_ragged(
+                x, rc, qv, iscale, group_size=g, alpha=alpha, splits=splits)
+
+        def plain():
+            return moe_gemm.fg_grouped_gemm_integer_scale_ragged_plain(
+                x, rc, qv, iscale, group_size=g, alpha=alpha)
+    else:
+        def run():
+            return moe_gemm.fg_grouped_gemm_float_scale_ragged(
+                x, rc, qv, fscale, group_size=g, splits=splits)
+
+        def plain():
+            return moe_gemm.fg_grouped_gemm_float_scale_ragged_plain(
+                x, rc, qv, fscale, group_size=g)
+    run()  # build + load outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = run()
+    for counts in ([0, 8, 3, 5], [8, 0, 0, 1]):
+        rc.copy_(torch.tensor(counts, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = plain()
+        if scheme == "is":
+            assert torch.equal(y, want)
+        else:
+            torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-4)
+        assert torch.equal(y, run())
         for e, c in enumerate(counts):
             assert not y[e, c:].any() and (c == 0 or y[e, :c].any())

@@ -24,6 +24,7 @@ import torch
 from repro.core import integer_scale as jisc
 from repro.core import packing as jpacking
 from repro.core import quant as jquant
+from repro.kernels import act_quant as jact
 from repro.kernels import ref as JR
 from repro.kernels.act_quant import act_quant as pallas_act_quant
 from repro.core.recipe import QuantSpec as JSpec
@@ -37,7 +38,9 @@ from repro_torch.core import qlinear as tqlinear
 from repro_torch.core.recipe import QuantSpec
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import ref as TR
-from repro_torch.kernels.act_quant import act_quant, act_quant_plain
+from repro_torch.kernels import moe_gemm as mg
+from repro_torch.kernels.act_quant import (act_quant, act_quant_plain,
+                                           act_quant_routed_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.w4a16_gemm import w4a16_gemm, w4a16_gemm_plain
@@ -91,6 +94,47 @@ def test_act_quant_plain_vs_reference(M, K, bits, dtype):
     diff = np.abs(q.numpy().astype(np.int32) - np.asarray(q_k, np.int32))
     assert diff.max() <= 1
     assert (diff > 0).mean() < 5e-3
+
+
+@pytest.mark.parametrize("counts", [[0, 6, 3], [6, 6, 6], [-2, 100, 1]])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_act_quant_routed_plain_vs_reference(counts, bits, dtype):
+    """The grouped W4A8 kernels' quantization step (the routed rows of a
+    dispatch buffer, once per launch) against the reference: the codes
+    and scales of ``_quantize_rows`` (the body the reference's ragged
+    kernel fuses) and of ``act_quant_ref`` bit for bit, the factor
+    ``sa / alpha[e]`` as that kernel's epilogue folds it, and zero codes
+    and factors at or past the counts (clamped to [0, C]) whatever the
+    buffer holds there (data, inf, NaN). Without alpha (float scale) the
+    factor is ``sa``; without counts every row is routed."""
+    E, C, K = 3, 6, 256
+    rng = np.random.default_rng(31)
+    x = (rng.normal(size=(E, C, K)) * 3).astype(np.float32)
+    live = np.arange(C)[None, :] < np.clip(counts, 0, C)[:, None]
+    dead = np.argwhere(~live)
+    if len(dead):
+        x[tuple(dead[0])][5] = np.inf
+        x[tuple(dead[-1])][7] = np.nan
+    xj = jnp.asarray(x).astype(dtype)
+    tx = _t(xj.astype(jnp.float32)).to(getattr(torch, dtype))
+    alphas = np.asarray([1024.0, 256.0, 4096.0], np.float32)
+    q, fac = act_quant_routed_plain(tx, torch.tensor(counts, dtype=torch.int32),
+                                    torch.from_numpy(alphas), bits)
+    q_r, s_r = jact._quantize_rows(xj.reshape(E * C, K),
+                                   qm=float(2 ** (bits - 1) - 1))
+    q_o, s_o = JR.act_quant_ref(xj.reshape(E * C, K), bits=bits)
+    q_r, q_o = (np.asarray(a).reshape(E, C, K) for a in (q_r, q_o))
+    s_r, s_o = (np.asarray(a).reshape(E, C) for a in (s_r, s_o))
+    np.testing.assert_array_equal(q_r[live], q_o[live])
+    np.testing.assert_array_equal(s_r[live], s_o[live])
+    fold = np.asarray(jnp.asarray(s_r) / jnp.asarray(alphas)[:, None])
+    np.testing.assert_array_equal(q.numpy(), np.where(live[..., None], q_r, 0))
+    np.testing.assert_array_equal(fac.numpy(), np.where(live, fold, 0.0))
+    assert not np.signbit(fac.numpy()).any()
+    q2, f2 = act_quant_routed_plain(tx, None, None, bits)
+    np.testing.assert_array_equal(q2.numpy()[live], q_o[live])
+    np.testing.assert_array_equal(f2.numpy()[live], s_o[live])
 
 
 @pytest.mark.parametrize("M,K,N,g", SHAPES)
@@ -272,6 +316,7 @@ def test_wrappers_take_plain_versions_on_cpu():
 
 @pytest.mark.parametrize("name,symbol,module", [
     ("act_quant", "act_quant_launch", "act_quant"),
+    ("act_quant", "act_quant_routed_launch", "act_quant:_ROUTED_ARGS"),
     ("w4a8_gemm_is", "w4a8_gemm_is_launch", "w4a8_gemm"),
     ("flash_attention", "flash_attention_launch", "flash_attention"),
     ("w4a8_gemm_fs", "w4a8_gemm_fs_launch", "w4a8_gemm_fscale"),
@@ -464,6 +509,41 @@ def test_grouped_w4a16_launch_plan(C, K, N):
     assert small["splits"] == 4 and small["workspace"] == 4 * 3 * C * 128
 
 
+@pytest.mark.parametrize("w_bits", [4, 8])
+@pytest.mark.parametrize("C", [8, 40])
+@pytest.mark.parametrize("K,N", [(4096, 14336), (14336, 4096)])
+def test_grouped_w4a8_launch_plan(C, K, N, w_bits):
+    """Mixtral-8x7B's expert linears through the grouped W4A8 kernels on an
+    H100 (132 SMs): unsplit (the 8 experts count as blocks), row tile 16
+    at the decode capacity and 64 at the prefill one, so one m-tile an
+    expert streams its weights once; the loop's dynamic shared memory at
+    that tile (W8 stages 128 weight rows a unit) fits a block. A forced
+    split, the card tests' way onto the split path, covers K once and
+    its workspace holds splits x E x C x N; one past K's packing units
+    is refused."""
+    from repro_torch.kernels.w4a8_gemm import launch_plan
+
+    plan = launch_plan(C, N, K, sms=132, experts=8)
+    bm = 16 if C <= 16 else 64
+    assert plan == {"bm": bm, "splits": 1, "workspace": 0}
+    assert -(-N // 64) * -(-C // bm) * 8 >= 2 * 132
+    src = (_build.CSRC / "w4a8_ring.cuh").read_text()
+    assert "XS = KU + 16;" in src and "WSB = BN + 16;" in src
+    bn, ku, stages, srows = (_cu_constant("w4a8_ring.cuh", k)
+                             for k in ("BN", "KU", "STAGES", "SROWS"))
+    smem = stages * (bm * (ku + 16) + (ku // 2 if w_bits == 4 else ku)
+                     * (bn + 16) + srows * bn * 4)
+    assert smem == {(4, 16): 33792, (4, 64): 61440, (8, 16): 54272,
+                    (8, 64): 81920}[(w_bits, bm)]
+    assert smem <= 232448  # a block's dynamic shared memory on the H100
+    forced = launch_plan(C, 128, 512, sms=132, experts=3, splits=3)
+    assert forced == {"bm": bm, "splits": 3, "workspace": 3 * 3 * C * 128}
+    blocks, ranges = _w4a16_blocks_and_ranges(forced, C, 128, 512)
+    assert ranges == [(0, 1), (1, 2), (2, 4)]
+    with pytest.raises(ValueError, match="packing units"):
+        launch_plan(C, N, 512, sms=132, experts=8, splits=5)
+
+
 def _to_int8(b: torch.Tensor) -> torch.Tensor:
     """Low byte of each int64 as a signed int8 value."""
     return ((b & 0xFF) ^ 0x80) - 0x80
@@ -646,3 +726,90 @@ def test_w4a8_ring_accumulation_matches_plain(g, splits, kw):
     y = (p.float() * cscale) * sa
     assert torch.equal(y, fg_gemm_float_scale_plain(
         xq, sa, packed, cscale, group_size=-1))
+
+
+def _expert_operands(seed, E, K, N, g):
+    """Per-expert W4 RTN weights through the reference quantizer (a
+    magnitude spread so the heuristic amplifiers differ): packed codes,
+    their unpacked int8 values, integer and f32 group scales, alphas, and
+    one per-channel scale row an expert for the coarse scheme."""
+    rng = np.random.default_rng(seed)
+    packed, codes, iscale, fscale, alphas = [], [], [], [], []
+    for e in range(E):
+        w = rng.normal(size=(K, N)).astype(np.float32) * 0.05 * 4.0 ** (e % 3)
+        qw = jquant.quantize_weight(jnp.asarray(w), 4, g)
+        isw = jisc.integerize(qw, "heuristic+6")
+        packed.append(np.asarray(jpacking.pack_int4(qw.qvalue)))
+        codes.append(np.asarray(qw.qvalue))
+        iscale.append(np.asarray(isw.int_scale))
+        fscale.append(np.asarray(qw.scale))
+        alphas.append(float(isw.alpha))
+    return (_t(np.stack(packed)), _t(np.stack(codes)), _t(np.stack(iscale)),
+            _t(np.stack(fscale)), torch.tensor(alphas, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("C", [8, 24])
+@pytest.mark.parametrize("g,splits", [(128, 1), (128, 6), (256, 4),
+                                      (384, 5), (64, 3)])
+def test_grouped_w4a8_ring_emulation_matches_ragged_plain(g, splits, C):
+    """The grouped launch of csrc/w4a8_ring.cuh in plain arithmetic: the
+    routed rows quantized once (``act_quant_routed_plain``: codes and
+    ``sa / alpha[e]``), then per expert the loop's accumulation
+    (``_ring_emulate``, two warps along k at the decode tile C = 8, one at
+    the prefill tile) over its routed rows only, the splits added in order
+    (also where a split cuts a group), the epilogue, and +0.0 at every row
+    at or past its count, whatever the buffer holds there. Integer Scale
+    and coarse float scale bit-exact against
+    ``fg_grouped_gemm_*_ragged_plain``, fine float scale within rtol 1e-5
+    / atol 1e-4."""
+    from repro_torch.kernels.w4a8_gemm import pick_tile_m
+
+    E, K, N = 4, 768, 32
+    kw = 2 if pick_tile_m(C) == 16 else 1
+    counts = torch.tensor([-1, C, 5, 100], dtype=torch.int32)
+    rc = counts.clamp(0, C).tolist()
+    packed, codes, iscale, fscale, alphas = _expert_operands(40 + g, E, K,
+                                                             N, g)
+    rng = np.random.default_rng(g + C)
+    x = torch.from_numpy(rng.normal(size=(E, C, K)).astype(np.float32))
+    x[0, 1, 3] = float("nan")  # past the counts: data, NaN and inf
+    x[2, C - 1] = float("inf")
+    cscale = fscale[:, :1]
+
+    def emulate(mode, scale, gs, alpha):
+        xq, fac = act_quant_routed_plain(x, counts, alpha)
+        y = torch.zeros((E, C, N))
+        for e, r in enumerate(rc):
+            if r == 0:
+                continue
+            acc = _ring_emulate(xq[e, :r], codes[e], scale[e], gs, splits,
+                                mode, kw)
+            if mode == "is":
+                y[e, :r] = acc.to(torch.int32).float() * fac[e, :r, None]
+            elif mode == "fs":
+                y[e, :r] = acc * fac[e, :r, None]
+            else:
+                y[e, :r] = (acc.to(torch.int32).float() * scale[e]) \
+                    * fac[e, :r, None]
+        return y
+
+    got = {
+        "is": emulate("is", iscale, g, alphas),
+        "fs": emulate("fs", fscale, g, None),
+        "coarse": emulate("defer", cscale, K, None),
+    }
+    want = {
+        "is": mg.fg_grouped_gemm_integer_scale_ragged_plain(
+            x, counts, packed, iscale, group_size=g, alpha=alphas),
+        "fs": mg.fg_grouped_gemm_float_scale_ragged_plain(
+            x, counts, packed, fscale, group_size=g),
+        "coarse": mg.fg_grouped_gemm_float_scale_ragged_plain(
+            x, counts, packed, cscale, group_size=-1),
+    }
+    for mode in ("is", "coarse"):
+        assert torch.equal(got[mode], want[mode]), mode
+    torch.testing.assert_close(got["fs"], want["fs"], **FS_TOL)
+    for y in (*got.values(), *want.values()):
+        for e, r in enumerate(rc):
+            assert not y[e, r:].any() and not torch.signbit(y[e, r:]).any()
+        assert y[1].any() and torch.isfinite(y).all()

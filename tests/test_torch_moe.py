@@ -348,12 +348,16 @@ def test_grouped_wrappers_take_plain_versions_on_cpu():
     ("moe_w4a8_is", "moe_w4a8_is_launch"),
     ("moe_w4a8_fs", "moe_w4a8_fs_launch"),
     ("moe_w4a16", "moe_w4a16_launch"),
+    ("act_quant", "act_quant_routed_launch"),
 ])
 def test_grouped_ctypes_argtypes_match_c_signatures(name, symbol):
     """The CUDA sources cannot compile here; hold the declared ctypes
-    argtypes to each C entry point's parameter list instead."""
+    argtypes to each C entry point's parameter list instead: the grouped
+    GEMMs and the routed-row quantization the W4A8 ones launch first."""
     import ctypes
     import re
+
+    from repro_torch.kernels import act_quant as aq
 
     src = (_build.CSRC / f"{name}.cu").read_text()
     sig = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', src).group(1)
@@ -362,7 +366,7 @@ def test_grouped_ctypes_argtypes_match_c_signatures(name, symbol):
     params = [re.sub(r"\s", "", re.sub(r"\bconst\b|\w+\s*$", "", p))
               for p in sig.split(",")]
     argtypes = {"moe_w4a8_is": mg._IS_ARGS, "moe_w4a8_fs": mg._FS_ARGS,
-                "moe_w4a16": mg._WO_ARGS}[name]
+                "moe_w4a16": mg._WO_ARGS, "act_quant": aq._ROUTED_ARGS}[name]
     assert argtypes == [kinds[p] for p in params]
     assert name in _build.KERNELS
 
