@@ -13,7 +13,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ptxas's registers, static shared memory and spills.
 3. Hold each kernel against its plain PyTorch version on the card at the
    main-path shapes of LLaMA-2-7B (g128: decode M 1..4 and prefill M 128
-   for (K, N) in (4096, 4096), (4096, 11008), (11008, 4096); flash
+   for (K, N) in (4096, 4096), (4096, 11008), (11008, 4096); act_quant
+   also at K = 14336, Mixtral's down projection; flash
    attention at 128 tokens, 32 heads of 128) and time kernel, plain
    version, a single PyTorch library call where one computes the same
    function, and one bf16 ``torch.matmul`` of x by a bf16 (K, N) weight
@@ -41,9 +42,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    entry point must equal its dense-grouped one (pre-quantized codes, no
    counts) bit for bit on the same zero-padded buffer, and repeat its
    bits on a second launch. The ragged W4A8 entries quantize the routed
-   rows once (act_quant's routed entry, held bit-exact to its plain
-   version and timed alone) before the GEMM; they are timed whole, as
-   serving pays them, and once more at a forced K split (the split
+   rows (act_quant's routed entry, held bit-exact to its plain version
+   and timed alone) before the GEMM, whose epilogue divides by the
+   experts' alphas; they are timed whole, as a linear that shares no
+   quantization pays them, and once more at a forced K split (the split
    reduction's path; IS and coarse bit-exact there too). Beside each: the
    plain version, one bf16 ``torch.bmm`` over the same (E, C, K) buffer
    (the FP16 baseline; for W4A16 also the library call) and the bound
@@ -67,15 +69,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    must also agree with the same layers on the card within a stated
    bound. One 4-slot decode step and one 128-token prefill are timed
    eagerly and as replayed CUDA graphs (the difference is the host's
-   share).
+   share). The greedy token streams' sha256 is logged (``[tokens]``), so
+   two trees run on one card can be compared on the same seed. One more
+   decode step counts each kernel's launches in a tick
+   (``[launches]``): act_quant exactly 4 a layer under IS, FS and coarse
+   (q/k/v share one quantization, gate/up another; 7 in a tree whose
+   linears each quantize their own), none under W4A16.
 6. Breaker drill: serve the IS weights with the FS weights as the
    circuit breaker's fallback (threshold 2) while a ``ChaosMonkey``
    fails the decode at tick 3 twice; the engine must fall back once and
    serve every request ``ok`` through ``w4a8_gemm_fs``.
 7. Profile one IS and one W4A16 decode step under ``obs.trace_window``
-   and print each step's device time, the share of it in the quantized
-   GEMMs and their split reductions, and the eight device kernels with
-   the most CUDA time.
+   and print each step's device time, its number of device kernel
+   launches, the share of it in the quantized GEMMs and their split
+   reductions, and the eight device kernels with the most CUDA time. The
+   IS step must run no elementwise division kernel (``DivFunctor``): the
+   GEMM's epilogue divides ``sa / alpha``.
    Free the llama2-7b weights.
 8. ``mixtral-8x7b`` at full width (32 layers, 8 experts top-2, expert d_ff
    14336), built block by block (``ptq.quantize_by_layer``: one block's
@@ -88,6 +97,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    against the same layers on the CPU. The decode step is timed eagerly
    and as a captured CUDA graph with no routing sink attached; the
    capture is itself the check that the MoE layer makes no host sync.
+   The tick's launches are counted as in phase 5: act_quant exactly 2
+   dense (q/k/v, o) and 2 routed (gate/up, down) a layer under IS and
+   FS (4 and 3 in a tree whose linears each quantize their own).
 9. Print the ``kernels`` JSON line (the eight kernels, launches summed
    over every served path), then the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -98,6 +110,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import subprocess
@@ -114,6 +127,8 @@ BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 
 GEMM_KN = ((4096, 4096), (4096, 11008), (11008, 4096))
+# act_quant's rows: LLaMA-2-7B's two K and Mixtral's down projection
+ACT_QUANT_K = (4096, 11008, 14336)
 DECODE_M = (1, 2, 3, 4)
 PREFILL_M = 128
 TIMED_M = (4, PREFILL_M)
@@ -224,7 +239,7 @@ def check_act_quant(gen, rows):
 
     err = 0.0
     for M in (*DECODE_M, PREFILL_M):
-        for K in (4096, 11008):
+        for K in ACT_QUANT_K:
             x = (torch.randn((M, K), generator=gen, device="cuda") * 3
                  ).to(torch.bfloat16)
             qk, sk = act_quant(x)
@@ -668,11 +683,11 @@ def check_grouped(gen, rows):
                                    iters=2, reps=2),
             dense_bound_ms=db, dense_bound_by=dby)
 
-    def routed_quant(C, K, x, rc, alpha):
-        """act_quant's routed entry (the grouped W4A8 kernels' first
-        launch) against its plain version, bit for bit, and timed."""
-        got = aq.act_quant_routed(x, rc, alpha)
-        want = aq.act_quant_routed_plain(x, rc, alpha)
+    def routed_quant(C, K, x, rc):
+        """act_quant's routed entry (the grouped W4A8 kernels' input)
+        against its plain version, bit for bit, and timed."""
+        got = aq.act_quant_routed(x, rc)
+        want = aq.act_quant_routed_plain(x, rc)
         for g_, w_ in zip(got, want):
             e = _check("act_quant routed", [MOE_E, C, K], g_.float(),
                        w_.float(), "exact")
@@ -682,9 +697,8 @@ def check_grouped(gen, rows):
                       (2 * routed * K, F32_FLOPS_PER_S))
         return dict(kernel="act_quant", variant="routed",
                     shape=[MOE_E, C, K], ms=time_ms(
-                        aq.act_quant_routed, [(x, rc, alpha)]),
-                    plain_ms=time_ms(aq.act_quant_routed_plain,
-                                     [(x, rc, alpha)]),
+                        aq.act_quant_routed, [(x, rc)]),
+                    plain_ms=time_ms(aq.act_quant_routed_plain, [(x, rc)]),
                     bound_ms=b, bound_by=by, library_ms=None,
                     bf16_matmul_ms=None)
 
@@ -704,7 +718,7 @@ def check_grouped(gen, rows):
         for C in MOE_C:
             x, rc, xq, sa = inputs(C, K, moe_counts(C, seed=C * K))
             if ring:
-                rows.append(routed_quant(C, K, x, rc, w["alpha"]))
+                rows.append(routed_quant(C, K, x, rc))
             mm = time_ms(bmm, [(x, w["wd"])])
             for (name, variant), fns in groups.items():
                 r = one(name, variant, C, K, N, x, rc, xq, sa, w, fns)
@@ -842,10 +856,74 @@ def time_eager_and_graph(step, reps):
     return eager, replay
 
 
+def shares_quantization() -> bool:
+    """Whether this tree quantizes each shared activation once (an
+    earlier commit's linears each quantize their own)."""
+    from repro_torch.kernels import ops
+
+    return hasattr(ops, "quantize_for")
+
+
+def tick_launches(api, cfg, model, sc):
+    """Each kernel's launches in one 4-slot decode step, and how many of
+    the act_quant launches were its routed entry's (counted by wrapping
+    the name the grouped wrappers call)."""
+    import torch
+    from repro_torch.kernels import _build, moe_gemm
+
+    cache, toks, pos = _decode_inputs(api, cfg, sc)
+    real, routed = moe_gemm.act_quant_routed, []
+
+    def counted(*a, **k):
+        routed.append(1)
+        return real(*a, **k)
+
+    moe_gemm.act_quant_routed = counted
+    try:
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            model(toks, mode="decode", cache=cache, pos=pos)
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+    finally:
+        moe_gemm.act_quant_routed = real
+    del cache
+    return launches, len(routed)
+
+
+def check_tick_launches(tag, name, cfg, launches, routed):
+    """act_quant launches of one decode tick: one per distinct quantized
+    activation (dense: q/k/v, o, gate/up, down; MoE: q/k/v, o dense and
+    gate/up, down routed), or one per W4A8 linear in a tree that does not
+    share; none under W4A16. Logs and returns the counts."""
+    L = cfg.num_layers
+    moe_layers = bool(cfg.num_experts)
+    shared = shares_quantization()
+    if name.startswith("w4a16"):
+        want_dense, want_routed = 0, 0
+    elif moe_layers:
+        want_dense, want_routed = (2 * L, 2 * L) if shared else (4 * L, 3 * L)
+    else:
+        want_dense, want_routed = (4 * L, 0) if shared else (7 * L, 0)
+    dense = launches["act_quant"] - routed
+    log(f"[launches] {tag} {name}: one decode tick, act_quant "
+        f"{launches['act_quant']} ({dense} dense + {routed} routed; "
+        f"{launches['act_quant'] / L:g} a layer, expected "
+        f"{want_dense} + {want_routed}); all kernels {json.dumps(launches)}")
+    if (dense, routed) != (want_dense, want_routed):
+        raise AssertionError(f"{tag} {name}: act_quant launches a tick "
+                             f"{dense} dense + {routed} routed, expected "
+                             f"{want_dense} + {want_routed}")
+    return dict(launches, act_quant_dense=dense, act_quant_routed=routed)
+
+
 def profile_decode_step(api, cfg, model, sc, top=8):
     """One decode step under ``obs.trace_window``: the step's total device
     time (ms), the part of it in the quantized GEMM kernels and their
-    split reductions (ms), and the ``top`` device kernels by CUDA time."""
+    split reductions (ms), the ``top`` device kernels by CUDA time, the
+    number of device kernel launches and of elementwise division
+    (``DivFunctor``) launches."""
     import torch
     from torch.autograd import DeviceType
     from repro_torch import obs
@@ -866,10 +944,12 @@ def profile_decode_step(api, cfg, model, sc, top=8):
     gemm = sum(e.self_device_time_total for e in kernels
                if any(k in e.key for k in GEMM_KERNELS)) / 1e3
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    n = sum(e.count for e in kernels)
+    divs = sum(e.count for e in kernels if "DivFunctor" in e.key)
     del cache
     return total, gemm, [dict(name=e.key[:120], count=e.count,
                               ms=e.self_device_time_total / 1e3)
-                         for e in ranked]
+                         for e in ranked], n, divs
 
 
 def serve_recipe(api, cfg, qparams, recipe, sc, prompts, *, drill=False,
@@ -938,7 +1018,8 @@ def report_serve(tag, name, api, cfg, eng, outs, launches, reg, wall, sc):
         prefill_device_s=mean(dev, phase="prefill"),
         step_eager_ms=step_eager, step_graph_ms=step_graph,
         prefill_eager_ms=pre_eager, prefill_graph_ms=pre_graph,
-        launches=launches)
+        launches=launches,
+        tokens_sha256=hashlib.sha256(json.dumps(outs).encode()).hexdigest())
     log(f"[{tag}] {name}: {cfg.num_layers} layers, {len(outs)} requests "
         f"ok, {ntok} tokens in {wall:.3f} s = {st['tokens_per_s']:.1f} "
         f"tokens/s; {eng.ticks} ticks, {st['decode_tick_s'] * 1e3:.2f} ms "
@@ -953,6 +1034,8 @@ def report_serve(tag, name, api, cfg, eng, outs, launches, reg, wall, sc):
         f"prefill eager {pre_eager:.3f} ms, CUDA graph replay "
         f"{pre_graph:.3f} ms; first token of prompt 0 is "
         f"the argmax of the logits; launches {json.dumps(launches)}")
+    log(f"[tokens] {tag} {name}: sha256 of the greedy token streams "
+        f"{st['tokens_sha256']}")
     return st
 
 
@@ -1108,6 +1191,8 @@ def main() -> int:
                                      n0, PLAIN_CHECK_LAYERS)
         serve_stats[name] = report_serve(
             "serve", name, api, cfg, eng, outs, launches, reg, wall, sc)
+        serve_stats[name]["tick_launches"] = check_tick_launches(
+            "serve", name, cfg, *tick_launches(api, cfg, eng.model, sc))
         if name in (DEFAULT_RECIPE.name, WEIGHT_ONLY_RECIPE.name):
             models[name] = eng.model
         del eng
@@ -1138,11 +1223,18 @@ def main() -> int:
     # -- 7. profile one IS and one W4A16 decode step ------------------------
     profiles = {}
     for name in (DEFAULT_RECIPE.name, WEIGHT_ONLY_RECIPE.name):
-        total, gemm, top = profile_decode_step(api, cfg, models[name], sc)
-        profiles[name] = {"device_ms": total, "gemm_ms": gemm, "top": top}
+        total, gemm, top, n, divs = profile_decode_step(api, cfg,
+                                                        models[name], sc)
+        profiles[name] = {"device_ms": total, "gemm_ms": gemm, "top": top,
+                          "launches": n, "div_launches": divs}
         log(f"[profile] one {name} 4-slot decode step: {total:.3f} ms of "
-            f"device kernels, {gemm:.3f} ms ({gemm / total:.3f}) in the "
+            f"device kernels in {n} launches ({divs} elementwise "
+            f"divisions), {gemm:.3f} ms ({gemm / total:.3f}) in the "
             "quantized GEMMs and their split reductions; top 8:")
+        if name == DEFAULT_RECIPE.name and shares_quantization() and divs:
+            raise AssertionError(f"{name} decode step: {divs} elementwise "
+                                 "division kernels (the GEMM's epilogue "
+                                 "divides sa / alpha)")
         for p in top:
             log(f"[profile]   {p['ms']:.3f} ms  x{p['count']}  {p['name']}")
 
@@ -1196,6 +1288,8 @@ def main() -> int:
                                        MIXTRAL_PLAIN_CHECK_LAYERS)
         st = report_serve("mixtral", name, mapi, mcfg, eng, outs, launches,
                           reg, wall, sc)
+        st["tick_launches"] = check_tick_launches(
+            "mixtral", name, mcfg, *tick_launches(mapi, mcfg, eng.model, sc))
         st.update(build_s=build_s, weight_bytes=qbytes, expert_bytes=ebytes,
                   build_peak_bytes=build_peak,
                   peak_bytes=torch.cuda.max_memory_allocated(),

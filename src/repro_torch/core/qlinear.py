@@ -163,10 +163,12 @@ def quantize_experts(w: torch.Tensor, qspec: QuantSpec, *,
 
 
 def linear_apply(params: dict, x: torch.Tensor,
-                 qspec: QuantSpec | None) -> torch.Tensor:
+                 qspec: QuantSpec | None, *, xq=None) -> torch.Tensor:
     """y = x @ W (+ b), honoring the quantization spec.
 
     x: (..., K) activation (bf16/f32). Returns the same float dtype as x.
+    ``xq``: x's codes and scales when several linears share x
+    (``kernels.ops.quantize_for``); None quantizes x for this one.
     """
     if qspec is None:
         y = x @ params["w"].to(x.dtype)
@@ -178,7 +180,7 @@ def linear_apply(params: dict, x: torch.Tensor,
             "pre_scale / rot come with the calibration port slice")
 
     lead = x.shape[:-1]
-    y2 = kops.qgemm(x.reshape(-1, x.shape[-1]), params, qspec)
+    y2 = kops.qgemm(x.reshape(-1, x.shape[-1]), params, qspec, xq=xq)
     y = y2.reshape(*lead, -1).to(x.dtype)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
@@ -187,17 +189,19 @@ def linear_apply(params: dict, x: torch.Tensor,
 
 def grouped_linear_apply(params: dict, x: torch.Tensor,
                          qspec: QuantSpec | None, *,
-                         row_counts: torch.Tensor | None = None
-                         ) -> torch.Tensor:
+                         row_counts: torch.Tensor | None = None,
+                         xq=None) -> torch.Tensor:
     """Batched-expert linear: x (E, C, K) -> (E, C, N), params stacked
     with a leading expert axis (the MoE dispatch-buffer path).
 
     Quantized experts run in ONE grouped ragged kernel per call
-    (``kernels.ops.qgemm_grouped``) with the activation quantization fused
-    and the per-expert ``alpha`` folded into the activation scales.
-    ``row_counts`` (int32 (E,), on the device; rows past it are
-    zero-filled by the dispatch) lets the kernel skip capacity-padding
-    m-tiles; ``None`` treats every slot as routed. Returns x's dtype.
+    (``kernels.ops.qgemm_grouped``), after the routed rows' quantization
+    (or on ``xq``, the codes and scales ``kernels.ops.quantize_for`` made
+    once for every expert linear over x); the kernel divides by the
+    per-expert ``alpha`` in its epilogue. ``row_counts`` (int32 (E,), on
+    the device; rows past it are zero-filled by the dispatch) lets the
+    kernel skip capacity-padding m-tiles; ``None`` treats every slot as
+    routed. Returns x's dtype.
     """
     if qspec is None:
         y = torch.bmm(x, params["w"].to(x.dtype))
@@ -209,7 +213,8 @@ def grouped_linear_apply(params: dict, x: torch.Tensor,
             "pre_scale / rot come with the calibration port slice")
     core = {k: v for k, v in params.items()
             if k in ("qvalue", "scale", "alpha")}
-    y = kops.qgemm_grouped(x, core, qspec, row_counts=row_counts).to(x.dtype)
+    y = kops.qgemm_grouped(x, core, qspec, row_counts=row_counts,
+                           xq=xq).to(x.dtype)
     if "b" in params:
         y = y + params["b"][:, None, :].to(y.dtype)
     return y

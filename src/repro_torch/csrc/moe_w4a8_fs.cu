@@ -18,8 +18,8 @@
 //   C = 40 (there the routed rows' int8 operations take about a tenth of
 //   the byte time); coarse reads one scale row an expert instead of K/128.
 // What the design does about it: the IS kernel's design (moe_w4a8_is.cu:
-//   the routed rows quantized once per launch by act_quant.cu's routed
-//   entry, then the loop of w4a8_ring.cuh with the expert in blockIdx.z
+//   the routed rows quantized once by act_quant.cu's routed entry, then
+//   the loop of w4a8_ring.cuh with the expert in blockIdx.z
 //   and the counts read on the device) with the FloatScale policy in place
 //   of IntegerScale, which is the paper's whole point: the two grouped
 //   kernels differ only in the group step and the epilogue, as the dense
@@ -49,6 +49,6 @@ extern "C" int moe_w4a8_fs_launch(const void* xq, const void* sa,
                                   int C, int N, int K, int gs, int w_bits,
                                   int bm, int splits, void* stream) {
   return w4a8_ring_launch<FloatScale, true>(
-      xq, sa, counts, w, s, out, ws, E, C, N, K, gs, w_bits, bm, splits,
-      stream);
+      xq, sa, nullptr, counts, w, s, out, ws, E, C, N, K, gs, w_bits, bm,
+      splits, stream);
 }

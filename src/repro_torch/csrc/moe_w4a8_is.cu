@@ -21,13 +21,14 @@
 // What the design does about it (second design; the first quantized the
 //   activations again in every n-block and unpacked the weights through
 //   shared memory in a single-stage loop, w4a8_tile.cuh):
-//   - The routed rows are quantized once per launch, before the GEMM, by
-//     act_quant.cu's routed entry (act_quant's arithmetic, so the codes
-//     equal the unfused act_quant's bit for bit), which also folds alpha:
-//     fac = s_a / alpha[e], an IEEE division, then ONE multiply in the
-//     epilogue (the reference's op order). At the down projection
-//     (K = 14336) the first design read and quantized each routed bf16 row
-//     in all 64 n-blocks.
+//   - The routed rows are quantized before the GEMM by act_quant.cu's
+//     routed entry (act_quant's arithmetic, so the codes equal the unfused
+//     act_quant's bit for bit), once for every grouped GEMM that reads the
+//     same dispatch buffer (gate and up). The epilogue divides by alpha:
+//     s_a / alpha[e], an IEEE division, then ONE multiply (the reference's
+//     op order), so two expert stacks with different amplifiers share one
+//     quantization. At the down projection (K = 14336) the first design
+//     read and quantized each routed bf16 row in all 64 n-blocks.
 //   - The GEMM is the dense IS kernel's loop (w4a8_ring.cuh: a 4-stage
 //     cp.async ring of the raw packed bytes, the int8 MMA operands built in
 //     registers, split K where the grid would not fill the card) with the
@@ -42,25 +43,25 @@
 //     graph.
 // Integer sums do not depend on order (mod 2^32, at every split), so the
 //   output is bit-identical to the plain PyTorch version, and the ragged
-//   entry equals the dense-grouped one on zero-filled padding: the
-//   dense-grouped wrapper divides sa by alpha[e] as a tensor (IEEE) and
-//   passes every row.
+//   entry equals the dense-grouped one on zero-filled padding: both launch
+//   this kernel on the same codes and scales.
 #include "w4a8_ring.cuh"
 
-// xq (E*C, K) int8 codes; fac (E*C,) f32 = s_a / alpha[e] (0 past the
-// counts); counts (E,) int32 or null (every row routed); w (E, K/2, N)
+// xq (E*C, K) int8 codes; sa (E*C,) f32 (0 past the counts); alpha (E,)
+// f32; counts (E,) int32 or null (every row routed); w (E, K/2, N)
 // packed int4 (w_bits 4) or (E, K, N) int8 (w_bits 8); s (E, K/gs, N)
 // int32; out (E*C, N) f32; ws (splits, E*C, N) int32 when splits > 1
 // (else unused). All contiguous and 16-byte aligned. K % 128 == 0,
 // K % gs == 0, gs % 32 == 0, gs <= 65536, 1 <= splits <= K / 128,
 // E * splits <= 65535, E * C < 2^31; bm is 16 or 64. Returns
 // cudaGetLastError() after the launches.
-extern "C" int moe_w4a8_is_launch(const void* xq, const void* fac,
-                                  const void* counts, const void* w,
-                                  const void* s, void* out, void* ws, int E,
-                                  int C, int N, int K, int gs, int w_bits,
-                                  int bm, int splits, void* stream) {
+extern "C" int moe_w4a8_is_launch(const void* xq, const void* sa,
+                                  const void* alpha, const void* counts,
+                                  const void* w, const void* s, void* out,
+                                  void* ws, int E, int C, int N, int K,
+                                  int gs, int w_bits, int bm, int splits,
+                                  void* stream) {
   return w4a8_ring_launch<IntegerScale, true>(
-      xq, fac, counts, w, s, out, ws, E, C, N, K, gs, w_bits, bm, splits,
-      stream);
+      xq, sa, alpha, counts, w, s, out, ws, E, C, N, K, gs, w_bits, bm,
+      splits, stream);
 }

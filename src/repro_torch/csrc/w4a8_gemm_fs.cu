@@ -42,6 +42,6 @@ extern "C" int w4a8_gemm_fs_launch(const void* xq, const void* sa,
                                    void* stream) {
   // one expert of M rows, every row routed
   return w4a8_ring_launch<FloatScale, false>(
-      xq, sa, nullptr, w, s, out, ws, 1, M, N, K, gs, w_bits, bm, splits,
-      stream);
+      xq, sa, nullptr, nullptr, w, s, out, ws, 1, M, N, K, gs, w_bits, bm,
+      splits, stream);
 }

@@ -6,8 +6,9 @@
 // epilogue (the paper's Table 3 comparison, and §5.5's on Mixtral).
 //
 //   per expert e, row m < rc = min(counts[e], C):
-//   O[m, n] = out(sum over groups g of group(part_g[m, n], s[g, n]), fac[m])
+//   O[m, n] = out(sum over groups g of group(part_g[m, n], s[g, n]), f[m])
 //   part_g = sum over k in g of xq[m, k] * w[k, n]        (int32)
+//   f[m] = sa[m] / alpha[e] (Integer Scale) or sa[m] (float scale)
 //   rows at or past rc: exact +0.0
 //
 // The dense GEMMs are the case E = 1, C = M, no counts.
@@ -31,8 +32,12 @@
 //   - A ring of 4 shared-memory stages filled by 16-byte cp.async: per
 //     packing unit the raw packed bytes (64 rows x 64 columns; W8: 128 rows
 //     of int8), the unit's scale rows and the int8 activation rows, so three
-//     units are in flight while one is consumed. The per-row factor is read
-//     once, in the epilogue.
+//     units are in flight while one is consumed. The per-row factor is
+//     formed once, in the epilogue: sa / alpha[e] by one IEEE division
+//     (__fdiv_rn), then ONE multiply, the reference's op order (its ragged
+//     kernel's epilogue, src/repro/kernels/moe_gemm.py), so the activation
+//     codes and scales that act_quant.cu writes serve every GEMM that reads
+//     the same activation, whatever its amplifier.
 //   - The weights become the mma.sync m16n8k32 s8 B fragments in registers,
 //     with no unpacking through shared memory. A thread reads four 32-bit
 //     words (rows r..r+3 of four neighbouring columns) and transposes them
@@ -76,15 +81,15 @@
 // Any N: when N % 16 != 0 the rows of bytes and scales are not 16-byte
 //   aligned, and an instance stages them by plain loads (VEC = false).
 // Experts: blockIdx.z is (expert e, split), as in w4a16_ring.cuh; the
-//   expert's rows are rows [e*C, e*C + C) of the (E*C, K) codes, the
-//   factors and the output, its weights and scales the e-th slabs. Its
+//   expert's rows are rows [e*C, e*C + C) of the (E*C, K) codes, their
+//   scales and the output, its weights and scales the e-th slabs. Its
 //   offsets are 32-bit row indices (E*C rows, E*K/gs scale rows) times
 //   64-bit strides, as the dense loop indexed its operands. The expert
 //   dimension is a template flag (GROUPED): the dense entry points compile
 //   it away, because on the H100 its runtime arithmetic and 64-bit bases
 //   cost the dense GEMMs up to 12 registers and 2-9 % of their time. The
-//   codes come quantized (act_quant.cu's routed entry, once
-//   per launch), so the loop reads int8 rows as the dense GEMMs do. Only
+//   codes come quantized (act_quant.cu's routed entry, once per shared
+//   activation), so the loop reads int8 rows as the dense GEMMs do. Only
 //   rows below rc are routed; counts are read on the device (no host sync,
 //   so a MoE step captures as a CUDA graph). A block whose m-tile starts at
 //   or past rc writes zeros (into out, or into its split's slab) and
@@ -198,13 +203,24 @@ __device__ __forceinline__ float finish(Part<Scale, DEFER> p,
   }
 }
 
+// The epilogue's factor of row `row` of expert e: its activation scale
+// divided by the expert's amplifier (Integer Scale; an IEEE division, as the
+// plain version's sa / alpha) or the scale itself (float scale: no alpha)
+__device__ __forceinline__ float row_factor(const float* sa,
+                                            const float* alpha, int64_t row,
+                                            int e) {
+  const float s = sa[row];
+  return alpha != nullptr ? __fdiv_rn(s, alpha[e]) : s;
+}
+
 // One block: a BM x BN output tile of expert e over the packing units
 // [u0, u1) of its split. blockIdx = (n-block, m-block, e * splits + split).
 // With one split the block writes out; else its Part sums go to the
 // split's (E*C, N) slab of ws. !GROUPED: E = 1 and no counts.
 template <int BM, bool W4, bool VEC, class Scale, bool DEFER, bool GROUPED>
 __global__ void __launch_bounds__(kThreads, BM == 16 ? 512 / kThreads : 3)
-w4a8_ring_kernel(const int8_t* __restrict__ x, const float* __restrict__ fac,
+w4a8_ring_kernel(const int8_t* __restrict__ x, const float* __restrict__ sa,
+                 const float* __restrict__ alpha,
                  const uint8_t* __restrict__ wq, const void* __restrict__ sc,
                  float* __restrict__ out, void* __restrict__ ws,
                  const int* __restrict__ counts, int E, int C, int N, int K,
@@ -481,7 +497,7 @@ w4a8_ring_kernel(const int8_t* __restrict__ x, const float* __restrict__ fac,
     const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
     if (n0 + c >= N) continue;
     const bool live = !GROUPED || r < nrows;  // routed (else +0.0)
-    const float f = live ? fac[row0 + r] : 0.f;
+    const float f = live ? row_factor(sa, alpha, row0 + r, e) : 0.f;
     float o[4];
     alignas(16) P v[4];
 #pragma unroll
@@ -519,7 +535,8 @@ w4a8_ring_kernel(const int8_t* __restrict__ x, const float* __restrict__ fac,
 template <class Scale, bool DEFER, bool GROUPED>
 __global__ void __launch_bounds__(256)
 w4a8_splitk_reduce(const Part<Scale, DEFER>* __restrict__ ws,
-                   const void* __restrict__ sc, const float* __restrict__ fac,
+                   const void* __restrict__ sc, const float* __restrict__ sa,
+                   const float* __restrict__ alpha,
                    float* __restrict__ out, const int* __restrict__ counts,
                    int C, int N, int64_t n, int splits) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
@@ -535,13 +552,14 @@ w4a8_splitk_reduce(const Part<Scale, DEFER>* __restrict__ ws,
   // DEFER's one scale row of the expert (gs == K)
   const auto* srow = static_cast<const typename Scale::Value*>(sc) +
                      static_cast<int64_t>(e) * N;
-  out[i] = finish<Scale, DEFER>(a, srow, fac[row], col);
+  out[i] = finish<Scale, DEFER>(a, srow, row_factor(sa, alpha, row, e), col);
 }
 
 // The operands of one launch (see w4a8_ring_launch)
 struct RingArgs {
   const int8_t* x;
-  const float* fac;
+  const float* sa;
+  const float* alpha;
   const uint8_t* w;
   const void* s;
   float* out;
@@ -558,7 +576,8 @@ cudaError_t ring_launch(const RingArgs& a, cudaStream_t st) {
   cudaError_t err = allow_smem(kernel, bytes, attr);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.N + BN - 1) / BN, (a.C + BM - 1) / BM, a.E * a.splits);
-  kernel<<<grid, kThreads, bytes, st>>>(a.x, a.fac, a.w, a.s, a.out, a.ws,
+  kernel<<<grid, kThreads, bytes, st>>>(a.x, a.sa, a.alpha, a.w, a.s, a.out,
+                                        a.ws,
                                         a.counts, a.E, a.C, a.N, a.K, a.gs,
                                         a.splits);
   err = cudaGetLastError();
@@ -566,7 +585,8 @@ cudaError_t ring_launch(const RingArgs& a, cudaStream_t st) {
   const int64_t n = static_cast<int64_t>(a.E) * a.C * a.N;
   w4a8_splitk_reduce<Scale, DEFER, GROUPED>
       <<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-          static_cast<const Part<Scale, DEFER>*>(a.ws), a.s, a.fac, a.out,
+          static_cast<const Part<Scale, DEFER>*>(a.ws), a.s, a.sa, a.alpha,
+          a.out,
           a.counts, a.C, a.N, n, a.splits);
   return cudaGetLastError();
 }
@@ -590,9 +610,11 @@ cudaError_t ring_launch_tile(int bm, int w_bits, bool vec, const RingArgs& a,
 }
 
 // The body of the W4A8 C entry points, dense and grouped. xq (E*C, K) int8
-// codes; fac (E*C,) f32, the per-row factor of the epilogue; counts (E,)
-// int32 or null (every row routed); w (E, K/2, N) packed int4 (w_bits = 4)
-// or (E, K, N) int8 (w_bits = 8); s (E, K/gs, N) of Scale::Value; out
+// codes; sa (E*C,) f32, their per-row scales; alpha (E,) f32, the experts'
+// amplifiers (Integer Scale; the epilogue's factor is sa / alpha[e]) or null
+// (float scale: the factor is sa); counts (E,) int32 or null (every row
+// routed); w (E, K/2, N) packed int4 (w_bits = 4) or (E, K, N) int8
+// (w_bits = 8); s (E, K/gs, N) of Scale::Value; out
 // (E*C, N) f32; ws (splits, E*C, N) of 4-byte elements when splits > 1
 // (else unused). All contiguous and 16-byte aligned. K % 128 == 0,
 // K % gs == 0, gs % 32 == 0, gs <= 2^16, 1 <= splits <= K / 128,
@@ -600,10 +622,10 @@ cudaError_t ring_launch_tile(int bm, int w_bits, bool vec, const RingArgs& a,
 // over all of K (coarse). The dense GEMMs pass E = 1, C = M, no counts and
 // GROUPED = false. Returns cudaGetLastError() after the launches.
 template <class Scale, bool GROUPED>
-int w4a8_ring_launch(const void* xq, const void* fac, const void* counts,
-                     const void* w, const void* s, void* out, void* ws, int E,
-                     int C, int N, int K, int gs, int w_bits, int bm,
-                     int splits, void* stream) {
+int w4a8_ring_launch(const void* xq, const void* sa, const void* alpha,
+                     const void* counts, const void* w, const void* s,
+                     void* out, void* ws, int E, int C, int N, int K, int gs,
+                     int w_bits, int bm, int splits, void* stream) {
   if ((w_bits != 4 && w_bits != 8) || K % KU != 0 || gs <= 0 ||
       gs % 32 != 0 || gs > MAX_GS || K % gs != 0 || splits < 1 ||
       splits > K / KU || E < 1 || (!GROUPED && (E != 1 || counts != nullptr)) ||
@@ -615,7 +637,8 @@ int w4a8_ring_launch(const void* xq, const void* fac, const void* counts,
   if (C <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const RingArgs a{static_cast<const int8_t*>(xq),
-                   static_cast<const float*>(fac),
+                   static_cast<const float*>(sa),
+                   static_cast<const float*>(alpha),
                    static_cast<const uint8_t*>(w),
                    s,
                    static_cast<float*>(out),

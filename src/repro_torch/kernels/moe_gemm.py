@@ -10,21 +10,22 @@ and scales ``(E, K/g, N)``:
 * ``fg_grouped_gemm_integer_scale`` / ``fg_grouped_gemm_float_scale`` /
   ``grouped_w4a16_gemm``: the dense capacity-padded entry points. The
   W4A8 ones take pre-quantized codes ``xq`` and per-token scales ``sa``
-  (integer scale: per-expert ``alpha`` folded as ``sa / alpha[e]``).
-* ``*_ragged``: the serving path (``ops.qgemm_grouped``). They take the
-  RAW dispatch buffer and ``row_counts`` (int32 ``(E,)``, routed rows per
+  (integer scale: per-expert ``alpha``, divided as ``sa / alpha[e]``).
+  Given ``row_counts`` they are the ragged GEMM on codes that
+  :func:`quantize_routed` made: the serving path (``ops.qgemm_grouped``,
+  where gate and up share one quantization).
+* ``*_ragged``: the reference's ragged entry points. They take the RAW
+  dispatch buffer and ``row_counts`` (int32 ``(E,)``, routed rows per
   expert, clamped to ``[0, C]``; ``None`` = all C); the W4A8 ones quantize
-  the routed rows once per launch (``act_quant.act_quant_routed``, which
-  also folds ``sa / alpha[e]``), then run the GEMM on the codes; m-tiles
-  wholly past an expert's count are skipped and, with every other
-  unrouted row, written as exact +0.0.
+  the routed rows first (:func:`quantize_routed`), then run the GEMM on
+  the codes. With counts, m-tiles wholly past an expert's count are
+  skipped and, with every other unrouted row, written as exact +0.0.
 
 On the card each W4A8 scheme is one GEMM kernel (the loop of the dense
 W4A8 GEMMs, ``csrc/w4a8_ring.cuh``, with the expert in the grid) that
-both entry points launch: the dense-grouped one on the caller's codes
-with every row and its factor divided by alpha as a tensor, the ragged
-one after the routed quantization. So ragged == dense grouped bit for bit
-on zero-filled padding, which is the reference's central MoE invariant;
+every entry point launches on codes and scales, dividing ``sa /
+alpha[e]`` in its epilogue. So ragged == dense grouped bit for bit on
+zero-filled padding, which is the reference's central MoE invariant;
 grouped W4A16 is likewise one kernel. The counts are read on the device:
 no wrapper copies them to the host, so a decode step stays free of host
 syncs and capturable as a CUDA graph. ``splits=`` forces the W4A8
@@ -51,28 +52,19 @@ from . import _build
 from .act_quant import act_quant_plain, act_quant_routed
 from .w4a16_gemm import w4a16_gemm_plain
 from .w4a8_gemm import aligned as _aligned
-from .w4a8_gemm import (check_group, fg_gemm_integer_scale_plain,
+from .w4a8_gemm import (amplifiers, check_group, fg_gemm_integer_scale_plain,
                         launch_plan_on)
 from .w4a8_gemm_fscale import fg_gemm_float_scale_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_IS_ARGS = [_P] * 7 + [_I] * 8 + [_P]
-_FS_ARGS = _IS_ARGS  # the same entry point under the other policy
+_IS_ARGS = [_P] * 8 + [_I] * 8 + [_P]
+_FS_ARGS = [_P] * 7 + [_I] * 8 + [_P]  # no alpha
 _WO_ARGS = [_P] * 6 + [_I] * 7 + [_P]
 
 
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
-
-
-def _expert_alpha(alpha, E: int, device) -> torch.Tensor:
-    """f32 (E,) per-expert amplifiers from a python float or a tensor of 1
-    or E values. A fill, not a host copy, so it can be graph-captured."""
-    if isinstance(alpha, torch.Tensor):
-        return alpha.to(device=device, dtype=torch.float32).reshape(
-            -1).expand(E).contiguous()
-    return torch.full((E,), float(alpha), dtype=torch.float32, device=device)
 
 
 def _mask_rows(y: torch.Tensor, row_counts) -> torch.Tensor:
@@ -98,7 +90,7 @@ def fg_grouped_gemm_integer_scale_plain(
     """Batched-expert Eq. 2: each expert's dense plain GEMM, with 1/alpha
     folded into sa first (``sa / alpha[e]``, the reference's op order)."""
     E = xq.shape[0]
-    sa = sa / _expert_alpha(alpha, E, sa.device).reshape(E, 1, 1)
+    sa = sa / amplifiers(alpha, E, sa.device).reshape(E, 1, 1)
     return torch.stack([
         fg_gemm_integer_scale_plain(xq[e], sa[e], qvalue[e], int_scale[e],
                                     group_size=group_size, alpha=1.0,
@@ -203,50 +195,52 @@ def _counts_arg(row_counts, device):
         torch.int32).contiguous()
 
 
-def _a8_launch(name: str, x, sa, row_counts, qvalue, scale, alpha, *,
-               group_size: int, a_bits: int, w_bits: int, bm: int,
-               splits: int):
-    """Launch ``moe_w4a8_is`` (alpha given) or ``moe_w4a8_fs`` (alpha None)
-    on int8 codes with their scales ``sa`` (every row; the factor
-    ``sa / alpha[e]`` divided here), or on raw bf16/f32 rows, whose routed
-    rows ``act_quant_routed`` quantizes first."""
-    _build.require_cuda(name, x, qvalue, scale,
-                        *(t for t in (sa, row_counts, alpha)
+def quantize_routed(x: torch.Tensor, row_counts=None, bits: int = 8):
+    """The grouped W4A8 GEMMs' input from the raw (E, C, K) dispatch
+    buffer: (codes int8 (E, C, K), scales f32 (E, C, 1)), zero at or past
+    each expert's count (``act_quant``'s routed entry, one launch). Every
+    grouped GEMM that reads the buffer can take the same pair."""
+    return act_quant_routed(x, _counts_arg(row_counts, x.device), bits=bits)
+
+
+def _a8_launch(name: str, xq, sa, row_counts, qvalue, scale, alpha, *,
+               group_size: int, w_bits: int, bm: int, splits: int):
+    """Launch ``moe_w4a8_is`` (alpha given: the epilogue divides ``sa /
+    alpha[e]``) or ``moe_w4a8_fs`` (alpha None) on int8 codes with their
+    scales ``sa``; rows at or past ``row_counts`` come out +0.0 (None:
+    every row computed)."""
+    _build.require_cuda(name, xq, sa, qvalue, scale,
+                        *(t for t in (row_counts, alpha)
                           if isinstance(t, torch.Tensor)))
-    E, C, K = x.shape
+    E, C, K = xq.shape
     N = qvalue.shape[2]
     gs = group_size if group_size > 0 else K  # coarse: one group over K
     check_group(name, K, gs)
     rows = K // 2 if w_bits == 4 else K
-    if (qvalue.dtype != torch.int8 or w_bits not in (4, 8)
+    if (xq.dtype != torch.int8 or qvalue.dtype != torch.int8
+            or w_bits not in (4, 8)
             or scale.dtype != (torch.float32 if alpha is None
                                else torch.int32)
             or tuple(qvalue.shape) != (E, rows, N)
-            or tuple(scale.shape) != (E, K // gs, N)):
+            or tuple(scale.shape) != (E, K // gs, N) or sa.numel() != E * C):
         raise ValueError(f"{name}: operands do not match the contract")
-    if x.dtype not in (torch.int8, torch.bfloat16, torch.float32) or (
-            x.dtype == torch.int8) != (sa is not None):
-        raise ValueError(f"{name}: activations must be int8 codes with their "
-                         f"scales, or raw bf16/f32 rows; got {x.dtype}")
-    a = None if alpha is None else _expert_alpha(alpha, E, x.device)
-    counts = _counts_arg(row_counts, x.device)
-    if sa is None:
-        xq, fac = act_quant_routed(x, counts, a, bits=a_bits)
-    else:
-        xq, fac = _aligned(x), sa.reshape(E, C).float()
-        fac = (fac if a is None else fac / a[:, None]).contiguous()
+    head = [_aligned(xq), sa.reshape(E * C).float().contiguous()]
+    if alpha is not None:
+        head.append(amplifiers(alpha, E, xq.device))
+    counts = _counts_arg(row_counts, xq.device)
     qvalue, scale = _aligned(qvalue), _aligned(scale)
-    plan = launch_plan_on(x.device, C, N, K, bm, experts=E, splits=splits)
-    out = torch.empty((E, C, N), dtype=torch.float32, device=x.device)
+    plan = launch_plan_on(xq.device, C, N, K, bm, experts=E, splits=splits)
+    out = torch.empty((E, C, N), dtype=torch.float32, device=xq.device)
     ws = (torch.empty(plan["workspace"], dtype=torch.float32,
-                      device=x.device) if plan["workspace"] else None)
-    fn = _build.function(name, f"{name}_launch", _IS_ARGS)
-    with torch.cuda.device(x.device):
-        err = fn(xq.data_ptr(), fac.data_ptr(),
+                      device=xq.device) if plan["workspace"] else None)
+    fn = _build.function(name, f"{name}_launch",
+                         _FS_ARGS if alpha is None else _IS_ARGS)
+    with torch.cuda.device(xq.device):
+        err = fn(*(t.data_ptr() for t in head),
                  None if counts is None else counts.data_ptr(),
                  qvalue.data_ptr(), scale.data_ptr(), out.data_ptr(),
                  None if ws is None else ws.data_ptr(), E, C, N, K, gs,
-                 w_bits, plan["bm"], plan["splits"], _build.stream_of(x))
+                 w_bits, plan["bm"], plan["splits"], _build.stream_of(xq))
     _build.check(err, name)
     _build.count(name)
     return out
@@ -255,31 +249,34 @@ def _a8_launch(name: str, x, sa, row_counts, qvalue, scale, alpha, *,
 def fg_grouped_gemm_integer_scale(
     xq: torch.Tensor, sa: torch.Tensor, qvalue: torch.Tensor,
     int_scale: torch.Tensor, *, group_size: int = 128, alpha=1024.0,
-    w_bits: int = 4, bm: int = 0, splits: int = 0,
+    w_bits: int = 4, bm: int = 0, splits: int = 0, row_counts=None,
 ) -> torch.Tensor:
-    """Dense batched-expert Eq. 2 on pre-quantized (E, C, K) codes; returns
-    f32 (E, C, N). CPU tensors take the plain version."""
+    """Batched-expert Eq. 2 on pre-quantized (E, C, K) codes; returns f32
+    (E, C, N), +0.0 at or past ``row_counts`` (None: the dense grouped
+    GEMM, every row). ``alpha``: a python float, or f32 (E,) per expert,
+    read on the device. CPU tensors take the plain version."""
     if xq.device.type == "cpu":
-        return fg_grouped_gemm_integer_scale_plain(
+        return _mask_rows(fg_grouped_gemm_integer_scale_plain(
             xq, sa, qvalue, int_scale, group_size=group_size, alpha=alpha,
-            w_bits=w_bits)
-    return _a8_launch("moe_w4a8_is", xq, sa, None, qvalue, int_scale, alpha,
-                      group_size=group_size, a_bits=8, w_bits=w_bits, bm=bm,
+            w_bits=w_bits), row_counts)
+    return _a8_launch("moe_w4a8_is", xq, sa, row_counts, qvalue, int_scale,
+                      alpha, group_size=group_size, w_bits=w_bits, bm=bm,
                       splits=splits)
 
 
 def fg_grouped_gemm_float_scale(
     xq: torch.Tensor, sa: torch.Tensor, qvalue: torch.Tensor,
     scale: torch.Tensor, *, group_size: int = 128, w_bits: int = 4,
-    bm: int = 0, splits: int = 0,
+    bm: int = 0, splits: int = 0, row_counts=None,
 ) -> torch.Tensor:
-    """Dense batched-expert Eq. 1 (``group_size=-1``: coarse) on
-    pre-quantized codes; returns f32 (E, C, N)."""
+    """Batched-expert Eq. 1 (``group_size=-1``: coarse) on pre-quantized
+    codes; returns f32 (E, C, N), +0.0 at or past ``row_counts``."""
     if xq.device.type == "cpu":
-        return fg_grouped_gemm_float_scale_plain(
-            xq, sa, qvalue, scale, group_size=group_size, w_bits=w_bits)
-    return _a8_launch("moe_w4a8_fs", xq, sa, None, qvalue, scale, None,
-                      group_size=group_size, a_bits=8, w_bits=w_bits, bm=bm,
+        return _mask_rows(fg_grouped_gemm_float_scale_plain(
+            xq, sa, qvalue, scale, group_size=group_size, w_bits=w_bits),
+            row_counts)
+    return _a8_launch("moe_w4a8_fs", xq, sa, row_counts, qvalue, scale, None,
+                      group_size=group_size, w_bits=w_bits, bm=bm,
                       splits=splits)
 
 
@@ -289,15 +286,16 @@ def fg_grouped_gemm_integer_scale_ragged(
     a_bits: int = 8, w_bits: int = 4, bm: int = 0, splits: int = 0,
 ) -> torch.Tensor:
     """Ragged batched-expert Eq. 2 over the raw (E, C, K) buffer (its
-    routed rows quantized once, then the GEMM); returns f32 (E, C, N),
-    +0.0 past the counts."""
+    routed rows quantized, then the GEMM); returns f32 (E, C, N), +0.0
+    past the counts."""
     if x.device.type == "cpu":
         return fg_grouped_gemm_integer_scale_ragged_plain(
             x, row_counts, qvalue, int_scale, group_size=group_size,
             alpha=alpha, a_bits=a_bits, w_bits=w_bits)
-    return _a8_launch("moe_w4a8_is", x, None, row_counts, qvalue, int_scale,
-                      alpha, group_size=group_size, a_bits=a_bits,
-                      w_bits=w_bits, bm=bm, splits=splits)
+    return fg_grouped_gemm_integer_scale(
+        *quantize_routed(x, row_counts, a_bits), qvalue, int_scale,
+        group_size=group_size, alpha=alpha, w_bits=w_bits, bm=bm,
+        splits=splits, row_counts=row_counts)
 
 
 def fg_grouped_gemm_float_scale_ragged(
@@ -311,9 +309,10 @@ def fg_grouped_gemm_float_scale_ragged(
         return fg_grouped_gemm_float_scale_ragged_plain(
             x, row_counts, qvalue, scale, group_size=group_size,
             a_bits=a_bits, w_bits=w_bits)
-    return _a8_launch("moe_w4a8_fs", x, None, row_counts, qvalue, scale,
-                      None, group_size=group_size, a_bits=a_bits,
-                      w_bits=w_bits, bm=bm, splits=splits)
+    return fg_grouped_gemm_float_scale(
+        *quantize_routed(x, row_counts, a_bits), qvalue, scale,
+        group_size=group_size, w_bits=w_bits, bm=bm, splits=splits,
+        row_counts=row_counts)
 
 
 def _wo_launch(x, row_counts, qvalue, scale, *, group_size: int, bm: int):

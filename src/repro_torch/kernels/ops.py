@@ -13,14 +13,21 @@ their plain versions. ``qgemm_grouped(x, params, qspec, row_counts=,
 launch=)`` is the batched-expert (MoE) counterpart over an ``(E, C, K)``
 dispatch buffer and stacked per-expert params, with the same scheme
 dispatch onto the ragged grouped kernels of ``kernels/moe_gemm.py``
-(W4A8: the routed rows quantized once per call; m-tiles past
+(W4A8: the routed rows quantized, then the GEMM; m-tiles past
 ``row_counts`` skipped).
 
+One quantization per shared activation: :func:`quantize_for` quantizes
+an activation once for every linear that reads it (q/k/v, gate/up, and
+the experts' gate/up over one dispatch buffer) when they all quantize
+their activations alike, and ``qgemm(..., xq=)`` / ``qgemm_grouped(...,
+xq=)`` take the pair instead of quantizing again. ``act_quant`` is a pure
+function of (x, a_bits), so each linear computes what it would alone.
+
 ``params["alpha"]`` (the integer-scale amplifier) is resolved as in the
-reference: the stored per-layer value wins and, being a tensor, is folded
-into the per-token activation scale (exact for power-of-two amplifiers);
-without it a static integer ``qspec.amplifier`` is the fallback, and a
-heuristic amplifier raises (it only exists per layer).
+reference: the stored per-layer value wins and, a device tensor, is read
+by the kernel, whose epilogue divides ``sa / alpha`` (the reference's op
+order); without it a static integer ``qspec.amplifier`` is the fallback,
+and a heuristic amplifier raises (it only exists per layer).
 
 Telemetry: every call increments ``qgemm_calls_total{scheme,kind,shape,
 block}`` (``block`` is the row x column tile; on the card the dense
@@ -40,9 +47,9 @@ from repro_torch import obs
 from repro_torch.core.recipe import QuantSpec
 
 from .act_quant import act_quant
-from .moe_gemm import (fg_grouped_gemm_float_scale_ragged,
-                       fg_grouped_gemm_integer_scale_ragged,
-                       grouped_w4a16_gemm_ragged)
+from .moe_gemm import (fg_grouped_gemm_float_scale,
+                       fg_grouped_gemm_integer_scale,
+                       grouped_w4a16_gemm_ragged, quantize_routed)
 from .w4a16_gemm import w4a16_gemm
 from .w4a8_gemm import (TILE_M, TILE_N, fg_gemm_integer_scale, launch_plan_on,
                         pick_tile_m)
@@ -83,6 +90,27 @@ def _resolve_alpha(alpha, qspec: QuantSpec):
         "amplifiers")
 
 
+def quantize_for(x: torch.Tensor, qspecs, *, grouped: bool = False,
+                 row_counts=None):
+    """One activation quantization for every linear of ``qspecs`` that
+    reads ``x``, or None when they do not all quantize it alike (a linear
+    left in bf16, a weight-only one, another ``a_bits``): then each
+    quantizes its own, as alone.
+
+    Dense: x (..., K) -> (codes int8 (M, K), scales f32 (M, 1)) over the
+    rows of x, for ``qgemm(..., xq=)``. ``grouped``: the (E, C, K) dispatch
+    buffer -> (codes (E, C, K), scales (E, C, 1)), zero at or past
+    ``row_counts``, for ``qgemm_grouped(..., xq=)``."""
+    bits = {None if s is None or s.weight_only else s.a_bits
+            for s in qspecs}
+    if len(bits) != 1 or None in bits:
+        return None
+    (bits,) = bits
+    if grouped:
+        return quantize_routed(x, row_counts, bits)
+    return act_quant(x.reshape(-1, x.shape[-1]), bits=bits)
+
+
 def _scheme_of(qspec: QuantSpec) -> str:
     if qspec.weight_only:
         return f"w{qspec.w_bits}a16"
@@ -97,8 +125,11 @@ def qgemm(
     qspec: QuantSpec,
     *,
     launch: LaunchConfig | None = None,
+    xq=None,                # (codes, scales) of x from quantize_for
 ) -> torch.Tensor:
-    """Quantized GEMM honoring ``qspec``; returns f32 (M, N)."""
+    """Quantized GEMM honoring ``qspec``; returns f32 (M, N). ``xq``: x's
+    codes and scales, already quantized for this linear's ``a_bits``
+    (:func:`quantize_for`); None quantizes x here."""
     if not isinstance(params, dict):
         raise TypeError("qgemm takes the qlinear param dict as its second "
                         "argument")
@@ -122,21 +153,26 @@ def qgemm(
         return w4a16_gemm(x, params["qvalue"], params["scale"],
                           group_size=qspec.group_size, bm=launch.bm)
 
-    xq, sa = act_quant(x, bits=qspec.a_bits)
+    xq, sa = (_shared(x, xq) if xq is not None
+              else act_quant(x, bits=qspec.a_bits))
     if not (qspec.scale_mode == "integer" and qspec.fine_grained):
         return fg_gemm_float_scale(
             xq, sa, params["qvalue"], params["scale"],
             group_size=qspec.group_size, w_bits=qspec.w_bits, bm=launch.bm)
-    a = _resolve_alpha(params.get("alpha"), qspec)
-    if isinstance(a, torch.Tensor):
-        # stored per-layer amplifier: fold 1/alpha into sa (exact for the
-        # power-of-two alphas Integer Scale emits)
-        sa = sa / a
-        a = 1.0
     return fg_gemm_integer_scale(
         xq, sa, params["qvalue"], params["scale"],
-        group_size=qspec.group_size, alpha=float(a), w_bits=qspec.w_bits,
-        bm=launch.bm)
+        group_size=qspec.group_size,
+        alpha=_resolve_alpha(params.get("alpha"), qspec),
+        w_bits=qspec.w_bits, bm=launch.bm)
+
+
+def _shared(x: torch.Tensor, xq):
+    """The (codes, scales) pair of ``x`` that :func:`quantize_for` made,
+    checked against x's shape."""
+    if tuple(xq[0].shape) != tuple(x.shape):
+        raise ValueError(f"xq: codes {tuple(xq[0].shape)} do not match the "
+                         f"activation {tuple(x.shape)}")
+    return xq
 
 
 def qgemm_grouped(
@@ -146,16 +182,18 @@ def qgemm_grouped(
     *,
     row_counts=None,        # int32 (E,) routed rows per expert | None = all C
     launch: LaunchConfig | None = None,
+    xq=None,                # (codes, scales) of x from quantize_for
 ) -> torch.Tensor:
     """Batched-expert quantized GEMM; returns f32 (E, C, N).
 
     Always routes through the ragged grouped kernels
-    (``kernels.moe_gemm``): W4A8 quantizes the routed rows once per call
-    (``act_quant``'s routed entry) before its GEMM, and m-tiles wholly
-    past an expert's ``row_counts`` are skipped (their rows, and every row
-    at or past the count, come out as zeros; the MoE dispatch zero-fills
-    them anyway). ``row_counts`` stays a device tensor; ``None`` treats
-    every capacity slot as routed.
+    (``kernels.moe_gemm``): W4A8 quantizes the routed rows
+    (``act_quant``'s routed entry; or takes ``xq``, the pair
+    :func:`quantize_for` made once for every linear over this buffer)
+    before its GEMM, and m-tiles wholly past an expert's ``row_counts``
+    are skipped (their rows, and every row at or past the count, come out
+    as zeros; the MoE dispatch zero-fills them anyway). ``row_counts``
+    stays a device tensor; ``None`` treats every capacity slot as routed.
     """
     if not isinstance(params, dict):
         raise TypeError("qgemm_grouped takes the stacked qlinear param dict "
@@ -175,13 +213,15 @@ def qgemm_grouped(
         return grouped_w4a16_gemm_ragged(
             x, row_counts, params["qvalue"], params["scale"],
             group_size=qspec.group_size, bm=launch.bm)
+    codes, sa = (_shared(x, xq) if xq is not None
+                 else quantize_routed(x, row_counts, qspec.a_bits))
     if qspec.scale_mode == "integer" and qspec.fine_grained:
-        a = _resolve_alpha(params.get("alpha"), qspec)
-        return fg_grouped_gemm_integer_scale_ragged(
-            x, row_counts, params["qvalue"], params["scale"],
-            group_size=qspec.group_size, alpha=a, a_bits=qspec.a_bits,
-            w_bits=qspec.w_bits, bm=launch.bm)
-    return fg_grouped_gemm_float_scale_ragged(
-        x, row_counts, params["qvalue"], params["scale"],
-        group_size=qspec.group_size, a_bits=qspec.a_bits,
-        w_bits=qspec.w_bits, bm=launch.bm)
+        return fg_grouped_gemm_integer_scale(
+            codes, sa, params["qvalue"], params["scale"],
+            group_size=qspec.group_size,
+            alpha=_resolve_alpha(params.get("alpha"), qspec),
+            w_bits=qspec.w_bits, bm=launch.bm, row_counts=row_counts)
+    return fg_grouped_gemm_float_scale(
+        codes, sa, params["qvalue"], params["scale"],
+        group_size=qspec.group_size, w_bits=qspec.w_bits, bm=launch.bm,
+        row_counts=row_counts)

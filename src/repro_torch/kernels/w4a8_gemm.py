@@ -4,10 +4,11 @@ wrapper around ``csrc/w4a8_gemm_is.cu`` and its plain PyTorch version.
 Port of ``repro/kernels/w4a8_gemm.py::fg_gemm_integer_scale``. Same
 operands: int8 activations (M, K), per-token ``sa`` (M, 1), nibble-packed
 int4 weights (K/2, N) (or int8 (K, N) with ``w_bits=8``), int32 group
-scales (K/g, N). The kernel receives the per-row factor ``sa / alpha``
-already divided (exact for the power-of-two amplifiers Integer Scale
-uses), so its epilogue is one convert and one multiply; the output is
-bit-identical to :func:`fg_gemm_integer_scale_plain` at every K split.
+scales (K/g, N). The kernel reads ``sa`` and the amplifier on the device
+and forms the per-row factor ``sa / alpha`` in its epilogue (one IEEE
+division a row, the plain version's op order), then one convert and one
+multiply; the output is bit-identical to
+:func:`fg_gemm_integer_scale_plain` at every K split.
 
 The module also holds the tiling that every GEMM kernel of the port
 shares: the row tiles (:func:`pick_tile_m`) and the K split
@@ -32,7 +33,8 @@ TILE_N = 64        # their column tile (BN in csrc/w4a8_ring.cuh and
 MAX_SPLITS = 16    # the most K splits a launch plan takes
 MAX_GROUP = 1 << 16  # csrc/w4a8_ring.cuh's bound on its x16 int32 partials
 
-_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_FS_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def fg_gemm_integer_scale_plain(
@@ -42,7 +44,7 @@ def fg_gemm_integer_scale_plain(
     int_scale: torch.Tensor, # int32 (K/g, N)
     *,
     group_size: int,
-    alpha: float,
+    alpha,                   # python float, or an f32 tensor of 1 value
     w_bits: int = 4,
 ) -> torch.Tensor:
     """Eq. 2: int32 group accumulation, single final convert.
@@ -106,6 +108,17 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def amplifiers(alpha, E: int, device) -> torch.Tensor:
+    """f32 (E,) amplifiers on ``device`` from a python float or a tensor
+    of 1 or E values: the stored per-layer tensor itself when it already
+    is one (no copy, no launch); a fill, not a host copy, for a float, so
+    it can be graph-captured."""
+    if isinstance(alpha, torch.Tensor):
+        return alpha.to(device=device, dtype=torch.float32).reshape(
+            -1).expand(E).contiguous()
+    return torch.full((E,), float(alpha), dtype=torch.float32, device=device)
+
+
 def check_group(name: str, K: int, gs: int) -> None:
     """What the W4A8 kernels refuse of K and the group size."""
     if K % LAYOUT_UNIT:
@@ -116,22 +129,25 @@ def check_group(name: str, K: int, gs: int) -> None:
                          f"multiple of 32 and at most {MAX_GROUP}")
 
 
-def launch_ring(name: str, xq, fac, qvalue, scale, gs: int, w_bits: int,
-                plan: dict) -> torch.Tensor:
-    """Launch the dense W4A8 kernel ``name`` (``w4a8_gemm_is`` or
-    ``w4a8_gemm_fs``) on checked, 16-byte aligned operands with the row
-    tile and K split of ``plan`` (:func:`launch_plan`), and its workspace
-    (4-byte elements, int32 or f32 as the kernel reads them) when it
-    splits K."""
+def launch_ring(name: str, xq, sa, alpha, qvalue, scale, gs: int,
+                w_bits: int, plan: dict) -> torch.Tensor:
+    """Launch the dense W4A8 kernel ``name`` (``w4a8_gemm_is`` with the
+    amplifier ``alpha`` (1,), or ``w4a8_gemm_fs`` with None) on checked,
+    16-byte aligned operands with the row tile and K split of ``plan``
+    (:func:`launch_plan`), and its workspace (4-byte elements, int32 or
+    f32 as the kernel reads them) when it splits K."""
     M, K = xq.shape
     N = qvalue.shape[1]
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
     ws = (torch.empty(plan["workspace"], dtype=torch.float32,
                       device=xq.device) if plan["workspace"] else None)
-    fn = _build.function(name, f"{name}_launch", _ARGS)
+    head = [xq.data_ptr(), sa.data_ptr()]
+    if alpha is not None:
+        head.append(alpha.data_ptr())
+    fn = _build.function(name, f"{name}_launch",
+                         _FS_ARGS if alpha is None else _ARGS)
     with torch.cuda.device(xq.device):
-        err = fn(xq.data_ptr(), fac.data_ptr(), qvalue.data_ptr(),
-                 scale.data_ptr(), out.data_ptr(),
+        err = fn(*head, qvalue.data_ptr(), scale.data_ptr(), out.data_ptr(),
                  None if ws is None else ws.data_ptr(), M, N, K, gs, w_bits,
                  plan["bm"], plan["splits"], _build.stream_of(xq))
     _build.check(err, name)
@@ -152,13 +168,15 @@ def fg_gemm_integer_scale(
     int_scale: torch.Tensor,
     *,
     group_size: int = 128,
-    alpha: float = 1024.0,
+    alpha=1024.0,
     w_bits: int = 4,
     bm: int = 0,
 ) -> torch.Tensor:
-    """Eq. 2 GEMM; returns f32 (M, N). CPU tensors take the plain version;
-    CUDA tensors launch the kernel (``bm`` picks its row tile, 0 = by M;
-    the K split follows from the shape, :func:`launch_plan`)."""
+    """Eq. 2 GEMM; returns f32 (M, N). ``alpha`` is a python float or an
+    f32 tensor of one value (the layer's stored amplifier, read on the
+    device). CPU tensors take the plain version; CUDA tensors launch the
+    kernel (``bm`` picks its row tile, 0 = by M; the K split follows from
+    the shape, :func:`launch_plan`)."""
     if xq.device.type == "cpu":
         return fg_gemm_integer_scale_plain(
             xq, sa, qvalue, int_scale, group_size=group_size, alpha=alpha,
@@ -174,7 +192,8 @@ def fg_gemm_integer_scale(
             or tuple(qvalue.shape) != (rows, N)
             or tuple(int_scale.shape) != (K // gs, N) or sa.numel() != M):
         raise ValueError("w4a8_gemm_is: operands do not match the contract")
-    fac = (sa.reshape(M).float() / alpha).contiguous()
-    return launch_ring("w4a8_gemm_is", aligned(xq), fac, aligned(qvalue),
+    return launch_ring("w4a8_gemm_is", aligned(xq),
+                       sa.reshape(M).float().contiguous(),
+                       amplifiers(alpha, 1, xq.device), aligned(qvalue),
                        aligned(int_scale), gs, w_bits,
                        launch_plan_on(xq.device, M, N, K, bm))

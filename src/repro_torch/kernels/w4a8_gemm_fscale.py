@@ -23,7 +23,7 @@ from repro_torch.core.packing import unpack_int4
 from repro_torch.core.quant import group_partials
 
 from . import _build
-from .w4a8_gemm import _ARGS  # noqa: F401  (the entry point's, as IS's)
+from .w4a8_gemm import _FS_ARGS as _ARGS  # noqa: F401  (its entry point's)
 from .w4a8_gemm import aligned, check_group, launch_plan_on, launch_ring
 
 
@@ -73,6 +73,6 @@ def fg_gemm_float_scale(
             or tuple(scale.shape) != (K // gs, N) or sa.numel() != M):
         raise ValueError("w4a8_gemm_fs: operands do not match the contract")
     sa = sa.reshape(M).float().contiguous()
-    return launch_ring("w4a8_gemm_fs", aligned(xq), sa, aligned(qvalue),
+    return launch_ring("w4a8_gemm_fs", aligned(xq), sa, None, aligned(qvalue),
                        aligned(scale), gs, w_bits,
                        launch_plan_on(xq.device, M, N, K, bm))

@@ -18,6 +18,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.nn import spec as S
 from .common import Linear, linear
@@ -139,9 +140,11 @@ class GQAttention(nn.Module):
         cfg = self.cfg
         B, Sq, _ = x.shape
         hd, Hq, Hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-        q = self.q(x).reshape(B, Sq, Hq, hd)
-        k = self.k(x).reshape(B, Sq, Hkv, hd)
-        v = self.v(x).reshape(B, Sq, Hkv, hd)
+        # q, k and v read x: quantized once for all three where they can
+        xq = kops.quantize_for(x, [self.q.qspec, self.k.qspec, self.v.qspec])
+        q = self.q(x, xq).reshape(B, Sq, Hq, hd)
+        k = self.k(x, xq).reshape(B, Sq, Hkv, hd)
+        v = self.v(x, xq).reshape(B, Sq, Hkv, hd)
 
         steps = torch.arange(Sq, device=x.device)
         positions = pos[:, None] + steps[None, :] if _is_vec_pos(pos) \

@@ -18,26 +18,23 @@ def linear(recipe: QuantRecipe | None, path: str, K: int, N: int, *,
     return qlinear.linear_specs(K, N, qspec, bias=bias, dtype=dtype)
 
 
-def apply_linear(recipe: QuantRecipe | None, path: str, params: dict,
-                 x: torch.Tensor) -> torch.Tensor:
-    qspec = recipe.spec_for(path) if recipe is not None else None
-    return qlinear.linear_apply(params, x, qspec)
-
-
 class Linear(nn.Module):
     """A recipe-aware linear holding its param dict (``w``, or ``qvalue``/
     ``scale``/``alpha``; ``b``) as buffers: the port serves, it does not
-    train, so nothing here needs a gradient."""
+    train, so nothing here needs a gradient. ``qspec`` is the recipe's
+    spec for its path (None: bf16)."""
 
     def __init__(self, recipe: QuantRecipe | None, path: str, params: dict):
         super().__init__()
-        self.recipe, self.path = recipe, path
+        self.qspec = recipe.spec_for(path) if recipe is not None else None
         for name, t in params.items():
             self.register_buffer(name, t)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_linear(self.recipe, self.path,
-                            dict(self.named_buffers(recurse=False)), x)
+    def forward(self, x: torch.Tensor, xq=None) -> torch.Tensor:
+        """``xq``: x's codes and scales from ``kernels.ops.quantize_for``,
+        when several linears read x."""
+        return qlinear.linear_apply(dict(self.named_buffers(recurse=False)),
+                                    x, self.qspec, xq=xq)
 
 
 def rmsnorm_spec(d: int) -> dict:

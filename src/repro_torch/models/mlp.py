@@ -6,6 +6,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.kernels import ops as kops
+
 from .common import Linear, linear
 from .config import ModelConfig
 
@@ -27,7 +29,8 @@ class MLP(nn.Module):
         self.down = Linear(recipe, f"{base}/down", params["down"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        g = self.gate(x)
-        u = self.up(x)
+        xq = kops.quantize_for(x, [self.gate.qspec, self.up.qspec])
+        g = self.gate(x, xq)
+        u = self.up(x, xq)
         h = F.silu(g.float()).to(x.dtype) * u
         return self.down(h)

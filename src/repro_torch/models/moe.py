@@ -33,6 +33,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.core import qlinear
+from repro_torch.kernels import ops as kops
 from repro_torch.nn import spec as S
 from .config import ModelConfig
 
@@ -141,10 +142,13 @@ class ExpertLinear(nn.Module):
         for name, t in params.items():
             self.register_buffer(name, t)
 
-    def forward(self, x: torch.Tensor, row_counts=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, row_counts=None,
+                xq=None) -> torch.Tensor:
+        """``xq``: the routed rows' codes and scales from
+        ``kernels.ops.quantize_for``, when several stacks read x."""
         return qlinear.grouped_linear_apply(
             dict(self.named_buffers(recurse=False)), x, self.qspec,
-            row_counts=row_counts)
+            row_counts=row_counts, xq=xq)
 
 
 def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, recipe,
@@ -226,8 +230,11 @@ class MoE(nn.Module):
 
         # --- expert FFN: one grouped GEMM per linear -----------------------
         be = buf.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
-        g = self.gate(be, row_counts)
-        u = self.up(be, row_counts)
+        # gate and up read be: its routed rows quantized once for both
+        xq = kops.quantize_for(be, [self.gate.qspec, self.up.qspec],
+                               grouped=True, row_counts=row_counts)
+        g = self.gate(be, row_counts, xq)
+        u = self.up(be, row_counts, xq)
         h = F.silu(g.float()).to(be.dtype) * u
         y = self.down(h, row_counts)
         yb = y.reshape(E, G, C, d).transpose(0, 1).reshape(G * E * C, d)

@@ -89,31 +89,71 @@ def test_act_quant_kernel_bit_exact(cuda, M, K, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_act_quant_routed_kernel_bit_exact(cuda, C, K, dtype):
     """The routed rows of a dispatch buffer (act_quant's routed entry, one
-    launch counted as act_quant): codes equal to the unfused act_quant's,
-    the factor sa / alpha[e] (or sa) bit for bit, zero codes and factor
-    +0.0 past the counts (negative and above-C counts clamped) with data,
-    NaN and inf there; None routes every row."""
+    launch counted as act_quant): codes and scales equal to the unfused
+    act_quant's bit for bit, zero codes and scale +0.0 past the counts
+    (negative and above-C counts clamped) with data, NaN and inf there;
+    None routes every row."""
     E = 4
     x = _normal(C * K, (E, C, K), 3.0, cuda)
     x[0] = float("nan")  # count 0 (negative)
     x[2, 3:, ::7] = float("inf")
     x = x.to(dtype)
     counts = torch.tensor([-2, C, 3, 100], dtype=torch.int32, device=cuda)
-    alpha = torch.tensor([1024.0, 4096.0, 256.0, 512.0], device=cuda)
-    for a in (alpha, None):
-        before = _build.LAUNCHES["act_quant"]
-        q, fac = act_quant_routed(x, counts, a)
-        assert _build.LAUNCHES["act_quant"] == before + 1
-        q_p, fac_p = act_quant_routed_plain(x, counts, a)
-        assert torch.equal(q, q_p) and torch.equal(fac, fac_p)
-        assert not q[0].any() and not q[2, 3:].any()
-        assert not fac[0].any() and not torch.signbit(fac).any()
-        q_u, s_u = act_quant_plain(x[1])
-        assert torch.equal(q[1], q_u)
-        assert torch.equal(fac[1], s_u[:, 0] / a[1] if a is not None
-                           else s_u[:, 0])
-    q, fac = act_quant_routed(x[1:2].contiguous(), None, None)
+    before = _build.LAUNCHES["act_quant"]
+    q, sa = act_quant_routed(x, counts)
+    assert _build.LAUNCHES["act_quant"] == before + 1
+    q_p, sa_p = act_quant_routed_plain(x, counts)
+    assert torch.equal(q, q_p) and torch.equal(sa, sa_p)
+    assert sa.shape == (E, C, 1)
+    assert not q[0].any() and not q[2, 3:].any()
+    assert not sa[0].any() and not torch.signbit(sa).any()
+    q_u, s_u = act_quant_plain(x[1])
+    assert torch.equal(q[1], q_u) and torch.equal(sa[1], s_u)
+    q, sa = act_quant_routed(x[1:2].contiguous(), None)
     assert torch.equal(q[0], act_quant_plain(x[1])[0])
+
+
+def _equal_nan(a, b) -> bool:
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [4096, 11008, 14336, 16400, 32800, 24, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_act_quant_single_pass_bit_exact(cuda, K, dtype):
+    """Both entries of the single-pass kernel against the plain version,
+    bit for bit: rows held in registers (K up to 32768 bf16, 16384 f32),
+    rows that take the re-reading loop (f32 K = 16400, both at 32800),
+    short rows that share a block (K = 24, 100), the element-wise path
+    (K = 100 bf16 is no multiple of 8; an unaligned base), a row with a
+    NaN (NaN scale, zero codes), one with an inf (inf scale) and an
+    all-zero row (the 1e-8 floor)."""
+    M = 7
+    x = _normal(K, (M, K), 3.0, cuda)
+    x[1, K // 3] = float("nan")
+    x[3, K - 1] = float("-inf")
+    x[5] = 0.0
+    x = x.to(dtype)
+    before = _build.LAUNCHES["act_quant"]
+    q, s = act_quant(x)
+    q_p, s_p = act_quant_plain(x)
+    assert torch.equal(q, q_p) and _equal_nan(s, s_p)
+    assert torch.isnan(s[1]).all() and torch.isinf(s[3]).all()
+    # an unaligned base: the same rows one element into a buffer
+    buf = torch.empty(M * K + 1, dtype=dtype, device=cuda)
+    xu = buf[1:].view(M, K)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16
+    q_u, s_u = act_quant(xu)
+    assert torch.equal(q_u, q_p) and _equal_nan(s_u, s_p)
+    # the routed entry: 2 experts of capacity 4 over the same rows
+    xr = torch.cat([x, x[:1]]).reshape(2, 4, K)
+    counts = torch.tensor([4, 2], dtype=torch.int32, device=cuda)
+    q_r, s_r = act_quant_routed(xr, counts)
+    q_rp, s_rp = act_quant_routed_plain(xr, counts)
+    assert torch.equal(q_r, q_rp) and _equal_nan(s_r, s_rp)
+    assert _build.LAUNCHES["act_quant"] == before + 3
 
 
 @pytest.mark.cuda
@@ -541,16 +581,16 @@ def test_moe_model_on_the_card_matches_plain_and_captures(cuda, name):
 # -- the second designs: split K, the cp.async rings -----------------------
 
 
-def _w4a8_split(name, xq, fac, w, scale, g, w_bits, splits):
-    """The dense W4A8 kernel ``name`` at a forced K split (0: the
-    wrapper, with the split of its launch plan)."""
+def _w4a8_split(name, xq, sa, w, scale, g, w_bits, splits, alpha=None):
+    """The dense W4A8 kernel ``name`` at a forced K split (IS with the
+    amplifier ``alpha``, an f32 tensor of one value)."""
     from repro_torch.kernels.w4a8_gemm import launch_ring, pick_tile_m
 
     M, N = xq.shape[0], w.shape[1]
     plan = {"bm": pick_tile_m(M), "splits": splits,
             "workspace": splits * M * N if splits > 1 else 0}
-    return launch_ring(name, xq, fac.reshape(M).contiguous(), w, scale,
-                       g, w_bits, plan)
+    return launch_ring(name, xq, sa.reshape(M).contiguous(), alpha, w,
+                       scale, g, w_bits, plan)
 
 
 def _w4a8_operands(cuda, M, K, N, g, w_bits, seed=0):
@@ -579,8 +619,9 @@ def test_is_gemm_bit_exact_at_every_split(cuda, M, K, N, g, splits, w_bits):
     qw, xq, sa, w = _w4a8_operands(cuda, M, K, N, g, w_bits)
     isw = isc.integerize(qw, 1024 if w_bits == 4 else "heuristic+6")
     if splits:
-        y = _w4a8_split("w4a8_gemm_is", xq, sa / float(isw.alpha), w,
-                        isw.int_scale, g, w_bits, splits)
+        y = _w4a8_split("w4a8_gemm_is", xq, sa, w, isw.int_scale, g,
+                        w_bits, splits, alpha=torch.full(
+                            (1,), float(isw.alpha), device=cuda))
     else:
         y = fg_gemm_integer_scale(xq, sa, w, isw.int_scale, group_size=g,
                                   alpha=float(isw.alpha), w_bits=w_bits)
@@ -808,3 +849,99 @@ def test_grouped_w4a8_reads_counts_on_the_device(cuda, scheme, splits):
         assert torch.equal(y, run())
         for e, c in enumerate(counts):
             assert not y[e, c:].any() and (c == 0 or y[e, :c].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("w_bits", [4, 8])
+def test_w4a8_epilogue_divides_by_alpha(cuda, splits, w_bits):
+    """The W4A8 epilogues read ``sa`` and the amplifier on the device and
+    divide in place (one IEEE division a row, then one multiply): the IS
+    GEMMs with the stored alpha tensor (dense (), grouped (E,) with
+    per-expert values) equal their plain versions bit for bit at splits 1
+    and 4, as the FS GEMMs (no alpha) do for coarse and within rtol 1e-5
+    / atol 1e-4 for fine; a static amplifier (a float) gives the same
+    bits as its tensor."""
+    M, K, N, g = 5, 1024, 192, 128
+    qw, xq, sa, w = _w4a8_operands(cuda, M, K, N, g, w_bits, seed=11)
+    isw = isc.integerize(qw, "heuristic+6")
+    alpha = torch.tensor(float(isw.alpha), device=cuda)  # as qlinear stores
+    y_p = fg_gemm_integer_scale_plain(xq, sa, w, isw.int_scale,
+                                      group_size=g, alpha=alpha,
+                                      w_bits=w_bits)
+    assert torch.equal(_w4a8_split("w4a8_gemm_is", xq, sa, w, isw.int_scale,
+                                   g, w_bits, splits,
+                                   alpha=alpha.reshape(1)), y_p)
+    assert torch.equal(fg_gemm_integer_scale(
+        xq, sa, w, isw.int_scale, group_size=g, alpha=alpha, w_bits=w_bits),
+        fg_gemm_integer_scale(xq, sa, w, isw.int_scale, group_size=g,
+                              alpha=float(isw.alpha), w_bits=w_bits))
+    for gs, scale in ((g, qw.scale), (-1, None)):
+        if gs < 0:
+            qc = quant.quantize_weight(_normal(11, (K, N), 0.05, cuda),
+                                       w_bits, -1)
+            w_, scale = (packing.pack_int4(qc.qvalue) if w_bits == 4
+                         else qc.qvalue), qc.scale[None, :]
+        else:
+            w_ = w
+        y = _w4a8_split("w4a8_gemm_fs", xq, sa, w_, scale,
+                        gs if gs > 0 else K, w_bits, splits)
+        y_fp = fg_gemm_float_scale_plain(xq, sa, w_, scale, group_size=gs,
+                                         w_bits=w_bits)
+        if gs < 0:
+            assert torch.equal(y, y_fp)
+        else:
+            torch.testing.assert_close(y, y_fp, rtol=1e-5, atol=1e-4)
+    E, C = 3, 8
+    x, rc, qv, fscale, iscale, alphas = _grouped_operands(
+        cuda, E, C, K, N, g, [C, 0, 5], w_bits=w_bits)
+    gq, gsa = moe_gemm.quantize_routed(x, rc)
+    y = moe_gemm.fg_grouped_gemm_integer_scale(
+        gq, gsa, qv, iscale, group_size=g, alpha=alphas, w_bits=w_bits,
+        splits=splits, row_counts=rc)
+    assert torch.equal(y, moe_gemm.fg_grouped_gemm_integer_scale_ragged_plain(
+        x, rc, qv, iscale, group_size=g, alpha=alphas, w_bits=w_bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [0, 4])
+def test_grouped_gemms_share_one_routed_quantization(cuda, splits):
+    """Gate and up (two expert stacks with different per-expert alphas)
+    on ONE routed quantization of the dispatch buffer equal two ragged
+    calls that quantize their own, bit for bit, IS and FS; the shared
+    path launches act_quant once for both."""
+    E, C, K, N, g = 4, 8, 512, 128, 128
+    counts = [0, C, 3, 6]
+    x, rc, qa, fa, ia, alpha_a = _grouped_operands(cuda, E, C, K, N, g,
+                                                   counts)
+    qb, fb, ib, alpha_b = [], [], [], []
+    for e in range(E):
+        qw = quant.quantize_weight(_normal(400 + e, (K, N), 0.3, cuda), 4, g)
+        isw = isc.integerize(qw, "heuristic+6")
+        qb.append(packing.pack_int4(qw.qvalue))
+        fb.append(qw.scale)
+        ib.append(isw.int_scale)
+        alpha_b.append(float(isw.alpha))
+    qb, fb, ib = torch.stack(qb), torch.stack(fb), torch.stack(ib)
+    alpha_b = torch.tensor(alpha_b, device=cuda)
+    assert not torch.equal(alpha_a, alpha_b)
+    before = _build.LAUNCHES["act_quant"]
+    gq, gsa = moe_gemm.quantize_routed(x, rc)
+    kw = dict(group_size=g, splits=splits, row_counts=rc)
+    shared = [moe_gemm.fg_grouped_gemm_integer_scale(gq, gsa, qa, ia,
+                                                     alpha=alpha_a, **kw),
+              moe_gemm.fg_grouped_gemm_integer_scale(gq, gsa, qb, ib,
+                                                     alpha=alpha_b, **kw),
+              moe_gemm.fg_grouped_gemm_float_scale(gq, gsa, qa, fa, **kw),
+              moe_gemm.fg_grouped_gemm_float_scale(gq, gsa, qb, fb, **kw)]
+    assert _build.LAUNCHES["act_quant"] == before + 1
+    alone = [moe_gemm.fg_grouped_gemm_integer_scale_ragged(
+                 x, rc, qa, ia, group_size=g, alpha=alpha_a, splits=splits),
+             moe_gemm.fg_grouped_gemm_integer_scale_ragged(
+                 x, rc, qb, ib, group_size=g, alpha=alpha_b, splits=splits),
+             moe_gemm.fg_grouped_gemm_float_scale_ragged(
+                 x, rc, qa, fa, group_size=g, splits=splits),
+             moe_gemm.fg_grouped_gemm_float_scale_ragged(
+                 x, rc, qb, fb, group_size=g, splits=splits)]
+    for a, b in zip(shared, alone):
+        assert torch.equal(a, b)

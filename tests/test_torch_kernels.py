@@ -101,13 +101,13 @@ def test_act_quant_plain_vs_reference(M, K, bits, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_act_quant_routed_plain_vs_reference(counts, bits, dtype):
     """The grouped W4A8 kernels' quantization step (the routed rows of a
-    dispatch buffer, once per launch) against the reference: the codes
-    and scales of ``_quantize_rows`` (the body the reference's ragged
-    kernel fuses) and of ``act_quant_ref`` bit for bit, the factor
-    ``sa / alpha[e]`` as that kernel's epilogue folds it, and zero codes
-    and factors at or past the counts (clamped to [0, C]) whatever the
-    buffer holds there (data, inf, NaN). Without alpha (float scale) the
-    factor is ``sa``; without counts every row is routed."""
+    dispatch buffer) against the reference: the codes and scales of
+    ``_quantize_rows`` (the body the reference's ragged kernel fuses) and
+    of ``act_quant_ref`` bit for bit, and zero codes and scales at or past
+    the counts (clamped to [0, C]) whatever the buffer holds there (data,
+    inf, NaN). The reference's ``sa / alpha`` fold is the GEMMs' epilogue
+    now, so the step writes ``sa`` itself; without counts every row is
+    routed."""
     E, C, K = 3, 6, 256
     rng = np.random.default_rng(31)
     x = (rng.normal(size=(E, C, K)) * 3).astype(np.float32)
@@ -118,9 +118,9 @@ def test_act_quant_routed_plain_vs_reference(counts, bits, dtype):
         x[tuple(dead[-1])][7] = np.nan
     xj = jnp.asarray(x).astype(dtype)
     tx = _t(xj.astype(jnp.float32)).to(getattr(torch, dtype))
-    alphas = np.asarray([1024.0, 256.0, 4096.0], np.float32)
-    q, fac = act_quant_routed_plain(tx, torch.tensor(counts, dtype=torch.int32),
-                                    torch.from_numpy(alphas), bits)
+    q, sa = act_quant_routed_plain(tx, torch.tensor(counts, dtype=torch.int32),
+                                   bits)
+    assert sa.shape == (E, C, 1)
     q_r, s_r = jact._quantize_rows(xj.reshape(E * C, K),
                                    qm=float(2 ** (bits - 1) - 1))
     q_o, s_o = JR.act_quant_ref(xj.reshape(E * C, K), bits=bits)
@@ -128,13 +128,12 @@ def test_act_quant_routed_plain_vs_reference(counts, bits, dtype):
     s_r, s_o = (np.asarray(a).reshape(E, C) for a in (s_r, s_o))
     np.testing.assert_array_equal(q_r[live], q_o[live])
     np.testing.assert_array_equal(s_r[live], s_o[live])
-    fold = np.asarray(jnp.asarray(s_r) / jnp.asarray(alphas)[:, None])
     np.testing.assert_array_equal(q.numpy(), np.where(live[..., None], q_r, 0))
-    np.testing.assert_array_equal(fac.numpy(), np.where(live, fold, 0.0))
-    assert not np.signbit(fac.numpy()).any()
-    q2, f2 = act_quant_routed_plain(tx, None, None, bits)
+    np.testing.assert_array_equal(sa[..., 0].numpy(), np.where(live, s_r, 0.0))
+    assert not np.signbit(sa.numpy()).any()
+    q2, s2 = act_quant_routed_plain(tx, None, bits)
     np.testing.assert_array_equal(q2.numpy()[live], q_o[live])
-    np.testing.assert_array_equal(f2.numpy()[live], s_o[live])
+    np.testing.assert_array_equal(s2[..., 0].numpy()[live], s_o[live])
 
 
 @pytest.mark.parametrize("M,K,N,g", SHAPES)
@@ -754,12 +753,13 @@ def _expert_operands(seed, E, K, N, g):
 def test_grouped_w4a8_ring_emulation_matches_ragged_plain(g, splits, C):
     """The grouped launch of csrc/w4a8_ring.cuh in plain arithmetic: the
     routed rows quantized once (``act_quant_routed_plain``: codes and
-    ``sa / alpha[e]``), then per expert the loop's accumulation
+    ``sa``), then per expert the loop's accumulation
     (``_ring_emulate``, two warps along k at the decode tile C = 8, one at
     the prefill tile) over its routed rows only, the splits added in order
-    (also where a split cuts a group), the epilogue, and +0.0 at every row
-    at or past its count, whatever the buffer holds there. Integer Scale
-    and coarse float scale bit-exact against
+    (also where a split cuts a group), the epilogue (its factor ``sa /
+    alpha[e]`` for Integer Scale, ``sa`` for float scale), and +0.0 at
+    every row at or past its count, whatever the buffer holds there.
+    Integer Scale and coarse float scale bit-exact against
     ``fg_grouped_gemm_*_ragged_plain``, fine float scale within rtol 1e-5
     / atol 1e-4."""
     from repro_torch.kernels.w4a8_gemm import pick_tile_m
@@ -777,7 +777,8 @@ def test_grouped_w4a8_ring_emulation_matches_ragged_plain(g, splits, C):
     cscale = fscale[:, :1]
 
     def emulate(mode, scale, gs, alpha):
-        xq, fac = act_quant_routed_plain(x, counts, alpha)
+        xq, sa = act_quant_routed_plain(x, counts)
+        fac = sa[..., 0] if alpha is None else sa[..., 0] / alpha[:, None]
         y = torch.zeros((E, C, N))
         for e, r in enumerate(rc):
             if r == 0:
@@ -813,3 +814,66 @@ def test_grouped_w4a8_ring_emulation_matches_ragged_plain(g, splits, C):
         for e, r in enumerate(rc):
             assert not y[e, r:].any() and not torch.signbit(y[e, r:]).any()
         assert y[1].any() and torch.isfinite(y).all()
+
+
+SHARED_SPECS = {  # case -> (the specs of the linears reading x, a_bits or
+    # None where each linear quantizes its own)
+    "q/k/v IS": ([QuantSpec()] * 3, 8),
+    "IS and FS": ([QuantSpec(), QuantSpec(scale_mode="float")], 8),
+    "IS and coarse": ([QuantSpec(), QuantSpec(group_size=-1)], 8),
+    "W4A4": ([QuantSpec(a_bits=4)] * 2, 4),
+    "one in bf16": ([QuantSpec(), None], None),
+    "one weight-only": ([QuantSpec(), QuantSpec(a_bits=16)], None),
+    "other a_bits": ([QuantSpec(), QuantSpec(a_bits=4)], None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SHARED_SPECS))
+@pytest.mark.parametrize("grouped", [False, True])
+def test_quantize_for_shares_only_alike_specs(case, grouped):
+    """``ops.quantize_for`` quantizes once where every linear quantizes
+    its activation alike (the same ``a_bits``; IS, FS and coarse alike),
+    with exactly the codes and scales of ``act_quant`` (dense, over the
+    rows of a (B, S, K) activation) or of its routed entry (grouped, zero
+    past the counts); None where one linear is bf16, weight-only or reads
+    other bits."""
+    specs, bits = SHARED_SPECS[case]
+    rng = np.random.default_rng(51)
+    x = torch.from_numpy(rng.normal(size=(3, 5, 256)).astype(np.float32))
+    counts = torch.tensor([0, 5, 2], dtype=torch.int32)
+    got = (ops.quantize_for(x, specs, grouped=True, row_counts=counts)
+           if grouped else ops.quantize_for(x, specs))
+    if bits is None:
+        assert got is None
+        return
+    want = (act_quant_routed_plain(x, counts, bits) if grouped
+            else act_quant_plain(x.reshape(15, 256), bits))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("scheme", ["is", "fs", "coarse", "w8a8-is"])
+def test_qgemm_takes_shared_codes_bit_for_bit(scheme):
+    """``qgemm`` and ``qgemm_grouped`` on the codes ``quantize_for`` made
+    equal the same calls quantizing their own, bit for bit (the stored
+    alphas divided in the epilogue either way); codes of another shape
+    than x raise."""
+    spec = {"is": QuantSpec(), "fs": QuantSpec(scale_mode="float"),
+            "coarse": QuantSpec(group_size=-1),
+            "w8a8-is": QuantSpec(w_bits=8, amplifier="heuristic+6")}[scheme]
+    rng = np.random.default_rng(52)
+    w = torch.from_numpy((rng.normal(size=(3, 256, 64)) * 0.05)
+                         .astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(3, 8, 256)).astype(np.float32))
+    counts = torch.tensor([8, 0, 5], dtype=torch.int32)
+    dense = tqlinear.quantize_linear(w[0], spec)
+    xq = ops.quantize_for(x[0], [spec, spec])
+    assert torch.equal(ops.qgemm(x[0], dense, spec, xq=xq),
+                       ops.qgemm(x[0], dense, spec))
+    stack = tqlinear.quantize_experts(w, spec)
+    gq = ops.quantize_for(x, [spec], grouped=True, row_counts=counts)
+    assert torch.equal(
+        ops.qgemm_grouped(x, stack, spec, row_counts=counts, xq=gq),
+        ops.qgemm_grouped(x, stack, spec, row_counts=counts))
+    with pytest.raises(ValueError, match="do not match"):
+        ops.qgemm(x[0, :4], dense, spec, xq=xq)

@@ -271,3 +271,101 @@ def test_entry_points_need_a_gpu_unless_asked(monkeypatch, tiny):
         S.materialize(api.param_specs(cfg))
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.from_reference({"blocks": {"s0": {}}})
+
+
+def _counting(monkeypatch, module, name):
+    """Wrap ``module.name`` with a call counter; returns the count list."""
+    real, calls = getattr(module, name), []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+def _shared_and_alone(monkeypatch, api, cfg, tq, recipe, toks):
+    """(logits, act_quant calls) of one forward, with each shared
+    activation quantized once and with sharing turned off."""
+    from repro_torch.kernels import ops
+
+    out = []
+    for share in (True, False):
+        with monkeypatch.context() as mp:
+            if not share:
+                mp.setattr(ops, "quantize_for", lambda *a, **k: None)
+            calls = _counting(mp, ops, "act_quant")
+            got, _, _ = api.build(cfg, tq, recipe)(torch.from_numpy(toks))
+        out.append((got, len(calls)))
+    return out
+
+
+@pytest.mark.parametrize("name", ["w4a8-is", *sorted(set(BASELINES)
+                                                      - {"w4a16"})])
+def test_shared_activation_quantized_once(monkeypatch, tiny, quantized,
+                                          baselines, name):
+    """Every activation is quantized once however many W4A8 linears read
+    it: 4 act_quant a layer (q/k/v, o, gate/up, down) where each linear
+    alone ran 7, under IS, FS and coarse. The logits equal those with
+    sharing turned off bit for bit (act_quant is a pure function of
+    (x, a_bits)), and stay within the reference bound."""
+    japi, jcfg, jparams, api, cfg = tiny
+    if name == "w4a8-is":
+        jq, tq, recipe = quantized
+        jrecipe = JRecipe(rules=(("*", JSpec(group_size=64)),), name=name)
+    else:
+        jq, jrecipe, tq, recipe = baselines[name]
+    toks = _tokens(7, 2, 12)
+    (shared, n_shared), (alone, n_alone) = _shared_and_alone(
+        monkeypatch, api, cfg, tq, recipe, toks)
+    assert (n_shared, n_alone) == (4 * cfg.num_layers, 7 * cfg.num_layers)
+    assert torch.equal(shared, alone)
+    want = np.asarray(japi.apply(jq, jcfg, jnp.asarray(toks),
+                                 recipe=jrecipe, mode="train")[0])
+    err = np.abs(shared.numpy() - want).max() / np.abs(want).max()
+    assert err <= Q_REL_TOL, err
+
+
+MIXED = {  # name -> (rules of both recipes, act_quant calls a layer)
+    # v left in bf16: q and k quantize their own
+    "v-bf16": ((("*/attn/v", None), ("*", dict(group_size=64))), 5),
+    # v in float scale among integer-scale linears: one quantization
+    "v-fs": ((("*/attn/v", dict(scale_mode="float", group_size=64)),
+              ("*", dict(group_size=64))), 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MIXED))
+def test_mixed_recipe_shares_only_alike_linears(monkeypatch, tiny, name):
+    """A recipe that gives q/k/v different specs: a linear left in bf16
+    takes its own path and the others quantize their own, while IS and FS
+    linears, which read the same codes, still share one quantization. The
+    logits match the reference's within its bound and equal the unshared
+    ones bit for bit."""
+    japi, jcfg, jparams, api, cfg = tiny
+    rules, per_layer = MIXED[name]
+
+    def recipe(cls, spec_cls):
+        return cls(rules=tuple((p, kw if kw is None else spec_cls(**kw))
+                               for p, kw in rules), name=name)
+
+    jrecipe, trecipe = recipe(JRecipe, JSpec), recipe(QuantRecipe, QuantSpec)
+    with pytest.MonkeyPatch.context() as mp:
+        if not hasattr(jax.core, "Literal"):
+            mp.setattr(jax.core, "Literal", jax.extend.core.Literal,
+                       raising=False)
+        jq = jptq.post_training_quantize(japi, jcfg, jparams, jrecipe, None)
+    tq = ptq.post_training_quantize(
+        api, cfg, convert.from_reference(_np_tree(jparams), device="cpu"),
+        trecipe)
+    toks = _tokens(8, 2, 12)
+    (shared, n_shared), (alone, n_alone) = _shared_and_alone(
+        monkeypatch, api, cfg, tq, trecipe, toks)
+    assert n_shared == per_layer * cfg.num_layers
+    assert n_alone == (6 if name == "v-bf16" else 7) * cfg.num_layers
+    assert torch.equal(shared, alone)
+    want = np.asarray(japi.apply(jq, jcfg, jnp.asarray(toks),
+                                 recipe=jrecipe, mode="train")[0])
+    err = np.abs(shared.numpy() - want).max() / np.abs(want).max()
+    assert err <= Q_REL_TOL, err

@@ -664,3 +664,41 @@ def test_moe_config_family_builds_and_dense_still_does():
     m = get_model(get_arch("mixtral-8x7b", smoke=True))
     assert "router" in m.param_specs(get_arch("mixtral-8x7b",
                                               smoke=True))["blocks"][0]["mlp"]
+
+
+@pytest.mark.parametrize("name", ["w4a8-fs", "w4a8-is"])
+def test_moe_forward_quantizes_each_activation_once(monkeypatch, mix, mix_q,
+                                                    name):
+    """A MoE layer quantizes 2 dense activations (q/k/v, o) and 2 routed
+    ones (gate/up over one dispatch buffer, down), where each linear alone
+    ran 4 + 3; the logits equal the unshared ones bit for bit (gate and
+    up, with their own per-expert alphas, divide in the epilogue) and
+    match the reference's within its bound."""
+    from repro_torch.kernels import act_quant as aq
+
+    japi, jcfg, jparams, api, cfg, tparams = mix
+    jq, jr, tq, tr = mix_q[name]
+    toks = np.random.default_rng(34).integers(0, cfg.vocab_size, (2, 12))
+    runs = []
+    for share in (True, False):
+        with monkeypatch.context() as mp:
+            if not share:
+                mp.setattr(ops, "quantize_for", lambda *a, **k: None)
+            calls = {"dense": [], "routed": []}
+            for kind, mod, fn in (("dense", ops, "act_quant"),
+                                  ("routed", aq, "act_quant_routed_plain")):
+                def counted(*a, _real=getattr(mod, fn), _n=calls[kind], **k):
+                    _n.append(1)
+                    return _real(*a, **k)
+                mp.setattr(mod, fn, counted)
+            got, _, _ = api.build(cfg, tq, tr)(torch.from_numpy(toks))
+        runs.append((got, {k: len(v) for k, v in calls.items()}))
+    (shared, n_shared), (alone, n_alone) = runs
+    L = cfg.num_layers
+    assert n_shared == {"dense": 2 * L, "routed": 2 * L}
+    assert n_alone == {"dense": 4 * L, "routed": 3 * L}
+    assert torch.equal(shared, alone)
+    jc = dataclasses.replace(jcfg, kernel_mode=JMODES[name])
+    want = np.asarray(japi.apply(jq, jc, jnp.asarray(toks), recipe=jr)[0])
+    err = np.abs(shared.numpy() - want).max() / np.abs(want).max()
+    assert err <= Q_REL_TOL, err
