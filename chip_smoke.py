@@ -61,24 +61,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    Marlin analog). Then free the fp weights.
 5. Serve 8 seeded prompts (lengths 16..128) with each recipe through
    ``Engine.submit`` / ``Engine.run`` with 4 slots, prefill_len 128,
-   max_seq 256 and 32 new tokens. For each: every outcome ``ok``; the
+   max_seq 256 and 32 new tokens. The engine captures its prefill and
+   decode steps once each as CUDA graphs and replays them
+   (``serving/graphs.py``): ``prefill_traces`` and ``decode_traces`` must
+   both be 1 (``[steps]``). For each recipe: every outcome ``ok``; the
    kernels the recipe runs launched (> 0) and the others did not (== 0),
-   counted from 0 just before the run; the engine's first token for
-   prompt 0 is the argmax of that model's logits. For IS the first
+   counted from 0 just before the run, and each kernel's count is
+   exactly its captured launches in the decode graph times (ticks + 1
+   warm-up call) plus the prefill graph's times (admits + 1); the
+   engine's first token for prompt 0 is the argmax of that model's
+   logits; peak device memory while serving, graphs' pool included. For
+   IS the engine's streams equal a plain eager greedy loop over the same
+   model on the engine's schedule (``eager_greedy``), and the first
    layers, copied to the CPU where every wrapper takes its plain version,
-   must also agree with the same layers on the card within a stated
-   bound. One 4-slot decode step and one 128-token prefill are timed
-   eagerly and as replayed CUDA graphs (the difference is the host's
-   share). The greedy token streams' sha256 is logged (``[tokens]``), so
-   two trees run on one card can be compared on the same seed. One more
-   decode step counts each kernel's launches in a tick
-   (``[launches]``): act_quant exactly 4 a layer under IS, FS and coarse
-   (q/k/v share one quantization, gate/up another; 7 in a tree whose
-   linears each quantize their own), none under W4A16.
+   must agree with the same layers on the card within a stated bound.
+   One 4-slot decode step and one 128-token prefill of seeded tokens
+   are timed eagerly and as replayed CUDA graphs (the difference is the
+   host's share of an eager step); the served tick's idle share is 1 - the device timer's
+   mean over the tick's. The greedy token streams' sha256 is logged
+   (``[tokens]``), so two trees run on one card can be compared on the
+   same seed. One more eager decode step counts each kernel's launches
+   in a tick (``[launches]``): act_quant exactly 4 a layer under IS, FS
+   and coarse (q/k/v share one quantization, gate/up another; 7 in a
+   tree whose linears each quantize their own), none under W4A16.
 6. Breaker drill: serve the IS weights with the FS weights as the
    circuit breaker's fallback (threshold 2) while a ``ChaosMonkey``
-   fails the decode at tick 3 twice; the engine must fall back once and
-   serve every request ``ok`` through ``w4a8_gemm_fs``.
+   fails the decode at tick 3 twice; the engine must fall back once,
+   capture both steps once more (``decode_traces == prefill_traces ==
+   2``), serve every request ``ok`` through ``w4a8_gemm_fs``, and launch
+   exactly the IS graphs' counts up to the fallback and the FS graphs'
+   after it.
 7. Profile one IS and one W4A16 decode step under ``obs.trace_window``
    and print each step's device time, its number of device kernel
    launches, the share of it in the quantized GEMMs and their split
@@ -90,11 +102,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    14336), built block by block (``ptq.quantize_by_layer``: one block's
    fp weights on the card at a time) under IS, FS and W4A16, one recipe at
    a time, each served as in phase 5 (same prompts and ``ServeConfig``):
-   every outcome ``ok``, exactly the recipe's kernels launched (the
-   grouped kernel of its scheme on every expert linear), the first token
-   of prompt 0 the argmax of the logits, ``engine_moe_m_tiles_total``
-   executed <= total and > 0, and for IS the first two layers on the card
-   against the same layers on the CPU. The decode step is timed eagerly
+   every outcome ``ok``, one capture of each step, exactly the recipe's
+   kernels launched (the grouped kernel of its scheme on every expert
+   linear) and exactly the graphs' counts, the first token of prompt 0
+   the argmax of the logits, ``engine_moe_m_tiles_total`` executed <=
+   total and > 0 (the routing records the decode graph's capture made,
+   handed on after every replay), and for IS the streams equal the eager
+   greedy loop and the first two layers on the card agree with the same
+   layers on the CPU. The decode step is timed eagerly
    and as a captured CUDA graph with no routing sink attached; the
    capture is itself the check that the MoE layer makes no host sync.
    The tick's launches are counted as in phase 5: act_quant exactly 2
@@ -782,19 +797,30 @@ def build_models(api, cfg, recipes):
     return out
 
 
+def _seeded_tokens(cfg, shape):
+    """Token ids drawn from a fixed seed: distinct tokens route to several
+    experts, as served ones do (one id everywhere routes to two)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                         device="cuda")
+
+
 def _decode_inputs(api, cfg, sc):
     import torch
     from repro_torch.nn import spec as S
 
     B = sc.max_slots
     cache = S.materialize(api.cache_specs(cfg, B, sc.max_seq), device="cuda")
-    toks = torch.zeros((B, 1), dtype=torch.int64, device="cuda")
+    toks = _seeded_tokens(cfg, (B, 1))
     pos = torch.full((B,), 100, dtype=torch.int64, device="cuda")
     return cache, toks, pos
 
 
 def time_decode_step(api, cfg, model, sc, reps=5):
-    """ms of one batched decode step at position 100 in every slot: eager
+    """ms of one batched decode step of seeded tokens at position 100 in
+    every slot: eager
     calls between CUDA events, and the same call captured as a CUDA graph
     and replayed. The graph's time is the device's; the difference is the
     host time the eager step adds."""
@@ -806,14 +832,13 @@ def time_decode_step(api, cfg, model, sc, reps=5):
 
 
 def time_prefill(api, cfg, model, sc, reps=3):
-    """ms of one batch-1 prefill of ``sc.prefill_len`` tokens as the engine
-    runs it (full-sequence logits, writing the cache), eager and as a
-    replayed CUDA graph, as :func:`time_decode_step`."""
-    import torch
+    """ms of one batch-1 prefill of ``sc.prefill_len`` seeded tokens as the
+    engine runs it (full-sequence logits, writing the cache), eager and as
+    a replayed CUDA graph, as :func:`time_decode_step`."""
     from repro_torch.nn import spec as S
 
     cache = S.materialize(api.cache_specs(cfg, 1, sc.max_seq), device="cuda")
-    toks = torch.ones((1, sc.prefill_len), dtype=torch.int64, device="cuda")
+    toks = _seeded_tokens(cfg, (1, sc.prefill_len))
     out = time_eager_and_graph(
         lambda: model(toks, mode="train", cache=cache, pos=0)[0], reps)
     del cache
@@ -955,8 +980,9 @@ def profile_decode_step(api, cfg, model, sc, top=8):
 def serve_recipe(api, cfg, qparams, recipe, sc, prompts, *, drill=False,
                  fallback=None):
     """Serve ``prompts``; return (engine, outputs, launches, registry,
-    wall seconds). ``drill`` arms the breaker drill (fallback weights,
-    threshold 2, two injected decode failures at tick 3)."""
+    wall seconds, peak bytes allocated from the engine's construction to
+    the end of the run). ``drill`` arms the breaker drill (fallback
+    weights, threshold 2, two injected decode failures at tick 3)."""
     import torch
     from repro_torch import obs
     from repro_torch.kernels import _build
@@ -964,6 +990,8 @@ def serve_recipe(api, cfg, qparams, recipe, sc, prompts, *, drill=False,
     from repro_torch.serving.engine import Engine
 
     reg = obs.Registry()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
     with obs.use_registry(reg):
         if drill:
             fb_params, fb_recipe = fallback
@@ -983,6 +1011,7 @@ def serve_recipe(api, cfg, qparams, recipe, sc, prompts, *, drill=False,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
     bad = {r: eng.outcome(r) for r in rids if eng.outcome(r) != "ok"}
     if bad:
         raise AssertionError(f"{recipe.name}: requests not ok: {bad}")
@@ -991,16 +1020,19 @@ def serve_recipe(api, cfg, qparams, recipe, sc, prompts, *, drill=False,
                              "max_new_tokens")
     if not all(0 <= t < cfg.vocab_size for r in rids for t in outs[r]):
         raise AssertionError(f"{recipe.name}: token id out of range")
-    return eng, [outs[r] for r in rids], launches, reg, wall
+    return eng, [outs[r] for r in rids], launches, reg, wall, peak
 
 
-def report_serve(tag, name, api, cfg, eng, outs, launches, reg, wall, sc):
+def report_serve(tag, name, api, cfg, eng, outs, launches, reg, wall, sc,
+                 peak):
     """Time one decode step (eager, and as a replayed CUDA graph), log the
-    serving numbers of one recipe and return them."""
+    serving numbers of one recipe and return them. The tick and prefill
+    means leave out each phase's first call (it holds the capture, as
+    the device timer leaves it out); idle share = 1 - device timer / tick
+    over the same calls."""
     step_eager, step_graph = time_decode_step(api, cfg, eng.model, sc)
     pre_eager, pre_graph = time_prefill(api, cfg, eng.model, sc)
     ntok = sum(len(o) for o in outs)
-    phase = reg.histogram("engine_phase_seconds", "", ("phase",))
     dev = reg.histogram("engine_phase_device_seconds", "", ("phase",))
     ttft = reg.histogram("engine_ttft_seconds").get()
 
@@ -1008,25 +1040,38 @@ def report_serve(tag, name, api, cfg, eng, outs, launches, reg, wall, sc):
         st = h.get(**lb)
         return st["sum"] / st["count"]
 
+    def steady(ev, key):
+        secs = [e["seconds"] for e in reg.events()
+                if e["ev"] == ev and key in e]
+        return secs[0], sum(secs[1:]) / len(secs[1:])
+
+    first_tick_s, tick_s = steady("tick", "tick")
+    first_prefill_s, prefill_s = steady("admit", "rid")
     st = dict(
         depth=cfg.num_layers, requests=len(outs), tokens=ntok,
         wall_s=wall, tokens_per_s=ntok / wall, ticks=eng.ticks,
-        decode_tick_s=mean(phase, phase="decode"),
-        prefill_s=mean(phase, phase="prefill"),
+        decode_tick_s=tick_s, first_tick_s=first_tick_s,
+        prefill_s=prefill_s, first_prefill_s=first_prefill_s,
         ttft_mean_s=ttft["sum"] / ttft["count"],
         decode_device_s=mean(dev, phase="decode"),
         prefill_device_s=mean(dev, phase="prefill"),
+        idle_share=1 - mean(dev, phase="decode") / tick_s,
+        serve_peak_bytes=peak,
         step_eager_ms=step_eager, step_graph_ms=step_graph,
         prefill_eager_ms=pre_eager, prefill_graph_ms=pre_graph,
         launches=launches,
         tokens_sha256=hashlib.sha256(json.dumps(outs).encode()).hexdigest())
     log(f"[{tag}] {name}: {cfg.num_layers} layers, {len(outs)} requests "
         f"ok, {ntok} tokens in {wall:.3f} s = {st['tokens_per_s']:.1f} "
-        f"tokens/s; {eng.ticks} ticks, {st['decode_tick_s'] * 1e3:.2f} ms "
-        f"per tick (device timer {st['decode_device_s'] * 1e3:.2f} ms); "
-        f"prefill {st['prefill_s'] * 1e3:.2f} ms (device timer "
-        f"{st['prefill_device_s'] * 1e3:.2f} ms); mean TTFT "
-        f"{st['ttft_mean_s'] * 1e3:.1f} ms")
+        f"tokens/s; {eng.ticks} ticks, {tick_s * 1e3:.2f} ms per tick after "
+        f"the first (device timer {st['decode_device_s'] * 1e3:.2f} ms, "
+        f"idle share {st['idle_share']:.3f}; first tick "
+        f"{first_tick_s * 1e3:.1f} ms); prefill {prefill_s * 1e3:.2f} ms "
+        f"after the first (device timer "
+        f"{st['prefill_device_s'] * 1e3:.2f} ms; first "
+        f"{first_prefill_s * 1e3:.1f} ms); mean TTFT "
+        f"{st['ttft_mean_s'] * 1e3:.1f} ms; peak allocated while serving "
+        f"{peak / 1e9:.2f} GB")
     log(f"[{tag}] {name}: one 4-slot decode step eager "
         f"{step_eager:.3f} ms, CUDA graph replay {step_graph:.3f} ms "
         f"(device idle share of the eager step "
@@ -1085,6 +1130,116 @@ def check_launches(tag, launches, must):
         raise AssertionError(f"{tag}: kernels that should have launched and "
                              f"did not: {missing}; launched and should not "
                              f"have: {extra}")
+
+
+def captures_steps(eng) -> bool:
+    """Whether this tree's engine captures its steps (an earlier commit's
+    runs them eagerly)."""
+    return hasattr(eng, "decode_traces")
+
+
+def step_launches(eng):
+    """(decode, prefill): each kernel's launches in one replay of the
+    engine's current decode and prefill graphs."""
+    return eng._decode_step.launches, eng._prefill_step.launches
+
+
+def check_steps(tag, eng, reg, launches, gens=None):
+    """Each step captured once per established parameter set (1 +
+    fallbacks), and every kernel launched exactly what the graphs
+    replayed plus one warm-up call per graph: ``gens`` holds each
+    parameter set's (decode, prefill) launches a replay (the engine's own
+    by default), and the run's events give each set's ticks and admits
+    (a fallback event starts the next set). Logs and returns the
+    counts."""
+    want_traces = 1 + eng.fallbacks
+    if (eng.decode_traces, eng.prefill_traces) != (want_traces,) * 2:
+        raise AssertionError(
+            f"{tag}: decode_traces {eng.decode_traces}, prefill_traces "
+            f"{eng.prefill_traces}, expected {want_traces} each")
+    gens = gens or [step_launches(eng)]
+    ticks, admits = [0], [0]
+    for e in reg.events():
+        if e["ev"] == "fallback":
+            ticks.append(0)
+            admits.append(0)
+        elif e["ev"] == "tick" and "tick" in e:     # a tick that replayed
+            ticks[-1] += 1
+        elif e["ev"] == "admit" and "rid" in e:     # a prefill that did
+            admits[-1] += 1
+    want = dict.fromkeys(launches, 0)
+    for (d, p), t, a in zip(gens, ticks, admits, strict=True):
+        for k in want:
+            want[k] += d.get(k, 0) * (t + (t > 0)) + p.get(k, 0) * (a + (a > 0))
+    log(f"[steps] {tag}: prefill_traces {eng.prefill_traces}, decode_traces "
+        f"{eng.decode_traces}, fallbacks {eng.fallbacks}; replays: ticks "
+        f"{ticks}, admits {admits}; launches = graphs' counts x (replays + "
+        f"1 warm-up): {'exact' if launches == want else 'MISMATCH'}; decode "
+        f"graph {json.dumps(gens[-1][0])}, prefill graph "
+        f"{json.dumps(gens[-1][1])}")
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, the graphs' "
+                             f"replays give {want}")
+    return dict(decode_traces=eng.decode_traces,
+                prefill_traces=eng.prefill_traces, ticks=ticks,
+                admits=admits, decode_graph=gens[-1][0],
+                prefill_graph=gens[-1][1])
+
+
+def eager_greedy(api, cfg, model, prompts, sc):
+    """Greedy streams of ``prompts`` from a plain eager loop over ``model``
+    on the engine's schedule: free slots filled in order, each by a batch-1
+    prefill into a fresh cache copied into the slot's rows; one batched
+    decode a tick, idle slots fed token 0 at position 0; a request retires
+    at ``max_new_tokens`` or ``max_seq`` (no eos). No graph, no engine."""
+    import torch
+    from repro_torch.nn import spec as S
+
+    B, P = sc.max_slots, sc.prefill_len
+    cache = S.materialize(api.cache_specs(cfg, B, sc.max_seq), device="cuda")
+    queue, slots, outs = list(enumerate(prompts)), [None] * B, {}
+    with torch.inference_mode():
+        while queue or any(slots):
+            for i in range(B):
+                if slots[i] is None and queue:
+                    rid, p = queue.pop(0)
+                    one = S.materialize(api.cache_specs(cfg, 1, sc.max_seq),
+                                        device="cuda")
+                    toks = torch.tensor([p + [0] * (P - len(p))],
+                                        device="cuda")
+                    logits = model(toks, mode="train", cache=one, pos=0)[0]
+                    for big, c in zip(cache["blocks"], one["blocks"]):
+                        for k, t in big.items():
+                            t[i] = c[k][0]
+                    slots[i] = (rid, len(p),
+                                [int(logits[0, len(p) - 1].argmax())])
+            last = torch.tensor([[s[2][-1] if s else 0] for s in slots],
+                                device="cuda")
+            pos = torch.tensor([s[1] if s else 0 for s in slots],
+                               device="cuda")
+            nxt = model(last, mode="decode", cache=cache, pos=pos)[0][:, 0]
+            for i, tok in enumerate(nxt.argmax(-1).tolist()):
+                if slots[i] is None:
+                    continue
+                rid, n, gen = slots[i]
+                gen.append(tok)
+                if len(gen) >= sc.max_new_tokens or n + 2 >= sc.max_seq:
+                    outs[rid], slots[i] = gen, None
+                else:
+                    slots[i] = (rid, n + 1, gen)
+    del cache
+    return [outs[r] for r in range(len(prompts))]
+
+
+def check_eager_streams(tag, api, cfg, eng, prompts, sc, outs):
+    """The engine's greedy streams equal :func:`eager_greedy`'s."""
+    t0 = time.perf_counter()
+    if eager_greedy(api, cfg, eng.model, prompts, sc) != outs:
+        raise AssertionError(f"{tag}: the engine's streams differ from an "
+                             "eager greedy loop over the same model")
+    log(f"[check] {tag}: the engine's {len(outs)} greedy streams equal an "
+        f"eager greedy loop over the same model "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def main() -> int:
@@ -1177,29 +1332,38 @@ def main() -> int:
     launches_total = {k: 0 for k in _build.KERNELS}
     serve_stats: dict[str, dict] = {}
     models = {}  # the IS and W4A16 served models, profiled in phase 7
+    graphs = {}  # recipe -> its steps' launches a replay (phase 6's check)
     rel = cpu_s = None
     for name, recipe in recipes.items():
-        eng, outs, launches, reg, wall = serve_recipe(
+        eng, outs, launches, reg, wall, peak = serve_recipe(
             api, cfg, qparams[name], recipe, sc, prompts)
         check_launches(name, launches, KERNELS_OF[name])
+        steps = None
+        if captures_steps(eng):
+            steps = check_steps(f"serve {name}", eng, reg, launches)
+            graphs[name] = step_launches(eng)
         for k, n in launches.items():
             launches_total[k] += n
         first_token_is_argmax(name, eng, toks, n0, outs[0][0])
         if name == DEFAULT_RECIPE.name:
+            check_eager_streams(f"serve {name}", api, cfg, eng, prompts, sc,
+                                outs)
             # the kernels against the plain versions on the same weights
             rel, cpu_s = plain_check(api, cfg, qparams[name], recipe, toks,
                                      n0, PLAIN_CHECK_LAYERS)
         serve_stats[name] = report_serve(
-            "serve", name, api, cfg, eng, outs, launches, reg, wall, sc)
+            "serve", name, api, cfg, eng, outs, launches, reg, wall, sc, peak)
+        serve_stats[name]["steps"] = steps
         serve_stats[name]["tick_launches"] = check_tick_launches(
             "serve", name, cfg, *tick_launches(api, cfg, eng.model, sc))
         if name in (DEFAULT_RECIPE.name, WEIGHT_ONLY_RECIPE.name):
             models[name] = eng.model
         del eng
+        gc.collect()
         torch.cuda.empty_cache()
 
     # -- 6. breaker drill: IS -> FS on the card -----------------------------------
-    eng, outs, launches, reg, wall = serve_recipe(
+    eng, outs, launches, reg, wall, _ = serve_recipe(
         api, cfg, qparams[DEFAULT_RECIPE.name], DEFAULT_RECIPE, sc, prompts,
         drill=True, fallback=(qparams[FLOAT_SCALE_RECIPE.name],
                               FLOAT_SCALE_RECIPE))
@@ -1209,15 +1373,20 @@ def main() -> int:
                              f"{fb.total()} fallback events")
     if launches["w4a8_gemm_fs"] <= 0 or launches["w4a8_gemm_is"] <= 0:
         raise AssertionError(f"breaker drill launches: {launches}")
+    steps = None
+    if captures_steps(eng):  # IS graphs up to the fallback, FS after it
+        steps = check_steps("drill IS->FS", eng, reg, launches, gens=[
+            graphs[DEFAULT_RECIPE.name], graphs[FLOAT_SCALE_RECIPE.name]])
     for k, n in launches.items():
         launches_total[k] += n
     drill = dict(fallbacks=eng.fallbacks, ticks=eng.ticks, launches=launches,
-                 kernel_failures=reg.counter(
+                 steps=steps, kernel_failures=reg.counter(
                      "engine_kernel_failures_total", "", ("phase",)).total())
     log(f"[drill] IS->FS breaker: 2 injected decode failures at tick 3, "
         f"threshold 2: fallbacks {eng.fallbacks}, all 8 requests ok, "
         f"{eng.ticks} ticks; launches {json.dumps(launches)}")
     del eng
+    gc.collect()
     torch.cuda.empty_cache()
 
     # -- 7. profile one IS and one W4A16 decode step ------------------------
@@ -1270,11 +1439,14 @@ def main() -> int:
             f"{ebytes / 1e9:.2f} GB); peak allocated while building "
             f"{build_peak / 1e9:.2f} GB")
         torch.cuda.reset_peak_memory_stats()  # from here: serving's peak
-        eng, outs, launches, reg, wall = serve_recipe(
+        eng, outs, launches, reg, wall, peak = serve_recipe(
             mapi, mcfg, mq, recipe, sc, prompts)
         eng.close()  # no routing sink from here on: the graph capture below
         check_launches(f"mixtral {name}", launches,
                        KERNELS_OF[name] | {MOE_KERNEL_OF[name]})
+        steps = None
+        if captures_steps(eng):
+            steps = check_steps(f"mixtral {name}", eng, reg, launches)
         for k, n in launches.items():
             launches_total[k] += n
         tiles = reg.counter("engine_moe_m_tiles_total", "", ("kind",))
@@ -1284,10 +1456,13 @@ def main() -> int:
                                  f"{executed}, total {total}")
         first_token_is_argmax(f"mixtral {name}", eng, toks, n0, outs[0][0])
         if name == DEFAULT_RECIPE.name:
+            check_eager_streams(f"mixtral {name}", mapi, mcfg, eng, prompts,
+                                sc, outs)
             mrel, mcpu_s = plain_check(mapi, mcfg, mq, recipe, toks, n0,
                                        MIXTRAL_PLAIN_CHECK_LAYERS)
         st = report_serve("mixtral", name, mapi, mcfg, eng, outs, launches,
-                          reg, wall, sc)
+                          reg, wall, sc, peak)
+        st["steps"] = steps
         st["tick_launches"] = check_tick_launches(
             "mixtral", name, mcfg, *tick_launches(mapi, mcfg, eng.model, sc))
         st.update(build_s=build_s, weight_bytes=qbytes, expert_bytes=ebytes,

@@ -16,7 +16,10 @@ absent: it makes ``/`` approximate and would break the bit-exact codes.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises when that is not 0. :data:`LAUNCHES` counts the
 launches of each kernel; only a wrapper that has just launched its kernel
-adds to it (:func:`count`).
+adds to it (:func:`count`). Under a CUDA graph capture the wrappers launch
+nothing: ``serving/graphs.py`` takes the capture's counts back out and
+adds them again on every replay (:func:`add_launches`), so the counts stay
+device launches.
 """
 from __future__ import annotations
 
@@ -50,6 +53,12 @@ _LOCK = threading.Lock()
 
 def count(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+def add_launches(launches: dict[str, int]) -> None:
+    """Count a replayed CUDA graph's kernel launches."""
+    for name, n in launches.items():
+        LAUNCHES[name] += n
 
 
 def reset_launches() -> None:

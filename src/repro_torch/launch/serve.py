@@ -35,9 +35,12 @@ same event log as a Perfetto timeline; ``--profile-dir DIR`` wraps the
 serving loop in a ``torch.profiler`` window that writes a Chrome trace.
 Telemetry is flushed and the telemetry cell, with the outcome
 conservation law, is printed in a ``finally`` block, so a run that raises
-still leaves them. The reference also asserts ``decode_traces == 1 +
-fallbacks``; the port runs eagerly and traces nothing, so that check has
-no meaning here and is dropped.
+still leaves them. On the card the engine captures prefill and decode
+once each as CUDA graphs and replays them (``serving/graphs.py``); on the
+CPU the same static-buffer steps run eagerly. The run summary prints the
+capture counts, and the run asserts the reference's steady-state
+contract ``decode_traces == 1 + fallbacks``: a recapture outside a
+breaker fallback fails the run.
 
 Robustness flags map onto ``ServeConfig``: ``--deadline-s``,
 ``--max-queue``, ``--truncate-prompts``, ``--breaker-threshold``;
@@ -263,8 +266,16 @@ def main(argv: list[str] | None = None) -> int:
         print(f"[serve] {len(outs)} requests, {total} tokens in {dt:.1f}s "
               f"({total / dt:.1f} tok/s, {eng.ticks} decode ticks, "
               f"{eng.fallbacks} breaker fallbacks)")
+        kind = "captures" if eng.device.type == "cuda" else "establishments"
+        print(f"[serve] step {kind}: prefill_traces={eng.prefill_traces} "
+              f"decode_traces={eng.decode_traces}")
         for rid in sorted(outs)[:4]:
             print(f"[serve] r{rid}: {outs[rid][:16]}...")
+        # steady-state decode captures exactly once per established
+        # parameter set (each breaker fallback captures once more)
+        if eng.decode_traces != 1 + eng.fallbacks:
+            raise RuntimeError(f"decode captured {eng.decode_traces}x with "
+                               f"{eng.fallbacks} fallbacks")
     finally:
         eng.close()
         conserved = _telemetry_cell(reg)

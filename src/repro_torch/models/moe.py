@@ -26,6 +26,7 @@ in the (E, G*C, d) slab).
 """
 from __future__ import annotations
 
+import contextlib
 import weakref
 
 import torch
@@ -46,8 +47,12 @@ from .config import ModelConfig
 # them when it needs them, as the engine does once per tick. Sinks may be
 # plain callables or ``weakref.WeakMethod``s (dead ones are pruned on
 # delivery, so the engine hooks in without keeping itself alive).
+# Inside :func:`hold_routing` the records go to a list instead of the sinks:
+# a CUDA graph capture computes nothing, so its counts hold data only once
+# the graph replays (the serving engine hands them on after each replay).
 
 _ROUTING_SINKS: list = []
+_HELD: list | None = None
 
 
 def add_routing_sink(sink) -> None:
@@ -86,9 +91,24 @@ def stop_routing_trace(records: list | None = None) -> list:
     return out
 
 
+@contextlib.contextmanager
+def hold_routing():
+    """Keep the records made inside the block from the sinks; yields the
+    list they are appended to instead."""
+    global _HELD
+    prev, _HELD = _HELD, []
+    try:
+        yield _HELD
+    finally:
+        _HELD = prev
+
+
 def _record_routing(counts: torch.Tensor, *, capacity: int) -> None:
-    """Fan one record out to every live sink."""
+    """Fan one record out to every live sink (or to the held list)."""
     rec = {"counts": counts, "capacity": capacity}
+    if _HELD is not None:
+        _HELD.append(rec)
+        return
     for s in list(_ROUTING_SINKS):
         if isinstance(s, weakref.ref):
             live = s()

@@ -3,13 +3,32 @@
 
 Slot model: a fixed decode batch of ``max_slots`` sequences. A new
 request prefills alone (batch 1, padded to ``prefill_len``, in
-``mode="train"`` so the logit at the true prompt end is available) into
-its slot's rows of the KV cache; every engine tick runs ONE batched
-decode step across all slots with per-slot positions; finished sequences
-(eos / max_new / max_seq) retire and free their slot. With a recipe
-attached, every linear inside runs the quantized GEMM of its scheme —
-through the Hopper kernels when the weights are on the card, through
-their plain versions when they are on the CPU.
+``mode="train"`` so the logit at the true prompt end is available) into a
+batch-1 cache, which is then spliced into its slot's rows of the KV
+cache; every engine tick runs ONE batched decode step across all slots
+with per-slot positions; finished sequences (eos / max_new / max_seq)
+retire and free their slot. With a recipe attached, every linear inside
+runs the quantized GEMM of its scheme — through the Hopper kernels when
+the weights are on the card, through their plain versions when they are
+on the CPU.
+
+Compiled steps
+--------------
+Prefill and decode are each one :class:`serving.graphs.Step` on static
+buffers: (B, 1) tokens and (B,) positions for decode; (1, prefill_len)
+tokens, a (1,) slot index and a batch-1 cache for prefill, whose graph
+splices that cache into the slot (``index_copy_`` on the batch axis), so
+one graph serves every slot. On the card each step is captured once as a
+CUDA graph (both graphs in one memory pool: they never replay at the same
+time) and replayed on every later call; on the CPU the same buffers run
+eagerly. ``prefill_traces`` / ``decode_traces`` (the reference's names,
+``engine_traces_total{fn}`` and a ``trace`` event) count captures on the
+card and, on the CPU, where nothing is captured, the establishments of a
+step: its first call after construction or after a fallback, when the
+reference traces. Steady state holds ``decode_traces == 1 + fallbacks``.
+A capture or replay that raises is a prefill or decode failure like any
+other (counted, breaker streak), and the next call captures again: the
+engine never carries on eagerly on the card.
 
 Request lifecycle / fault tolerance
 -----------------------------------
@@ -53,7 +72,8 @@ which raises on a double retire, so ``sum(engine_request_outcomes_total)
 * **Retries on the in-place cache**: the port writes the KV cache in
   place (``models/attention.py``), where the reference commits a new
   cache only on success. A retried decode writes the same K/V at the same
-  positions, so a retry is idempotent.
+  positions, so a retry is idempotent (and so is the warm-up call before
+  a capture).
 * **Tick watchdog**: a ``distributed.fault.Heartbeat`` on the registry
   clock times every decode tick; stragglers (> ``slow_tick_factor`` x the
   rolling median) bump ``engine_slow_ticks_total`` and emit a
@@ -67,9 +87,10 @@ MoE routing
 For a MoE config the engine registers a routing sink
 (``models.moe.add_routing_sink``, as a ``WeakMethod`` so the global sink
 list never keeps a retired engine alive). Each MoE layer call hands it
-the routed counts as a device tensor; at the tick boundary (after the
-admits, and after each decode tick) the engine copies the buffered counts
-to the host in ONE transfer and folds them into
+the routed counts as a device tensor; a replayed graph hands on the
+records its capture made, whose counts each replay rewrites. After each
+prefill and each decode tick the engine copies the buffered counts to
+the host in ONE transfer and folds them into
 ``engine_moe_m_tiles_total{kind=executed|total}`` with the grouped
 kernels' own row tile (``kernels.w4a8_gemm.pick_tile_m``): ``total`` is
 what a capacity-padded launch runs, ``executed`` what the ragged kernels
@@ -89,6 +110,7 @@ kernel_failure/fallback/abort events carrying a per-request
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import weakref
@@ -104,7 +126,7 @@ from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import ModelApi
 from repro_torch.nn import spec as S
-from . import sampler
+from . import graphs, sampler
 
 #: The terminal request outcomes (the state machine's accepting states).
 OUTCOMES = ("ok", "timeout", "cancelled", "rejected", "nan", "error")
@@ -189,11 +211,22 @@ class Engine:
         if cfg.num_experts:
             self._routing_sink = weakref.WeakMethod(self._on_routing)
             moe.add_routing_sink(self._routing_sink)
-        self._build_fns()
+        self.model = api.build(cfg, params, recipe)
         self.device = self.model.embed.device
         self.cache = S.materialize(
             api.cache_specs(cfg, serve_cfg.max_slots, serve_cfg.max_seq),
             device=self.device)
+        # the compiled steps' static buffers (see the module docstring)
+        B, P = serve_cfg.max_slots, serve_cfg.prefill_len
+        i64 = dict(dtype=torch.int64, device=self.device)
+        self._decode_in = (torch.zeros((B, 1), **i64),
+                           torch.zeros((B,), **i64))
+        self._prefill_in = (torch.zeros((1, P), **i64),
+                            torch.zeros((1,), **i64))
+        self._cache1 = S.materialize(
+            api.cache_specs(cfg, 1, serve_cfg.max_seq), device=self.device)
+        self._trace_counts: collections.Counter = collections.Counter()
+        self._build_fns()
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(serve_cfg.seed)
         # pre-create the headline series so snapshots show explicit zeros
@@ -213,39 +246,72 @@ class Engine:
         reg.counter("engine_fallback_events_total",
                     "circuit-breaker parameter-set fallbacks", ("reason",))
         reg.counter("engine_kernel_failures_total",
-                    "exceptions from the prefill/decode path", ("phase",))
+                    "exceptions from the prefill/decode path (captures "
+                    "and replays included)", ("phase",))
         reg.counter("engine_slow_ticks_total",
                     "watchdog: decode ticks slower than "
                     "slow_tick_factor x rolling median").inc(0)
 
-    # -- model establishment ------------------------------------------------
+    # -- step establishment -------------------------------------------------
     def _build_fns(self) -> None:
-        """(Re)build the model from the CURRENT ``self.params`` /
-        ``self.recipe`` and wrap its prefill and decode calls in device
-        timers — at construction and again after a breaker fallback."""
-        self.model = model = self.api.build(self.cfg, self.params,
-                                            self.recipe)
+        """Make the prefill and decode steps of ``self.model`` (one graph
+        pool for both on the card) and wrap them in device timers — at
+        construction and again after a breaker fallback. The timers'
+        first call, which holds the capture, is excluded as warmup, as the
+        reference excludes the compile."""
+        model, cache, cache1 = self.model, self.cache, self._cache1
+        pool = (torch.cuda.graph_pool_handle()
+                if self.device.type == "cuda" else None)
+        tokens1, slot = self._prefill_in
 
         # batch-1 prefill in mode="train": FULL-sequence logits (the
         # engine needs the logit at the true prompt end, which may be
-        # before the padded end) while writing the slot's cache rows
-        def prefill_fn(tokens, cache1):
-            return model(tokens, mode="train", cache=cache1, pos=0)[0]
+        # before the padded end) while writing the batch-1 cache, whose
+        # whole rows then replace the slot's. Prefill writes only the
+        # batch-1 cache's first prefill_len positions, so the rest stay
+        # zero and the splice clears the slot's rows past the prompt: no
+        # stale value (a quarantined request's NaN) reaches the masked
+        # terms of decode_attention.
+        def prefill_fn():
+            logits = model(tokens1, mode="train", cache=cache1, pos=0)[0]
+            for big, one in zip(cache["blocks"], cache1["blocks"]):
+                for k, t in big.items():
+                    t.index_copy_(0, slot, one[k])
+            return logits
 
+        self._prefill_step = graphs.Step(
+            prefill_fn, self.device, pool=pool,
+            on_establish=lambda: self._note_trace("prefill"),
+            on_replay=self._on_replayed_routing)
         self._prefill = obs.device_timer(
-            prefill_fn, "engine_phase_device_seconds",
+            self._prefill_step, "engine_phase_device_seconds",
             help="device time (synchronize-bracketed) per engine phase",
             phase="prefill")
 
         # batched decode with per-slot positions -> (B, V) logits
-        def decode_fn(tokens, cache, pos):
+        tokens, pos = self._decode_in
+
+        def decode_fn():
             return model(tokens, mode="decode", cache=cache, pos=pos)[0][:, 0]
 
+        self._decode_step = graphs.Step(
+            decode_fn, self.device, pool=pool,
+            on_establish=lambda: self._note_trace("decode"),
+            on_replay=self._on_replayed_routing)
         self._decode_base = obs.device_timer(
-            decode_fn, "engine_phase_device_seconds",
+            self._decode_step, "engine_phase_device_seconds",
             help="device time (synchronize-bracketed) per engine phase",
             phase="decode")
         self._rewrap_decode()
+
+    def _release_steps(self) -> None:
+        """Drop both steps' graphs and their pool's memory (before a
+        fallback captures under other weights)."""
+        self._prefill_step.release()
+        self._decode_step.release()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
 
     def _rewrap_decode(self) -> None:
         fn = self._decode_base
@@ -255,16 +321,41 @@ class Engine:
 
     def add_decode_wrapper(self, wrap) -> None:
         """Install a host-side ``fn -> fn`` wrapper around the decode
-        callable ``fn(tokens, cache, pos) -> logits (B, V)`` (fault
-        injection, extra instrumentation). It is re-applied automatically
-        when the circuit breaker rebuilds the model.
-        ``repro_torch.serving.chaos`` is the canonical client."""
+        callable ``fn(tokens, pos) -> logits (B, V)`` (fault injection,
+        extra instrumentation). It runs outside the captured step, on its
+        static buffers; the logits are the graph's output buffer, which
+        the next replay rewrites, so a wrapper may write into them. It is
+        re-applied automatically when the circuit breaker rebuilds the
+        model. ``repro_torch.serving.chaos`` is the canonical client."""
         self._decode_wrappers.append(wrap)
         self._rewrap_decode()
 
+    # -- telemetry plumbing -------------------------------------------------
+    def _note_trace(self, fn: str) -> None:
+        """One establishment of step ``fn``: a CUDA graph capture on the
+        card, the first eager call on the CPU. Replays do not pass here,
+        which makes it a recapture detector, as the reference's trace-time
+        hook is a retrace detector."""
+        self._trace_counts[fn] += 1
+        reg = obs.current_registry()
+        reg.counter("engine_traces_total",
+                    "step establishments (CUDA graph captures on the card)",
+                    ("fn",)).inc(fn=fn)
+        reg.emit({"ev": "trace", "fn": fn,
+                  "engine_count": self._trace_counts[fn]})
+
+    @property
+    def prefill_traces(self) -> int:
+        return self._trace_counts["prefill"]
+
+    @property
+    def decode_traces(self) -> int:
+        return self._trace_counts["decode"]
+
     @property
     def fallbacks(self) -> int:
-        """Circuit-breaker fallbacks taken so far."""
+        """Circuit-breaker fallbacks taken so far: steady-state decode
+        holds ``decode_traces == 1 + fallbacks``."""
         return self._fallbacks
 
     def _on_slow_tick(self, step: int, dt: float, med: float) -> None:
@@ -275,6 +366,12 @@ class Engine:
 
     def _on_routing(self, rec: dict) -> None:
         self._routing_buf.append(rec)
+
+    def _on_replayed_routing(self, records: list) -> None:
+        """A replay's routing records (its capture's, with this replay's
+        counts), drained before the next replay rewrites them."""
+        if self._routing_sink is not None:
+            self._routing_buf.extend(records)
 
     def _drain_routing(self) -> None:
         """Fold the buffered routing records into the m-tile counters: ONE
@@ -301,7 +398,9 @@ class Engine:
 
     def _sample_counters(self, reg) -> None:
         """One ``counters`` event per tick sampling the cumulative m-tile
-        and qgemm counters: the timeline's counter tracks."""
+        and qgemm counters: the timeline's counter tracks. The wrappers
+        are called at the capture on the card (the reference's trace-time
+        count under jit) and on every call on the CPU."""
         tiles = reg.counter("engine_moe_m_tiles_total", "", ("kind",))
         calls = reg.counter("qgemm_calls_total", "kernels.ops wrapper calls",
                             ("scheme", "kind", "shape", "block"))
@@ -477,8 +576,9 @@ class Engine:
 
     def _fallback(self, reason: str) -> None:
         """Graceful degradation: swap in the fallback parameter set and
-        recipe, reset the breaker state and rebuild the model (the KV
-        cache and the slots carry over)."""
+        recipe, reset the breaker state, release the old steps' graphs and
+        rebuild the model and its steps (the KV cache and the slots carry
+        over; the next prefill and decode each capture once more)."""
         reg = obs.current_registry()
         frm = getattr(self.recipe, "name", None)
         self.params, self._fallback_params = self._fallback_params, None
@@ -491,6 +591,8 @@ class Engine:
         reg.emit({"ev": "fallback", "reason": reason, "from": str(frm),
                   "to": str(getattr(self.recipe, "name", None)),
                   "params_swapped": True, "fallbacks": self._fallbacks})
+        self._release_steps()
+        self.model = self.api.build(self.cfg, self.params, self.recipe)
         self._build_fns()
 
     def _abort(self, reason: str, exc: Exception | None = None):
@@ -523,16 +625,12 @@ class Engine:
                     # truncate_prompts explicitly opted into this clip
                     toks = prompt[:P] + [0] * max(0, P - len(prompt))
                     true_len = min(len(prompt), P)
-                    # the slot's rows of the batched cache, cleared, are
-                    # the batch-1 prefill cache (written in place)
-                    cache1 = {"blocks": [{k: t[i:i + 1] for k, t in c.items()}
-                                         for c in self.cache["blocks"]]}
-                    for c in cache1["blocks"]:
-                        for t in c.values():
-                            t.zero_()
-                    logits = self._prefill(
-                        torch.tensor([toks], dtype=torch.int64,
-                                     device=self.device), cache1)
+                    tokens1, slot = self._prefill_in
+                    tokens1.copy_(torch.tensor([toks], dtype=torch.int64))
+                    slot.fill_(i)
+                    logits = self._prefill(tokens1, slot)
+                    # the routing of this replay, before the next rewrites it
+                    self._drain_routing()
                     first_row = logits[:, true_len - 1]
                     if self.sc.nan_guard and \
                             not bool(torch.isfinite(first_row).all()):
@@ -564,7 +662,6 @@ class Engine:
             self._fail_streak = 0
             reg.counter("engine_requests_total", "", ("event",)).inc(
                 event="admitted")
-        self._drain_routing()
 
     def _tick(self) -> None:
         if not any(s.active for s in self.slots):
@@ -580,14 +677,14 @@ class Engine:
                 pos[i] = s.length
                 slot_rids[i] = s.request_id
         active = sum(r >= 0 for r in slot_rids)
+        tokens, positions = self._decode_in
         try:
             with obs.span(reg, "engine_phase_seconds", phase="decode",
                           event="tick") as sp:
                 self._watchdog.start()
-                logits = self._decode(
-                    torch.tensor(last, dtype=torch.int64, device=self.device),
-                    self.cache,
-                    torch.tensor(pos, dtype=torch.int64, device=self.device))
+                tokens.copy_(torch.tensor(last, dtype=torch.int64))
+                positions.copy_(torch.tensor(pos, dtype=torch.int64))
+                logits = self._decode(tokens, positions)
                 finite = torch.isfinite(logits).all(dim=-1).tolist() \
                     if self.sc.nan_guard else [True] * B
                 # sampled only after the decode succeeded, so a failed

@@ -26,11 +26,21 @@ quantization the grouped W4A8 kernels launch first is bit-exact to its
 plain version. The CPU side of the same
 wrappers is tested against the JAX reference in
 ``tests/test_torch_kernels.py`` and ``tests/test_torch_moe.py``.
+
+The serving engine's captured steps (``serving/graphs.py``), on the smoke
+LLaMA-2-7B and Mixtral: its greedy streams equal :func:`eager_greedy`, a
+plain eager loop over the same model, bit for bit; each step is captured
+once across ticks and slots, and once more after a breaker fallback;
+the MoE m-tile counters under replay equal an eager run's; a quarantined
+slot reused serves a fresh engine's tokens; and ``_build.LAUNCHES`` after
+a served run is each graph's captured launches times its replays plus
+one warm-up call each.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import obs
 from repro_torch.core import integer_scale as isc
 from repro_torch.core import packing, qlinear, quant
 from repro_torch.core.recipe import QuantSpec
@@ -46,6 +56,9 @@ from repro_torch.kernels.w4a8_gemm import (fg_gemm_integer_scale,
                                            fg_gemm_integer_scale_plain)
 from repro_torch.kernels.w4a8_gemm_fscale import (fg_gemm_float_scale,
                                                   fg_gemm_float_scale_plain)
+from repro_torch.nn import spec as S
+from repro_torch.serving.chaos import ChaosConfig, ChaosMonkey, NanFault
+from repro_torch.serving.engine import Engine, ServeConfig
 
 SHAPES = [  # (M, K, N, group): tests/test_kernels.py, plus a LLaMA-2-7B layer
     (1, 256, 128, 128),
@@ -945,3 +958,220 @@ def test_grouped_gemms_share_one_routed_quantization(cuda, splits):
                  x, rc, qb, fb, group_size=g, splits=splits)]
     for a, b in zip(shared, alone):
         assert torch.equal(a, b)
+
+
+# -- the serving engine's captured steps ---------------------------------------
+
+
+def eager_greedy(api, cfg, model, prompts, sc) -> list[list[int]]:
+    """Greedy streams of ``prompts`` from a plain eager loop over ``model``
+    on the engine's schedule: free slots filled in order, each by a batch-1
+    prefill into a fresh cache that is copied into the slot's rows; one
+    batched decode a tick, idle slots fed token 0 at position 0; a request
+    retires at ``max_new_tokens`` or ``max_seq`` (no eos). No graph and no
+    engine: what the engine's captured steps must reproduce."""
+    dev = model.embed.device
+    B, P = sc.max_slots, sc.prefill_len
+    cache = S.materialize(api.cache_specs(cfg, B, sc.max_seq), device=dev)
+    queue, slots, outs = list(enumerate(prompts)), [None] * B, {}
+    with torch.inference_mode():
+        while queue or any(slots):
+            for i in range(B):
+                if slots[i] is None and queue:
+                    rid, p = queue.pop(0)
+                    one = S.materialize(api.cache_specs(cfg, 1, sc.max_seq),
+                                        device=dev)
+                    toks = torch.tensor([p + [0] * (P - len(p))], device=dev)
+                    logits = model(toks, mode="train", cache=one, pos=0)[0]
+                    for big, c in zip(cache["blocks"], one["blocks"]):
+                        for k, t in big.items():
+                            t[i] = c[k][0]
+                    slots[i] = (rid, len(p),
+                                [int(logits[0, len(p) - 1].argmax())])
+            last = torch.tensor([[s[2][-1] if s else 0] for s in slots],
+                                device=dev)
+            pos = torch.tensor([s[1] if s else 0 for s in slots], device=dev)
+            nxt = model(last, mode="decode", cache=cache, pos=pos)[0][:, 0]
+            for i, tok in enumerate(nxt.argmax(-1).tolist()):
+                if slots[i] is None:
+                    continue
+                rid, n, gen = slots[i]
+                gen.append(tok)
+                if len(gen) >= sc.max_new_tokens or n + 2 >= sc.max_seq:
+                    outs[rid], slots[i] = gen, None
+                else:
+                    slots[i] = (rid, n + 1, gen)
+    return [outs[r] for r in range(len(prompts))]
+
+
+def poison_quarantined_rows(eng):
+    """Decode wrapper: fill every cache row of a slot whose logits came out
+    non-finite with NaN, the stale rows a poisoned step would leave."""
+    def wrap(fn):
+        def decode(*args):
+            logits = fn(*args)
+            bad = (~torch.isfinite(logits).all(-1)).nonzero().flatten()
+            for c in eng.cache["blocks"]:
+                for t in c.values():
+                    t[bad] = float("nan")
+            return logits
+        return decode
+    return wrap
+
+
+ENGINE_SC = dict(max_slots=4, max_seq=64, prefill_len=16, max_new_tokens=6)
+_SERVED: dict = {}
+
+
+def _served(arch, name, device):
+    """(api, cfg, params, recipe): the smoke ``arch`` quantized under
+    recipe ``name`` on ``device``, made once per process."""
+    if (arch, name) not in _SERVED:
+        from repro_torch.core import ptq
+        from repro_torch.core.recipe import (DEFAULT_RECIPE,
+                                             FLOAT_SCALE_RECIPE,
+                                             WEIGHT_ONLY_RECIPE)
+        from repro_torch.models.registry import get_arch, get_model
+
+        recipe = {r.name: r for r in (DEFAULT_RECIPE, FLOAT_SCALE_RECIPE,
+                                      WEIGHT_ONLY_RECIPE)}[name]
+        cfg = get_arch(arch, smoke=True)
+        api = get_model(cfg)
+        _SERVED[arch, name] = (api, cfg, ptq.quantize_by_layer(
+            api, cfg, recipe, device=device), recipe)
+    return _SERVED[arch, name]
+
+
+def _engine_prompts(cfg, n=6, seed=21):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, int(k)).tolist()
+            for k in rng.integers(3, 17, n)]
+
+
+def _serve(api, cfg, params, recipe, prompts, sc, **kw):
+    eng = Engine(api, cfg, params, sc, recipe=recipe, **kw)
+    rids = [eng.submit(p) for p in prompts]
+    outs = eng.run()
+    return eng, [outs[r] for r in rids]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama2-7b", "mixtral-8x7b"])
+@pytest.mark.parametrize("name", ["w4a8-is", "w4a16-fg"])
+def test_engine_streams_equal_an_eager_greedy_loop(cuda, arch, name):
+    api, cfg, params, recipe = _served(arch, name, cuda)
+    prompts = _engine_prompts(cfg)
+    sc = ServeConfig(**ENGINE_SC)
+    eng, outs = _serve(api, cfg, params, recipe, prompts, sc)
+    eng.close()
+    assert eng._decode_step.captured and eng._prefill_step.captured
+    assert eng.decode_traces == eng.prefill_traces == 1
+    assert outs == eager_greedy(api, cfg, eng.model, prompts, sc)
+
+
+@pytest.mark.cuda
+def test_engine_captures_each_step_once_across_ticks_and_slots(cuda):
+    api, cfg, params, recipe = _served("llama2-7b", "w4a8-is", cuda)
+    reg = obs.Registry()
+    with obs.use_registry(reg):
+        eng, outs = _serve(api, cfg, params, recipe,
+                           _engine_prompts(cfg, n=10), ServeConfig(**ENGINE_SC))
+    assert eng.ticks >= 5 and all(len(o) == 6 for o in outs)
+    admits = [e["slot"] for e in reg.events() if e.get("ev") == "admit"]
+    assert len(admits) == 10 and set(admits) == {0, 1, 2, 3}
+    assert eng.decode_traces == eng.prefill_traces == 1
+    assert reg.counter("engine_traces_total", "", ("fn",)).get(
+        fn="decode") == 1
+    assert [e["fn"] for e in reg.events() if e.get("ev") == "trace"] == [
+        "prefill", "decode"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama2-7b", "mixtral-8x7b"])
+def test_breaker_fallback_captures_again_and_serves_fs(cuda, arch):
+    api, cfg, params, recipe = _served(arch, "w4a8-is", cuda)
+    _, _, fs_params, fs_recipe = _served(arch, "w4a8-fs", cuda)
+    sc = ServeConfig(**ENGINE_SC)
+    prompts = _engine_prompts(cfg)
+    eng, _ = _serve(api, cfg, params, recipe, prompts[:2], sc,
+                    fallback_params=fs_params, fallback_recipe=fs_recipe)
+    assert eng.decode_traces == 1
+    eng.trip_breaker("forced")
+    rids = [eng.submit(p) for p in prompts]
+    outs = eng.run()
+    assert eng.fallbacks == 1
+    assert eng.decode_traces == eng.prefill_traces == 2
+    assert [outs[r] for r in rids] == eager_greedy(
+        api, cfg, api.build(cfg, fs_params, fs_recipe), prompts, sc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["w4a8-is", "w4a16-fg"])
+def test_moe_m_tiles_under_replay_equal_an_eager_run(cuda, name):
+    from repro_torch.kernels.moe_gemm import ragged_tile_stats
+    from repro_torch.kernels.w4a8_gemm import pick_tile_m
+    from repro_torch.models import moe
+
+    api, cfg, params, recipe = _served("mixtral-8x7b", name, cuda)
+    prompts = _engine_prompts(cfg)
+    sc = ServeConfig(**ENGINE_SC)
+    reg = obs.Registry()
+    with obs.use_registry(reg):
+        eng, _ = _serve(api, cfg, params, recipe, prompts, sc)
+        eng.close()
+    trace = moe.start_routing_trace()
+    try:
+        eager_greedy(api, cfg, eng.model, prompts, sc)
+    finally:
+        moe.stop_routing_trace(trace)
+    executed = total = 0
+    for rec in trace:
+        C = rec["capacity"]
+        st = ragged_tile_stats(rec["counts"][0].tolist(), C,
+                               bm=pick_tile_m(C))
+        executed += st["ragged_m_tiles"]
+        total += st["dense_m_tiles"]
+    tiles = reg.counter("engine_moe_m_tiles_total", "", ("kind",))
+    assert (tiles.get(kind="executed"), tiles.get(kind="total")) == (
+        executed, total)
+    assert 0 < executed < total
+
+
+@pytest.mark.cuda
+def test_quarantined_slot_reused_serves_a_fresh_engines_tokens(cuda):
+    """NaN logits quarantine request 0 in the only slot, whose cache rows
+    are then NaN too; request 1 reuses the slot and its tokens equal a
+    fresh engine's."""
+    api, cfg, params, recipe = _served("llama2-7b", "w4a8-is", cuda)
+    prompts = _engine_prompts(cfg, n=2)
+    sc = ServeConfig(**dict(ENGINE_SC, max_slots=1))
+    eng = Engine(api, cfg, params, sc, recipe=recipe)
+    ChaosMonkey(ChaosConfig(nan_logits=(NanFault(tick=0, rid=0),))).install(
+        eng)
+    eng.add_decode_wrapper(poison_quarantined_rows(eng))
+    rids = [eng.submit(p) for p in prompts]
+    outs = eng.run()
+    assert [eng.outcome(r) for r in rids] == ["nan", "ok"]
+    assert eng.decode_traces == eng.prefill_traces == 1
+    _, fresh = _serve(api, cfg, params, recipe, prompts[1:], sc)
+    assert outs[rids[1]] == fresh[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama2-7b", "mixtral-8x7b"])
+def test_served_launches_are_replays_of_the_captured_counts(cuda, arch):
+    api, cfg, params, recipe = _served(arch, "w4a8-is", cuda)
+    prompts = _engine_prompts(cfg)
+    eng = Engine(api, cfg, params, ServeConfig(**ENGINE_SC), recipe=recipe)
+    for p in prompts:
+        eng.submit(p)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    eng.run()
+    torch.cuda.synchronize()
+    d, p = eng._decode_step.launches, eng._prefill_step.launches
+    assert d["act_quant"] > 0 and p["flash_attention"] > 0
+    # each graph replayed once a tick / an admit, after one warm-up call
+    assert _build.LAUNCHES == {
+        k: d.get(k, 0) * (eng.ticks + 1) + p.get(k, 0) * (len(prompts) + 1)
+        for k in _build.LAUNCHES}

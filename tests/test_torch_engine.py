@@ -119,6 +119,8 @@ def test_greedy_streams_equal_reference_engine(models, scheme, layout):
         assert eng.outcome(r) == jeng.outcome(r) == "ok"
         assert got[r] == want[r], (r, got[r], want[r])
     assert eng.ticks == jeng._steps
+    assert (eng.prefill_traces, eng.decode_traces) == (
+        jeng.prefill_traces, jeng.decode_traces) == (1, 1)
 
 
 def test_breaker_swaps_is_to_fs_like_reference(models):
@@ -153,6 +155,11 @@ def test_breaker_swaps_is_to_fs_like_reference(models):
     assert {r: got[r] for r in rids} == {r: want[r] for r in rids}
     assert reg.counter("engine_fallback_events_total", "", ("reason",)).get(
         reason="decode_exception") == 1
+    # the fallback establishes both steps once more, as it re-jits both
+    assert (eng.prefill_traces, eng.decode_traces) == (
+        jeng.prefill_traces, jeng.decode_traces) == (2, 2)
+    assert reg.counter("engine_traces_total", "", ("fn",)).get(
+        fn="decode") == 1 + eng.fallbacks
 
 
 def test_outcomes_are_conserved(models):

@@ -6,29 +6,46 @@ in-process; and the stdlib/numpy copies (``obs.timeline``,
 on the same inputs.
 
 Every stream comparison here is exact (greedy tokens); the fault runs are
-held to a fault-free run of the same engine and weights.
+held to a fault-free run of the same engine and weights. The fault drills
+of ``tests/test_chaos.py`` run on both engines (the reference's and the
+port's, on the same weights and seeded prompts) and compare outcomes,
+streams, step establishments and every ``engine_*`` counter. The
+telemetry of ``tests/test_obs.py::TestEngineTelemetry`` is held on the
+port's smoke Mixtral.
 """
+import collections
 import json
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from repro import obs as jobs
 from repro.data.pipeline import DataConfig as JDataConfig
 from repro.data.pipeline import SyntheticPipeline as JPipeline
 from repro.distributed import fault as jfault
+from repro.models.config import ModelConfig as JConfig
+from repro.models.registry import get_model as jget_model
+from repro.nn import spec as JS
 from repro.obs import timeline as jtimeline
-from repro_torch import obs
+from repro.serving import chaos as jchaos
+from repro.serving.engine import Engine as JEngine
+from repro.serving.engine import ServeConfig as JServeConfig
+from repro_torch import convert, obs
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
 from repro_torch.distributed import fault
 from repro_torch.launch import serve
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import get_model
 from repro_torch.nn import spec as S
+from repro_torch.serving import chaos
 from repro_torch.serving.chaos import (ChaosConfig, ChaosError, ChaosMonkey,
                                        KernelFault, NanFault, SlowTick, flood)
 from repro_torch.serving.engine import (OUTCOMES, Engine, EngineAborted,
                                         ServeConfig)
+# the card tests' eager greedy loop and NaN-row wrapper, exercised here too
+from test_torch_cuda import eager_greedy, poison_quarantined_rows
 
 TINY = dict(name="t", family="dense", num_layers=2, d_model=64, num_heads=4,
             num_kv_heads=2, d_ff=128, vocab_size=64, dtype="float32")
@@ -331,6 +348,7 @@ def test_serve_cli_runs_each_recipe(capsys, recipe, name):
     out = capsys.readouterr().out
     assert f"quantized ({name})" in out
     assert "3 requests, 12 tokens" in out
+    assert "step establishments: prefill_traces=1 decode_traces=1" in out
     assert "conserved=yes" in out and 'outcome="ok"\': 3' in out
 
 
@@ -342,6 +360,10 @@ def test_serve_cli_chaos_drill_writes_telemetry(capsys, tmp_path):
                           "--trace-out", str(trace)])
     out = capsys.readouterr().out
     assert "chaos armed" in out and "conserved=yes" in out
+    # the injected decode failure is retried on the same step: no fallback,
+    # and the run's check decode_traces == 1 + fallbacks held
+    assert "0 breaker fallbacks" in out
+    assert "step establishments: prefill_traces=1 decode_traces=1" in out
     assert 'outcome="nan"\': 3' in out
     snap = json.loads(metrics.read_text().splitlines()[-1])["snapshot"]
     assert snap["counters"]["engine_kernel_failures_total"][
@@ -350,3 +372,331 @@ def test_serve_cli_chaos_drill_writes_telemetry(capsys, tmp_path):
     assert sum(n.endswith("retire:nan") for n in names) == 3
     with pytest.raises(NotImplementedError, match="calibration slice"):
         serve.main(CLI + ["--algo", "gptq"])
+
+
+# -- the fault drills of tests/test_chaos.py, on both engines -------------------
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """The tiny model of ``tests/test_chaos.py`` for both packages: the
+    reference's weights from ``PRNGKey(0)``, converted for the port."""
+    jcfg = JConfig(**TINY, q_chunk=16, kv_chunk=16, remat=False)
+    japi = jget_model(jcfg)
+    jparams = JS.materialize(japi.param_specs(jcfg, None),
+                             jax.random.PRNGKey(0))
+    cfg = ModelConfig(**TINY)
+    params = convert.from_reference(jax.tree.map(np.asarray, jparams),
+                                    device="cpu")
+    return (japi, jcfg, jparams), (get_model(cfg), cfg, params)
+
+
+# side -> (Engine, ServeConfig, chaos, obs, ServeConfig fields of its own);
+# the reference's breaker would fall back to another kernel mode, the
+# port's has no fallback parameters here: both abort
+SIDES = {"reference": (JEngine, JServeConfig, jchaos, jobs,
+                       dict(fallback_kernel_mode=None)),
+         "port": (Engine, ServeConfig, chaos, obs, {})}
+
+
+def _drill(pair, body, **kw):
+    """Run ``body(eng, side)`` on the reference engine and on the port's,
+    each under a registry of its own package on a stopped ``StepClock``
+    (so no host time reaches the watchdog) with the same ServeConfig;
+    ``side`` carries the package's ``chaos``, ``obs`` and ``reg``.
+    Returns {side name: (engine, registry, body's result)}."""
+    kw = {**dict(max_slots=3, max_seq=64, prefill_len=8, max_new_tokens=6),
+          **kw}
+    out = {}
+    for name, (api, cfg, params) in zip(SIDES, pair):
+        E, SC, ch, o, extra = SIDES[name]
+        reg = o.Registry(clock=StepClock())
+        with o.use_registry(reg):
+            eng = E(api, cfg, params, SC(**kw, **extra))
+            side = type("Side", (), dict(chaos=ch, obs=o, reg=reg,
+                                         port=name == "port"))
+            result = body(eng, side)
+            eng.close()
+        out[name] = (eng, reg, result)
+    return out
+
+
+def _engine_counters(reg) -> dict:
+    return {k: v for k, v in reg.snapshot()["counters"].items()
+            if k.startswith("engine_")}
+
+
+def _same_as_reference(runs):
+    """Outcomes, streams, step establishments, ticks and every engine_*
+    counter of the port's run equal the reference's; the port's books
+    balance."""
+    (jeng, jreg, _), (eng, reg, _) = runs["reference"], runs["port"]
+    assert eng.outcomes == jeng.outcomes
+    assert eng.outputs == jeng.outputs
+    assert (eng.prefill_traces, eng.decode_traces, eng.fallbacks,
+            eng.ticks) == (jeng.prefill_traces, jeng.decode_traces,
+                           jeng.fallbacks, jeng.ticks)
+    assert _engine_counters(reg) == _engine_counters(jreg)
+    _conserved(reg, eng)
+
+
+def test_nan_slot_reuse_after_quarantine(pair):
+    """A quarantined slot is freed and reused: the next request admits into
+    the SAME slot and serves a clean stream, equal to the reference's and
+    to a fresh engine's. In the port's run the quarantined slot's cache
+    rows are also NaN: the next prefill's splice must clear every row,
+    since decode attention multiplies its masked zero probabilities by
+    every cached row."""
+    prompts = _prompts(2, seed=3)
+
+    def body(eng, side):
+        side.chaos.ChaosMonkey(side.chaos.ChaosConfig(
+            nan_logits=(side.chaos.NanFault(tick=0, rid=0),))).install(eng)
+        if side.port:
+            eng.add_decode_wrapper(poison_quarantined_rows(eng))
+        for p in prompts:
+            eng.submit(p)
+        return eng.run()
+
+    runs = _drill(pair, body, max_slots=1)
+    eng, _, outs = runs["port"]
+    assert eng.outcome(0) == "nan" and eng.outcome(1) == "ok"
+    assert eng.decode_traces == eng.prefill_traces == 1
+    _same_as_reference(runs)
+    fresh = _drill(pair, lambda e, s: (e.submit(prompts[1]), e.run())[1],
+                   max_slots=1)
+    assert outs[1] == fresh["port"][2][0] == fresh["reference"][2][0]
+
+
+def test_cancel_queued_and_active(pair):
+    def body(eng, side):
+        rid_a, rid_b = (eng.submit(p) for p in _prompts(2, seed=8))
+        assert eng.cancel(rid_b) is True          # queued -> cancelled
+        assert eng.cancel(rid_b) is False         # already terminal
+        assert eng.cancel(999) is False           # unknown rid
+        eng.run(max_ticks=3)                      # rid_a still active
+        assert eng.outcome(rid_a) is None
+        assert eng.cancel(rid_a) is True          # active -> cancelled
+        assert not any(s.active for s in eng.slots)
+        return rid_a, rid_b
+
+    runs = _drill(pair, body, max_slots=1, max_new_tokens=10)
+    eng, _, (rid_a, rid_b) = runs["port"]
+    assert eng.outcome(rid_a) == eng.outcome(rid_b) == "cancelled"
+    assert 0 < len(eng.outputs[rid_a]) < 10       # partial tokens kept
+    _same_as_reference(runs)
+
+
+def test_overlength_prompt_rejected_not_truncated(pair):
+    """Prompts longer than prefill_len are rejected with a structured
+    reason; only the explicit truncate_prompts opt-in clips them."""
+    long_prompt = list(range(1, 20))  # 19 > prefill_len = 8
+
+    def body(eng, side):
+        rid = eng.submit(long_prompt)
+        assert eng.outcome(rid) == "rejected" and eng.queue == []
+        ev = [e for e in side.reg.events() if e.get("ev") == "retire"][-1]
+        assert ev["reason"] == "prompt_overlength"
+        assert eng.run() == {}
+        return rid
+
+    runs = _drill(pair, body)
+    _same_as_reference(runs)
+    assert runs["port"][0].decode_traces == 0  # nothing ever ran
+
+    def clipped(eng, side):
+        return eng.submit(long_prompt), eng.run()
+
+    runs = _drill(pair, clipped, truncate_prompts=True)
+    eng, _, (rid, outs) = runs["port"]
+    assert eng.outcome(rid) == "ok" and len(outs[rid]) == 6
+    _same_as_reference(runs)
+
+
+def test_double_retire_raises(pair):
+    """The ``_finish`` chokepoint refuses a second retire of a rid."""
+    def body(eng, side):
+        rid = eng.submit([1, 2, 3])
+        eng.run()
+        assert eng.outcome(rid) == "ok"
+        with pytest.raises(RuntimeError, match="already terminal"):
+            eng._finish(rid, "error")
+        return rid
+
+    runs = _drill(pair, body)
+    assert runs["port"][0].outcome(runs["port"][2]) == "ok"
+    _same_as_reference(runs)
+
+
+def test_mixed_fault_drill_conservation(pair):
+    """NaN, a transient kernel fault, flood rejects, a cancel and an
+    over-length reject at once: the books balance, on one decode
+    establishment, as in the reference."""
+    def body(eng, side):
+        ch = side.chaos
+        ch.ChaosMonkey(ch.ChaosConfig(
+            nan_logits=(ch.NanFault(tick=1, rid=0),),
+            kernel_failures=(ch.KernelFault(tick=3, count=1),))).install(eng)
+        rids = ch.flood(eng, 6, prompt=[4, 5, 6])  # 2 rejected (queue 4)
+        over = eng.submit(list(range(30)))         # rejected: over-length
+        cancelled = next(r for r in rids if eng.outcome(r) is None
+                         and r != rids[0])
+        eng.cancel(cancelled)
+        eng.run()
+        return rids, over, cancelled
+
+    runs = _drill(pair, body, max_slots=2, max_queue=4, breaker_threshold=5)
+    eng, _, (rids, over, cancelled) = runs["port"]
+    assert eng.decode_traces == 1 and eng.fallbacks == 0
+    assert eng.outcome(over) == "rejected"
+    assert eng.outcome(cancelled) == "cancelled"
+    assert eng.outcome(rids[0]) == "nan"
+    tally = collections.Counter(eng.outcomes.values())
+    assert (tally["rejected"], tally["cancelled"], tally["nan"],
+            tally["error"], tally["ok"]) == (3, 1, 1, 0, 2)
+    _same_as_reference(runs)
+
+
+def test_crashed_run_flushes_conserved_telemetry(pair, tmp_path):
+    """After a crashed ``run()`` the event log and snapshot still flush,
+    the snapshot satisfies the conservation law, and the trace is
+    well-formed with error markers."""
+    def body(eng, side):
+        ch = side.chaos
+        ch.ChaosMonkey(ch.ChaosConfig(
+            kernel_failures=(ch.KernelFault(tick=1, count=9),))).install(eng)
+        for p in _prompts(2, seed=10):
+            eng.submit(p)
+        with pytest.raises(RuntimeError, match="no fallback"):
+            eng.run()
+        mpath = tmp_path / f"{side.port}.jsonl"
+        tpath = tmp_path / f"{side.port}.json"
+        assert side.reg.write_events_jsonl(str(mpath)) > 0
+        side.obs.write_trace(str(tpath), side.reg)
+        return mpath, tpath
+
+    runs = _drill(pair, body, breaker_threshold=1)
+    _same_as_reference(runs)
+    mpath, tpath = runs["port"][2]
+    c = json.loads(mpath.read_text().splitlines()[-1])["snapshot"]["counters"]
+    outcomes = c["engine_request_outcomes_total"]
+    assert outcomes['outcome="error"'] == 2
+    assert sum(outcomes.values()) == \
+        c["engine_requests_total"]['event="submitted"']
+    names = [e["name"] for e in json.loads(tpath.read_text())["traceEvents"]]
+    assert any(n.endswith("retire:error") for n in names)
+    jm = runs["reference"][2][0]
+    assert json.loads(jm.read_text().splitlines()[-1])["snapshot"][
+        "counters"]["engine_request_outcomes_total"] == outcomes
+
+
+def test_engine_streams_equal_an_eager_greedy_loop(tiny):
+    """The loop the card tests hold the captured engine against
+    (``tests/test_torch_cuda.py``) gives the engine's streams here, with
+    more requests than slots."""
+    api, cfg, params, _ = tiny
+    prompts = [p[:n] for p, n in zip(_prompts(5, seed=11), (5, 8, 3, 7, 6))]
+    eng = _engine(tiny, max_slots=2)
+    rids = [eng.submit(p) for p in prompts]
+    outs = eng.run()
+    assert [outs[r] for r in rids] == eager_greedy(
+        api, cfg, eng.model, prompts, eng.sc)
+    assert eng.decode_traces == eng.prefill_traces == 1
+
+
+# -- tests/test_obs.py::TestEngineTelemetry on the port --------------------------
+
+
+class TestEngineTelemetry:
+    """The port's smoke Mixtral under W4A8 IS served on the CPU: the
+    m-tile counters against the routing trace's ground truth, one
+    establishment per step, tick and token accounting, and each request's
+    lifecycle once in the timeline."""
+
+    @pytest.fixture(scope="class")
+    def run(self):
+        from repro_torch.core import ptq
+        from repro_torch.core.recipe import DEFAULT_RECIPE
+        from repro_torch.models import moe
+        from repro_torch.models.registry import get_arch
+
+        cfg = get_arch("mixtral-8x7b", smoke=True)
+        api = get_model(cfg)
+        reg = obs.Registry()
+        with obs.use_registry(reg):
+            qp = ptq.quantize_by_layer(api, cfg, DEFAULT_RECIPE, device="cpu")
+            sc = ServeConfig(max_slots=2, max_seq=32, prefill_len=8,
+                             max_new_tokens=3)
+            trace = moe.start_routing_trace()
+            eng = Engine(api, cfg, qp, sc, recipe=DEFAULT_RECIPE)
+            rng = np.random.default_rng(0)
+            for _ in range(3):
+                eng.submit(rng.integers(1, cfg.vocab_size, 6).tolist())
+            outs = eng.run()
+            moe.stop_routing_trace(trace)
+            eng.close()
+        return reg, eng, trace, outs
+
+    def test_ragged_m_tiles_match_ground_truth(self, run):
+        from repro_torch.kernels.moe_gemm import ragged_tile_stats
+        from repro_torch.kernels.w4a8_gemm import pick_tile_m
+
+        reg, eng, trace, _ = run
+        assert trace, "routing trace captured no records"
+        dense = ragged = 0
+        for rec in trace:
+            C = rec["capacity"]
+            for row in rec["counts"].tolist():
+                st = ragged_tile_stats(row, C, bm=pick_tile_m(C))
+                dense += st["dense_m_tiles"]
+                ragged += st["ragged_m_tiles"]
+        tiles = reg.snapshot()["counters"]["engine_moe_m_tiles_total"]
+        # the plain versions compute every row: executed is the dense
+        # count on the CPU (the ragged one on the card: test_torch_cuda)
+        assert tiles['kind="executed"'] == tiles['kind="total"'] == dense
+        assert 0 < ragged < dense  # the card's kernels would skip tiles
+
+    def test_no_retrace_and_tick_accounting(self, run):
+        reg, eng, _, outs = run
+        assert eng.decode_traces == eng.prefill_traces == 1
+        snap = reg.snapshot()
+        c = snap["counters"]
+        assert c["engine_traces_total"] == {'fn="decode"': 1.0,
+                                            'fn="prefill"': 1.0}
+        assert c["engine_ticks_total"][""] == eng.ticks
+        assert c["engine_requests_total"] == {'event="submitted"': 3.0,
+                                              'event="admitted"': 3.0,
+                                              'event="retired"': 3.0}
+        out = c["engine_request_outcomes_total"]
+        assert out['outcome="ok"'] == 3.0
+        assert sum(out.values()) == c["engine_requests_total"][
+            'event="submitted"']
+        assert c["engine_tokens_total"][""] == sum(
+            len(v) - 1 for v in outs.values())  # first token from prefill
+        h = snap["histograms"]
+        assert h["engine_ttft_seconds"][""]["count"] == 3
+        assert h["engine_tpot_seconds"][""]["count"] == 3
+        assert h["engine_phase_seconds"]['phase="decode"']["count"] \
+            == eng.ticks
+        assert c["alpha_cap_events_total"] == {"": 0.0}
+        assert any('scheme="w4a8-is"' in k for k in c["qgemm_calls_total"])
+
+    def test_events_carry_decode_latency_and_rids(self, run):
+        reg, _, _, outs = run
+        evs = reg.events()
+        ticks = [e for e in evs if e.get("ev") == "tick"]
+        assert ticks and all("seconds" in e and "slots_active" in e
+                             for e in ticks)
+        assert {e["rid"] for e in evs if e.get("ev") == "retire"} \
+            == set(outs)
+        assert [(e["fn"], e["engine_count"]) for e in evs
+                if e.get("ev") == "trace"] == [("prefill", 1), ("decode", 1)]
+
+    def test_timeline_lifecycle_exactly_once(self, run):
+        reg, _, _, outs = run
+        names = [e["name"] for e in obs.build_trace(reg)["traceEvents"]]
+        for rid in outs:
+            for stage in ("queued", "prefill", "TTFT", "retire"):
+                assert names.count(f"r{rid} {stage}") == 1, (rid, stage)
+            assert names.count(f"r{rid} decode") == len(outs[rid]) - 1
+        assert names.count("prefill") == len(outs)  # engine-phase lane
