@@ -11,6 +11,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. Build every kernel from ``src/repro_torch/csrc`` (one nvcc per source,
    started together) and print the build time and, per kernel entry,
    ptxas's registers, static shared memory and spills.
+2b. qlint (``repro_torch.analysis``), the analysis path: compile the PTX
+   of the eight kernels and the five qlint fixtures (``nvcc -ptx``, all
+   started together); run ``qlint --ptx`` over the 17 registry entries
+   (it must exit 0: no finding at the aten, launch-plan or PTX level, and
+   every integer-scale certificate certified or capped) and ``qlint
+   --fixtures --ptx`` (it must exit 1, with every fixture flagged under
+   its reference rule from the aten/plan pass and, where the rule has a
+   PTX form, from the PTX pass). Then the path: with the launch counts set
+   to 0 just before, each fixture runs once on the card, its output equal
+   to its plain version bit for bit, its inputs, pads and guards
+   unchanged, and the counts must show each launched once. Each fixture
+   is then timed beside its plain version (a replayed graph, except the
+   one that goes through the host) and, for the two copies, ``clone``.
+   One ``[qlint]`` line gives the entries, findings,
+   certificate verdicts, the worst accumulator's share of 2^31 and the
+   phase's time beside the card's name and power limit.
 3. Hold each kernel against its plain PyTorch version on the card at the
    main-path shapes of LLaMA-2-7B (g128: decode M 1..4 and prefill M 128
    for (K, N) in (4096, 4096), (4096, 11008), (11008, 4096); act_quant
@@ -116,16 +132,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    dense (q/k/v, o) and 2 routed (gate/up, down) a layer under IS and
    FS (4 and 3 in a tree whose linears each quantize their own).
 9. Print the ``kernels`` JSON line (the eight kernels, launches summed
-   over every served path), then the result line
+   over every served path; the five qlint fixtures, launches from their
+   run in phase 2b), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Per-shape and per-recipe numbers also go to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import gc
 import hashlib
+import io
 import json
 import math
 import subprocess
@@ -184,6 +204,19 @@ MOE_C = (8, 40)
 # the forced K split of the grouped W4A8 kernels: Mixtral's down
 # projection at the decode capacity (its plan runs unsplit)
 MOE_SPLIT = (14336, 4096, 8, 4)  # K, N, C, splits
+# qlint: each fixture's reference rule, and the rule its PTX must show
+# where the rule has a PTX form (tests/test_qlint.py's map)
+QLINT_RULE = {"broken-fp32-dot": "float-accum-on-is-path",
+              "broken-no-preferred": "int-dot-preferred-type",
+              "broken-narrowing": "narrowing-convert",
+              "broken-index-map": "index-map-bounds",
+              "broken-divisibility": "blockspec-divisibility"}
+QLINT_PTX_RULE = {"broken-fp32-dot": "float-accum-on-is-path",
+                  "broken-narrowing": "narrowing-convert"}
+# the one PyTorch call that computes a fixture, where there is one: the two
+# copies (the dot fixtures' int8 products have no CUDA library call at M = 8)
+QLINT_LIBRARY = {"broken_index_map": lambda x: x.narrow(0, 4, 8).clone(),
+                 "broken_divisibility": lambda x: x.clone()}
 # kernels vs plain versions on Mixtral's first layers: two, as for
 # llama2-7b (the CPU's plain grouped GEMMs take about 15 s a layer on the
 # card's 8-core host), with the same bound
@@ -1242,6 +1275,140 @@ def check_eager_streams(tag, api, cfg, eng, prompts, sc, outs):
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+def time_eager_ms(fn, args, iters=30):
+    """Mean ms per call of ``iters`` eager calls between CUDA events (for a
+    plain version that cannot be captured: one that goes through the
+    host)."""
+    import torch
+
+    fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def qlint_run(args: list[str]) -> tuple[int, list, list]:
+    """``python -m repro_torch.analysis.qlint <args>`` in process, its
+    lines logged: (exit code, findings, certificates)."""
+    from repro_torch.analysis import qlint
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = qlint.run(args)
+    for line in out.getvalue().splitlines():
+        log(f"[qlint] {line}")
+    return res
+
+
+def check_qlint(smi: str):
+    """Phase 2b: qlint's registry and fixtures at every level, then the
+    path: each fixture launched once on the card against its plain version,
+    its launches counted; then each fixture timed beside its plain version
+    (graph-replayed where it can be captured) and, for the two copies, the
+    one PyTorch call that computes it. Returns (kernel rows, stats)."""
+    import torch
+    from repro_torch.analysis import certify, fixtures, registry
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    ptx_s = _build.build(_build.KERNELS + _build.FIXTURES, ptx=True)
+    log(f"[qlint] PTX of {len(ptx_s)} sources in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc -ptx -arch=sm_90a)")
+
+    rc, findings, certs = qlint_run(["--ptx"])
+    if rc != 0 or findings:
+        raise AssertionError(f"qlint --ptx over the registry exited {rc}")
+    if not certs or not all(c.ok for c in certs):
+        raise AssertionError(f"qlint certificates: {certs}")
+    summ = certify.summary(certs)
+
+    rc_fx, fx_findings, _ = qlint_run(["--fixtures", "--ptx"])
+    if rc_fx != 1:
+        raise AssertionError(f"qlint --fixtures exited {rc_fx}, not 1")
+    entries = fixtures.entries()
+    for entry in entries:
+        mine = [f for f in fx_findings if f.kernel == entry.name]
+        by_level = {lvl: {f.rule for f in mine if f.level == lvl}
+                    for lvl in ("aten", "plan", "ptx")}
+        if QLINT_RULE[entry.name] not in by_level["aten"] | by_level["plan"]:
+            raise AssertionError(f"{entry.name}: not flagged "
+                                 f"{QLINT_RULE[entry.name]}: {mine}")
+        want_ptx = QLINT_PTX_RULE.get(entry.name)
+        if want_ptx and want_ptx not in by_level["ptx"]:
+            raise AssertionError(f"{entry.name}: PTX not flagged {want_ptx}: "
+                                 f"{mine}")
+        if any(f.rule == "analysis-error" for f in mine):
+            raise AssertionError(f"{entry.name}: {mine}")
+        log(f"[qlint] {entry.name}: flagged "
+            + "; ".join(f"{lvl} {sorted(r)}" for lvl, r in by_level.items()
+                        if r))
+
+    # the path: each fixture once on the card, its launches counted
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    errs = {e.op.name: fixtures.run_on_card(e.op) for e in entries}
+    torch.cuda.synchronize()
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in _build.FIXTURES}
+    if any(n != 1 for n in launches.values()):
+        raise AssertionError(f"qlint fixtures: launches {launches}")
+
+    # each fixture beside its plain version and library call (not counted)
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    for entry in entries:
+        op = entry.op
+        shapes = op.shapes()
+        inputs = [torch.randint(int(r.lo), int(r.hi) + 1, s, generator=gen,
+                                device="cuda", dtype=torch.int64).to(dt)
+                  for s, dt, r in zip(shapes[:-1], op.dtypes, op.ranges)]
+        out = torch.empty(shapes[-1], dtype=op.dtypes[-1], device="cuda")
+        ms = time_ms(lambda *a: op(*a, out=out), [tuple(inputs)])
+        if op.name == "broken_no_preferred":  # through the host
+            plain_ms, how = time_eager_ms(op.plain, inputs), "eager"
+        else:
+            plain_ms, how = time_ms(op.plain, [tuple(inputs)]), "graph"
+        library = QLINT_LIBRARY.get(op.name)
+        lib_ms = (time_ms(library, [tuple(inputs)])
+                  if library is not None else None)
+        if library is not None and not torch.equal(library(*inputs),
+                                                   op.plain(*inputs)):
+            raise AssertionError(f"{op.name}: the library call differs")
+        nbytes = sum(t.numel() * t.element_size() for t in (*inputs, out))
+        if len(inputs) == 2:  # the dot fixtures: M K N multiply-adds
+            macs = 2 * shapes[0][0] * shapes[0][1] * shapes[1][1]
+            rate = (F32_FLOPS_PER_S if op.dtypes[-1] == torch.float32
+                    else INT8_OPS_PER_S)
+            b, by = bound(nbytes, (macs, rate))
+        else:
+            b, by = bound(nbytes, (0, 1.0))
+        rows.append(dict(kernel=op.name, variant="qlint fixture",
+                         shape=[list(x) for x in shapes], ms=ms,
+                         plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                         library_ms=lib_ms, bf16_matmul_ms=None,
+                         err=errs[op.name], launches=launches[op.name]))
+        log(f"[kernel] {op.name} (qlint fixture) {shapes}: {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms ({how}), bound {b:.6f} ms ({by}), "
+            f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
+            "bit-equal to plain, pad and guards unchanged")
+    secs = time.perf_counter() - t0
+    log(f"[qlint] {smi}: registry {len(registry.entries())} entries, "
+        "0 findings, "
+        f"{summ['certified']} certified / {summ['capped-alpha']} capped / "
+        f"{summ['fallback']} fallback, worst accumulator "
+        f"{summ['worst_frac']:.3f} of 2^31; fixtures "
+        f"{len(entries)} entries, {len(fx_findings)} findings, each "
+        "flagged and launched once "
+        f"{json.dumps(launches)}; {secs:.1f} s")
+    return rows, dict(registry=summ, fixture_findings=len(fx_findings),
+                      launches=launches, seconds=secs, ptx_build_s=ptx_s)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1276,7 +1443,7 @@ def main() -> int:
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    times = _build.build()
+    times = _build.build(_build.KERNELS + _build.FIXTURES)
     log(f"[build] {len(times)} kernels in {time.perf_counter() - t0:.1f} s "
         + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
     ptxas = {name: ptxas_report(text)
@@ -1284,6 +1451,9 @@ def main() -> int:
     for name, fns in ptxas.items():
         for fn, info in fns.items():
             log(f"[build] {name}: {fn}: {info}")
+
+    # -- 2b. qlint: certificates, lint at every level, the fixtures -----------
+    qlint_rows, qlint_stats = check_qlint(smi)
 
     # -- 3. kernels against their plain versions --------------------------------
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -1329,7 +1499,7 @@ def main() -> int:
     toks = torch.tensor([prompts[0] + [0] * (128 - len(prompts[0]))],
                         device="cuda")
     n0 = len(prompts[0])
-    launches_total = {k: 0 for k in _build.KERNELS}
+    launches_total = collections.Counter(dict.fromkeys(_build.KERNELS, 0))
     serve_stats: dict[str, dict] = {}
     models = {}  # the IS and W4A16 served models, profiled in phase 7
     graphs = {}  # recipe -> its steps' launches a replay (phase 6's check)
@@ -1476,7 +1646,7 @@ def main() -> int:
         del eng, mq
         gc.collect()
         torch.cuda.empty_cache()
-    missing = sorted(k for k, n in launches_total.items() if n <= 0)
+    missing = sorted(k for k in _build.KERNELS if launches_total[k] <= 0)
     if missing:
         raise AssertionError(f"kernels never launched on a served path: "
                              f"{missing}")
@@ -1519,12 +1689,23 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "bf16_matmul_ms": r["bf16_matmul_ms"], "shape": shape})
+    for r in qlint_rows:  # row 11: the factory _pallas's five kernels
+        kernels.append({
+            "name": r["kernel"], "route": "cuda",
+            "source": f"src/repro_torch/csrc/fixtures/{r['kernel']}.cu",
+            "replaces": "src/repro/analysis/fixtures.py:18",
+            "launches": r["launches"], "max_abs_err": r["err"],
+            "max_abs_diff": r["err"], "ms": r["ms"], "kernel_ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "bf16_matmul_ms": None, "shape": r["shape"]})
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": smi, "torch": torch.__version__, "kernels": kernels,
         "shapes": rows, "serve": serve_stats, "breaker_drill": drill,
-        "launches_total": launches_total,
+        "launches_total": dict(launches_total), "qlint": qlint_stats,
+        "qlint_fixtures": qlint_rows,
         "profile": profiles, "ptxas": ptxas,
         "check": {"plain_logit_rel": rel, "plain_layers": PLAIN_CHECK_LAYERS,
                   "plain_cpu_s": cpu_s, "mixtral_plain_logit_rel": mrel,

@@ -11,7 +11,6 @@ final I32->F32 conversion:
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Literal
 
 import torch
@@ -153,19 +152,22 @@ def _bound(int_scale, group_size: int, w_bits: int, a_bits: int) -> int:
     return int(torch.sum(smax * per_group))
 
 
+def empirical_max_accum(xq, isw: ISWeight) -> int:
+    """Max |int32 accumulator| actually reached for a given batch (Fig. 8):
+    the running group sum of Eq. 2 in int64, so an overflow shows as a
+    value past 2^31 instead of wrapping."""
+    K, N = isw.qvalue.shape
+    g = isw.group_size
+    G = K // g
+    x3 = torch.as_tensor(xq).reshape(-1, G, g).to(torch.int64)
+    w3 = torch.as_tensor(isw.qvalue).reshape(G, g, N).to(torch.int64)
+    part = torch.einsum("tgk,gkn->tgn", x3, w3)
+    acc = torch.cumsum(part * isw.int_scale.to(torch.int64)[None], dim=1)
+    return int(acc.abs().max())
+
+
 def would_overflow(isw: ISWeight, a_bits: int = 8) -> bool:
     return overflow_bound(isw, a_bits) >= 2**31
-
-
-def max_safe_amplifier(qw: QWeight, alpha: int, a_bits: int = 8) -> int:
-    """Largest power of two <= ``alpha`` whose :func:`overflow_bound` is
-    < 2^31, or ``alpha`` itself when none is (no amplifier >= 1 is safe:
-    the layer needs the §B.4 de-amplified GEMM)."""
-    for e in range(int(math.log2(alpha)), -1, -1):
-        ints = _int_scales(qw.scale, 2**e)
-        if _bound(ints, qw.group_size, qw.bits, a_bits) < 2**31:
-            return 2**e
-    return alpha
 
 
 # ---------------------------------------------------------------------------

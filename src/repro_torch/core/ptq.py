@@ -8,7 +8,7 @@ nodes the model declared as quantized linears convert, so the embedding,
 head, norms and MoE routers stay fp exactly as the specs say. The port
 holds one tree per layer, so each linear quantizes on its own; an expert
 stack (E, K, N) quantizes expert by expert, each with its own scales and
-its own overflow-capped amplifier, and is stacked back, as the
+its own certified amplifier, and is stacked back, as the
 reference's ``_quantize_node`` does. Calibration-based algorithms
 (GPTQ/AWQ/SmoothQuant/OmniQuant/QuaRot) come with a later slice and
 raise here.
@@ -44,49 +44,60 @@ def _require_rtn(recipe: QuantRecipe) -> None:
                 "come with a later slice")
 
 
-def _quantize(fp_node, spec_node, path: str, recipe: QuantRecipe,
-              alphas: list[float]):
+def _quantize(fp_node, spec_node, path: str, recipe: QuantRecipe):
     """Walk ``spec_node`` with ``fp_node``; quantize every node declared as
-    a quantized linear (2-D, or an expert stack)."""
+    a quantized linear (2-D, or an expert stack), its certificates
+    labelled with its path."""
     if isinstance(spec_node, dict) and "qvalue" in spec_node:
+        from repro_torch.analysis import certify
+
         spec = recipe.spec_for(path)
         w = fp_node["w"]
-        if w.ndim == 3:
-            out = qlinear.quantize_experts(w, spec, bias=fp_node.get("b"))
-        else:
-            out = qlinear.quantize_linear(w.float(), spec,
-                                          bias=fp_node.get("b"))
-        if "alpha" in out:
-            alphas.extend(out["alpha"].reshape(-1).tolist())
-        return out
+        with certify.context(path):
+            if w.ndim == 3:
+                return qlinear.quantize_experts(w, spec,
+                                                bias=fp_node.get("b"))
+            return qlinear.quantize_linear(w.float(), spec,
+                                           bias=fp_node.get("b"))
     if isinstance(spec_node, dict):
         return {k: _quantize(fp_node[k], v, f"{path}/{k}" if path else k,
-                             recipe, alphas)
+                             recipe)
                 for k, v in spec_node.items()}
     if isinstance(spec_node, list):
-        return [_quantize(f, v, f"{path}/{i}", recipe, alphas)
+        return [_quantize(f, v, f"{path}/{i}", recipe)
                 for i, (f, v) in enumerate(zip(fp_node, spec_node))]
     return fp_node
 
 
 @contextlib.contextmanager
 def _ptq_run():
-    """One PTQ run's telemetry: the ``ptq_run_seconds`` span, the
-    ``ptq_runs_total`` count and the summary line. Yields the list the
-    integer-scale amplifiers are collected into."""
+    """One PTQ run's telemetry, as the reference's: the ``ptq_run_seconds``
+    span with the run's certificate counts (``certificates``, and
+    ``certified`` / ``capped_alpha`` / ``fallback`` when there are any),
+    the ``ptq_runs_total`` count and the ``[ptq] overflow certificates``
+    lines (every certificate that is not ``certified`` on its own)."""
+    from repro_torch.analysis import certify
+
+    n_before = len(certify.log())
     reg = obs.current_registry()
-    caps = reg.counter("alpha_cap_events_total", "")
-    caps_before = caps.total()
-    alphas: list[float] = []
+    s = certs = None
     with obs.span(reg, "ptq_run_seconds", event="ptq_run") as sp:
-        yield alphas
-        sp.fields.update(layers=len(alphas),
-                         capped_alpha=int(caps.total() - caps_before))
+        yield
+        certs = certify.log()[n_before:]
+        sp.fields["certificates"] = len(certs)
+        if certs:
+            s = certify.summary(certs)
+            sp.fields.update(certified=s["certified"],
+                             capped_alpha=s["capped-alpha"],
+                             fallback=s["fallback"])
     reg.counter("ptq_runs_total", "post_training_quantize invocations").inc()
-    if alphas:
-        print(f"[ptq] {len(alphas)} integer-scale layers: "
-              f"{int(caps.total() - caps_before)} alpha capped by the "
-              f"overflow bound, min alpha {min(alphas):g}")
+    if s is not None:
+        print(f"[ptq] overflow certificates: {s['certified']} certified / "
+              f"{s['capped-alpha']} capped-alpha / {s['fallback']} fallback"
+              f" (worst accumulator {s['worst_frac']:.3f} of 2^31)")
+        for c in certs:
+            if c.verdict != "certified":
+                print(f"[ptq]   {c}")
 
 
 def post_training_quantize(api: ModelApi, cfg: ModelConfig, fp_params: Any,
@@ -94,14 +105,14 @@ def post_training_quantize(api: ModelApi, cfg: ModelConfig, fp_params: Any,
     """fp params tree -> quantized params tree matching
     ``api.param_specs(cfg, recipe)``.
 
-    Prints one summary line: layers quantized (each expert counts as one),
-    amplifiers capped by the overflow bound (``alpha_cap_events_total``),
-    and the smallest alpha.
+    Every integer-scale layer (each expert counts as one) is certified
+    for INT32 overflow as it quantizes; the run prints the certificates'
+    summary (``[ptq] overflow certificates: ...``).
     """
     _require_rtn(recipe)
     qspec_tree = api.param_specs(cfg, recipe)
-    with _ptq_run() as alphas:
-        return _quantize(fp_params, qspec_tree, "", recipe, alphas)
+    with _ptq_run():
+        return _quantize(fp_params, qspec_tree, "", recipe)
 
 
 def _fp_by_layer(api: ModelApi, cfg: ModelConfig, seed: int, device):
@@ -140,14 +151,14 @@ def quantize_by_layer(api: ModelApi, cfg: ModelConfig, recipe: QuantRecipe,
     _require_rtn(recipe)
     qspecs = api.param_specs(cfg, recipe)
     out: dict = {}
-    with _ptq_run() as alphas:
+    with _ptq_run():
         for i, fp in _fp_by_layer(api, cfg, seed, device):
             if i is None:
                 out.update(_quantize(
                     fp, {k: v for k, v in qspecs.items() if k != "blocks"},
-                    "", recipe, alphas), blocks=[])
+                    "", recipe), blocks=[])
             else:
                 out["blocks"].append(_quantize(
-                    fp, qspecs["blocks"][i], f"blocks/{i}", recipe, alphas))
+                    fp, qspecs["blocks"][i], f"blocks/{i}", recipe))
             del fp
     return out

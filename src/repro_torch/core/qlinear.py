@@ -14,10 +14,11 @@ tensor's device is the only switch: on CUDA tensors the wrappers launch
 the Hopper kernels (or raise), on CPU tensors they take their plain
 PyTorch versions. There is no kernel mode to thread.
 
-Overflow safety: where the reference certifies each layer's amplifier
-with a jaxpr interval interpreter, the port caps it with the closed-form
-``integer_scale.overflow_bound``: the largest power of two whose bound is
-< 2^31.
+Overflow safety: :func:`finish_quant` certifies each integer-scale
+layer's amplifier with ``analysis.certify.resolve_amplifier`` (the interval
+interpreter over the port's traced int32 Eq. 2 contraction, the
+reference's certificate field for field) and caps it to the largest
+statically safe power of two.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from repro_torch import obs
 from repro_torch.kernels import ops as kops
 from repro_torch.nn import spec as S
 from . import packing
-from .integer_scale import integerize, max_safe_amplifier, would_overflow
+from .integer_scale import integerize
 from .quant import QWeight, quantize_weight
 from .recipe import QuantSpec
 
@@ -94,21 +95,26 @@ def finish_quant(
     rot: torch.Tensor | None = None,
 ) -> dict[str, torch.Tensor]:
     """Shared finishing step: pack int4, integerize the scales (the paper's
-    free lunch) with the amplifier capped to the overflow-safe power of
-    two, assemble the param dict.
+    free lunch), assemble the param dict. Every integer-scale layer's
+    amplifier is certified (``analysis.certify.resolve_amplifier``, logged
+    with the enclosing ``certify.context``) and, where the certificate
+    caps it, integerized again at the certified power of two.
 
     Telemetry: one ``quantized_layers_total{scheme}`` tick per layer, and
-    ``alpha_cap_events_total`` whenever the cap forces the amplifier below
-    the requested value (created unconditionally, so snapshots show 0).
+    ``alpha_cap_events_total`` whenever the certificate forces the
+    amplifier below the requested value (created unconditionally, so
+    snapshots show 0).
     """
     if pre_scale is not None or rot is not None:
         raise NotImplementedError(
             "pre_scale / rot come with the calibration port slice")
+    from repro_torch.analysis import certify
+
     reg = obs.current_registry()
     caps = reg.counter(
         "alpha_cap_events_total",
         "layers whose amplifier was capped below request by the "
-        "INT32-overflow bound")
+        "INT32-overflow certificate")
     caps.inc(0)
     qvalue = packing.pack_int4(codes) if qspec.w_bits == 4 else codes
     out: dict[str, torch.Tensor] = {"qvalue": qvalue}
@@ -116,11 +122,13 @@ def finish_quant(
             and qspec.fine_grained):
         qw = QWeight(codes, scales, qspec.w_bits, qspec.group_size)
         isw = integerize(qw, qspec.amplifier)
-        if would_overflow(isw, qspec.a_bits):
-            safe = max_safe_amplifier(qw, isw.alpha, qspec.a_bits)
-            if safe != isw.alpha:
-                caps.inc()
-                isw = integerize(qw, safe)
+        cert = certify.resolve_amplifier(
+            scales.detach().cpu().numpy(), alpha=isw.alpha,
+            group_size=qspec.group_size, w_bits=qspec.w_bits,
+            a_bits=qspec.a_bits)
+        if cert.resolved_alpha != isw.alpha:
+            caps.inc()
+            isw = integerize(qw, cert.resolved_alpha)
         scheme = f"w{qspec.w_bits}a{qspec.a_bits}-is"
         out["scale"] = isw.int_scale
         out["alpha"] = torch.tensor(float(isw.alpha), dtype=torch.float32,
@@ -149,7 +157,7 @@ def quantize_linear(w: torch.Tensor, qspec: QuantSpec, *,
 def quantize_experts(w: torch.Tensor, qspec: QuantSpec, *,
                      bias: torch.Tensor | None = None) -> dict:
     """An expert stack (E, K, N): each expert's slice quantized on its own
-    (its own scales and its own overflow-capped alpha), then stacked, as
+    (its own scales and its own certified alpha), then stacked, as
     the reference's PTQ quantizes expert slices."""
     outs = [quantize_linear(w[e], qspec,
                             bias=None if bias is None else bias[e])

@@ -13,13 +13,18 @@ Codes and scales are bit-identical to the reference: amax in f32, a true
 division ``max(amax, 1e-8) / qmax``, ``torch.round`` (half to even, like
 ``jnp.round``) of a true division ``x / scale``, then a clamp.
 
-Integer products: ``torch.matmul`` has no int32 kernel on CUDA, so
-:func:`group_partials` forms each group's int8 x int8 partial in float64
-and casts it to int32. That is exact: a partial is at most
-``group_size * 127 * 127`` in absolute value, far below 2^53.
+Integer products: ``torch.matmul`` has no int32 kernel on CUDA, and
+the CPU's int32 ``bmm`` has no BLAS behind it, so :func:`group_partials`
+forms each group's int8 x int8 partial in float64 and casts it to int32.
+That is exact: a partial is at most ``group_size * 127 * 127`` in
+absolute value, far below 2^53. Inside :func:`int32_partials` (the
+analysis's traces, on CPU tensors) it forms the partial as an int32
+``bmm`` instead, so a traced plain version is the integer contraction the
+kernels run; the two agree bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -131,19 +136,37 @@ def quantize_activation(x: torch.Tensor, bits: int = 8):
 # ---------------------------------------------------------------------------
 
 
+_INT32_PARTIALS = [False]
+
+
+@contextlib.contextmanager
+def int32_partials():
+    """Within: :func:`group_partials` forms its partials as an int32
+    ``bmm`` (CPU tensors only), the contraction the analysis traces."""
+    prev = _INT32_PARTIALS[0]
+    _INT32_PARTIALS[0] = True
+    try:
+        yield
+    finally:
+        _INT32_PARTIALS[0] = prev
+
+
 def group_partials(xq: torch.Tensor, wq: torch.Tensor,
                    group_size: int) -> torch.Tensor:
-    """(M, K) int8 x (K, N) int8 -> (G, M, N) int32 per-group partials.
-
-    Formed in float64 (exact, see the module docstring) so the same code
-    runs on the CPU and on CUDA.
-    """
-    M, K = xq.shape
-    N = wq.shape[1]
+    """(..., M, K) int8 x (..., K, N) int8 -> (..., G, M, N) int32
+    per-group partials (leading dims, such as experts, batch), formed as
+    the module docstring says."""
+    *lead, M, K = xq.shape
+    N = wq.shape[-1]
     G = K // group_size
-    x3 = xq.reshape(M, G, group_size).transpose(0, 1).double()  # (G, M, g)
-    w3 = wq.reshape(G, group_size, N).double()                  # (G, g, N)
-    return torch.bmm(x3, w3).to(torch.int32)
+    x3 = xq.reshape(*lead, M, G, group_size).transpose(-3, -2).reshape(
+        -1, M, group_size)                                   # (.. G, M, g)
+    w3 = wq.reshape(-1, group_size, N)                       # (.. G, g, N)
+    if _INT32_PARTIALS[0]:
+        part = torch.bmm(x3.to(torch.int32), w3.to(torch.int32))
+    else:
+        part = torch.bmm(x3.double(), w3.double()).to(torch.int32)
+    return part.reshape(*lead, G, M, N)
 
 
 # ---------------------------------------------------------------------------

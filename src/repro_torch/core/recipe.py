@@ -6,9 +6,8 @@ LLaMA-3 recipe §5.6: W4A8 fine-grained everywhere, W8A8 fine-grained for
 down-projections, QuaRot rotation on).
 
 A stdlib-only copy of ``repro/core/recipe.py`` (the port imports nothing
-of ``repro``). ``certify_recipe`` is left out: it rides on the JAX
-interval certificates, which the port replaces with the closed-form
-``integer_scale.overflow_bound``.
+of ``repro``); ``certify_recipe`` reads the port's own certificates
+(``repro_torch.analysis.certify``), imported when it is called.
 """
 from __future__ import annotations
 
@@ -93,3 +92,24 @@ LLAMA3_RECIPE = QuantRecipe(
 DEFAULT_RECIPE = QuantRecipe()
 FLOAT_SCALE_RECIPE = QuantRecipe(rules=(("*", W4A8_FS),), name="w4a8-fs")
 WEIGHT_ONLY_RECIPE = QuantRecipe(rules=(("*", W4A16_FG),), name="w4a16-fg")
+
+
+def certify_recipe(recipe: QuantRecipe, dims: dict[str, int]) -> dict:
+    """Static overflow verdict per (rule, contraction dim), no tensors.
+
+    ``dims`` maps a label (e.g. "d_model", "d_ff") to a contraction size
+    K. Returns {f"{pattern}@{label}": verdict} using the data-free scale
+    contract of :func:`repro_torch.analysis.certify.spec_verdict` —
+    verdicts are "certified" / "capped-alpha" / "fallback" /
+    "data-dependent" (heuristic amplifiers resolve per layer at
+    quantization time) / "n/a" (no INT32 accumulation to certify).
+    Quantization itself (qlinear.finish_quant) re-certifies with the
+    layer's real scales.
+    """
+    from repro_torch.analysis import certify
+
+    out = {}
+    for pat, spec in recipe.rules:
+        for label, K in dims.items():
+            out[f"{pat}@{label}"] = certify.spec_verdict(spec, int(K))
+    return out

@@ -13,6 +13,14 @@ first use, and :func:`build` compiles several sources at once (one
 ``nvcc`` each, all started together). ``--use_fast_math`` is deliberately
 absent: it makes ``/`` approximate and would break the bit-exact codes.
 
+The qlint fixtures (``csrc/fixtures/<name>.cu``, :data:`FIXTURES`: kernels
+seeded with one defect each, ``analysis/fixtures.py``) build the same way.
+:func:`ptx` gives the PTX of any of these sources, for qlint's PTX level:
+``build(names, ptx=True)`` runs ``nvcc -ptx -arch=sm_90a`` with the same
+flags less ``-shared``, ``-Xcompiler -fPIC`` and ``-Xptxas -v`` (the
+libraries hold only ``sm_90a`` SASS, so no PTX can be read back from
+them), cached under the same content hash.
+
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises when that is not 0. :data:`LAUNCHES` counts the
 launches of each kernel; only a wrapper that has just launched its kernel
@@ -35,13 +43,18 @@ from pathlib import Path
 KERNELS = ("act_quant", "w4a8_gemm_is", "flash_attention", "w4a8_gemm_fs",
            "w4a16_gemm", "moe_w4a8_is", "moe_w4a8_fs", "moe_w4a16")
 
+FIXTURES = ("broken_fp32_dot", "broken_no_preferred", "broken_narrowing",
+            "broken_index_map", "broken_divisibility")
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <repo>/build/repro_torch when run from a checkout (src/repro_torch/...)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+PTX_FLAGS = ("-ptx", "-arch=sm_90a", "-std=c++17", "-O3")
 
-#: kernel name -> launches since the last :func:`reset_launches`
+#: kernel name -> launches since the last :func:`reset_launches` (a
+#: fixture's name joins at its first launch)
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 #: kernel name -> nvcc's output from the build in this process (ptxas -v)
 BUILD_LOG: dict[str, str] = {}
@@ -52,7 +65,7 @@ _LOCK = threading.Lock()
 
 
 def count(name: str) -> None:
-    LAUNCHES[name] += 1
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
 
 
 def add_launches(launches: dict[str, int]) -> None:
@@ -66,7 +79,8 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """Path of ``nvcc``; raises when there is none."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     if home and (Path(home) / "bin" / "nvcc").exists():
         return str(Path(home) / "bin" / "nvcc")
@@ -76,26 +90,36 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+def source(name: str) -> Path:
+    """The CUDA source of kernel or fixture ``name``."""
+    if name in FIXTURES:
+        return CSRC / "fixtures" / f"{name}.cu"
+    return CSRC / f"{name}.cu"
+
+
+def _target(name: str, ptx: bool = False) -> Path:
+    flags = PTX_FLAGS if ptx else NVCC_FLAGS
+    digest = hashlib.sha256(source(name).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    digest.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.{'ptx' if ptx else 'so'}"
 
 
-def build(names=KERNELS) -> dict[str, float]:
-    """Compile every missing library among ``names`` in parallel; returns
-    {name: seconds} for the ones compiled. Raises on a failed build."""
+def build(names=KERNELS, ptx: bool = False) -> dict[str, float]:
+    """Compile every missing library (``ptx``: PTX file) among ``names`` in
+    parallel; returns {name: seconds} for the ones compiled. Raises on a
+    failed build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = PTX_FLAGS if ptx else NVCC_FLAGS
     jobs = {}
     t0 = time.perf_counter()
     for name in names:
-        out = _target(name)
+        out = _target(name, ptx)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *flags, "-o", str(tmp), str(source(name))]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs[name] = (proc, tmp, out)
@@ -103,7 +127,8 @@ def build(names=KERNELS) -> dict[str, float]:
     for name, (proc, tmp, out) in jobs.items():
         log, _ = proc.communicate()
         times[name] = time.perf_counter() - t0
-        BUILD_LOG[name] = log
+        if not ptx:
+            BUILD_LOG[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             tmp.unlink(missing_ok=True)
@@ -112,6 +137,12 @@ def build(names=KERNELS) -> dict[str, float]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return times
+
+
+def ptx(name: str) -> str:
+    """The PTX of kernel or fixture ``name`` (compiled on first use)."""
+    build([name], ptx=True)
+    return _target(name, ptx=True).read_text()
 
 
 def function(name: str, symbol: str, argtypes: list):

@@ -46,14 +46,14 @@ import ctypes
 
 import torch
 
-from repro_torch.core.packing import LAYOUT_UNIT
+from repro_torch.core.packing import LAYOUT_UNIT, layout_unit_for, unpack_int4
+from repro_torch.core.quant import group_partials
 
 from . import _build
 from .act_quant import act_quant_plain, act_quant_routed
 from .w4a16_gemm import w4a16_gemm_plain
 from .w4a8_gemm import aligned as _aligned
-from .w4a8_gemm import (amplifiers, check_group, fg_gemm_integer_scale_plain,
-                        launch_plan_on)
+from .w4a8_gemm import amplifiers, check_group, launch_plan_on
 from .w4a8_gemm_fscale import fg_gemm_float_scale_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -87,15 +87,19 @@ def fg_grouped_gemm_integer_scale_plain(
     alpha,                    # python float, or f32 (E,) per expert
     w_bits: int = 4,
 ) -> torch.Tensor:
-    """Batched-expert Eq. 2: each expert's dense plain GEMM, with 1/alpha
-    folded into sa first (``sa / alpha[e]``, the reference's op order)."""
-    E = xq.shape[0]
-    sa = sa / amplifiers(alpha, E, sa.device).reshape(E, 1, 1)
-    return torch.stack([
-        fg_gemm_integer_scale_plain(xq[e], sa[e], qvalue[e], int_scale[e],
-                                    group_size=group_size, alpha=1.0,
-                                    w_bits=w_bits)
-        for e in range(E)])
+    """Batched-expert Eq. 2, every expert in one int32 contraction: the
+    dense plain GEMM's arithmetic with an expert axis (so one int32 ->
+    f32 convert), 1/alpha folded into sa first (``sa / alpha[e]``, the
+    reference's op order)."""
+    E, C, K = xq.shape
+    N = qvalue.shape[-1]
+    w = (unpack_int4(qvalue.reshape(-1, N), layout_unit_for(K)).reshape(
+        E, K, N) if w_bits == 4 else qvalue)
+    part = group_partials(xq, w, group_size)  # (E, G, C, N) int32
+    acc = torch.sum(part * int_scale[:, :, None, :], dim=1,
+                    dtype=torch.int32)
+    return acc.float() * (sa / amplifiers(alpha, E, sa.device).reshape(
+        E, 1, 1))
 
 
 def fg_grouped_gemm_float_scale_plain(

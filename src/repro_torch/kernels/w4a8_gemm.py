@@ -49,8 +49,8 @@ def fg_gemm_integer_scale_plain(
 ) -> torch.Tensor:
     """Eq. 2: int32 group accumulation, single final convert.
 
-    Group partials are formed in float64 (exact, see
-    ``core.quant.group_partials``) because CUDA has no int32 matmul, then
+    Group partials come from ``core.quant.group_partials`` (exact
+    float64, or an int32 product in the analysis's traces), then are
     summed in int32 like the reference's accumulator.
     """
     w = unpack_int4(qvalue) if w_bits == 4 else qvalue

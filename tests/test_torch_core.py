@@ -140,6 +140,26 @@ def test_alpha_cap_equals_reference_certificate(jax_literal, amplifier,
         assert float(tp["alpha"]) < amplifier
 
 
+@pytest.mark.parametrize("amplifier", [1024, 2**16, 2**20, 2**30])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_alpha_cap_equals_reference_certificate_uneven_groups(
+        jax_literal, amplifier, bits):
+    """Group maxima that differ (one large entry in group 0 only): the
+    reference's certificate bounds by groups x the global max integer
+    scale, which a sum of per-group maxima undercuts; alpha, codes and
+    integer scales still equal the reference's."""
+    w = _weights(6, 4 * 128, 24, scale=0.01)
+    w[0, 0] = 3.0
+    spec = QuantSpec(w_bits=bits, amplifier=amplifier)
+    tp = tqlinear.quantize_linear(torch.from_numpy(w), spec)
+    jp = jqlinear.quantize_linear(jnp.asarray(w), JQuantSpec(
+        w_bits=bits, amplifier=amplifier))
+    for k in ("qvalue", "scale", "alpha"):
+        _eq(tp[k], jp[k])
+    if amplifier >= 2**20:
+        assert float(tp["alpha"]) < amplifier
+
+
 def test_quantize_tree_equals_reference(jax_literal):
     """Every 2-D ``{"w"}`` node whose path the recipe matches quantizes,
     first rule winning (W8A8-IS heuristic+6 on ``*down*``, W4A8-IS g128

@@ -35,12 +35,23 @@ the MoE m-tile counters under replay equal an eager run's; a quarantined
 slot reused serves a fresh engine's tokens; and ``_build.LAUNCHES`` after
 a served run is each graph's captured launches times its replays plus
 one warm-up call each.
+
+qlint's card levels (``repro_torch.analysis``): the PTX of every
+registered entry's sources is clean (no accumulator narrowed to 8/16
+bits; every integer-scale kernel on the int8 MMA, no float MMA); the
+fixtures whose reference rule has a PTX form are flagged from their PTX;
+and each fixture's kernel, launched once, equals its plain version bit
+for bit with every input, pad and guard unchanged.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import obs
+from repro_torch.analysis import fixtures as qfixtures
+from repro_torch.analysis import qlint
+from repro_torch.analysis import registry as qregistry
+from repro_torch.analysis.lint import run_ptx_rules
 from repro_torch.core import integer_scale as isc
 from repro_torch.core import packing, qlinear, quant
 from repro_torch.core.recipe import QuantSpec
@@ -1175,3 +1186,36 @@ def test_served_launches_are_replays_of_the_captured_counts(cuda, arch):
     assert _build.LAUNCHES == {
         k: d.get(k, 0) * (eng.ticks + 1) + p.get(k, 0) * (len(prompts) + 1)
         for k in _build.LAUNCHES}
+
+
+# ---------------------------------------------------------------------------
+# qlint on the card: the PTX level and the fixtures' launches
+# ---------------------------------------------------------------------------
+
+_PTX_RULE = {"broken-fp32-dot": "float-accum-on-is-path",
+             "broken-narrowing": "narrowing-convert"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", qregistry.entries(), ids=lambda e: e.name)
+def test_registry_ptx_level_clean(cuda, entry):
+    findings, cert, _ = qlint.check_entry(entry, ptx=True)
+    assert not findings, [str(f) for f in findings]
+    assert cert is None or cert.verdict == "certified"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_PTX_RULE))
+def test_fixture_flagged_from_its_ptx(cuda, name):
+    entry = next(e for e in qfixtures.entries() if e.name == name)
+    found = run_ptx_rules(entry, {s: _build.ptx(s) for s in entry.sources})
+    assert _PTX_RULE[name] in {f.rule for f in found if f.level == "ptx"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", qfixtures.entries(), ids=lambda e: e.name)
+def test_fixture_launch_equals_plain_pad_untouched(cuda, entry):
+    name = entry.sources[0]
+    before = _build.LAUNCHES.get(name, 0)
+    assert qfixtures.run_on_card(entry.op, seed=3) == 0.0
+    assert _build.LAUNCHES[name] == before + 1

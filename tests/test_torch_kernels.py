@@ -556,6 +556,7 @@ def test_nibble_times_16_unpack_is_exact():
     it, with no int32 overflow for a group of up to 2^16 rows even at the
     extreme codes, and the IS group step at the largest amplifier the
     quantizer admits (its overflow cap) matches the plain int32 sum."""
+    from repro_torch.analysis import certify
     from repro_torch.core import integer_scale as isc
     from repro_torch.core import packing, quant
 
@@ -585,7 +586,9 @@ def test_nibble_times_16_unpack_is_exact():
     rng = np.random.default_rng(12)
     w = torch.from_numpy((rng.normal(size=(K, N)) * 0.05).astype(np.float32))
     qw = quant.quantize_weight(w, 4, g)
-    alpha = isc.max_safe_amplifier(qw, 1 << 20)
+    alpha = certify.resolve_amplifier(
+        qw.scale.numpy(), alpha=1 << 20, group_size=g,
+        w_bits=4).resolved_alpha
     isw = isc.integerize(qw, alpha)
     assert not isc.would_overflow(isw)
     xq = torch.where(qw.qvalue[:, :1] >= 0, 127, -127).T.to(torch.int8)
