@@ -114,6 +114,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    IS step must run no elementwise division kernel (``DivFunctor``): the
    GEMM's epilogue divides ``sa / alpha``.
    Free the llama2-7b weights.
+7b. ``[calib]``: ``llama2-7b`` at full width (32 layers, bf16, seed 0),
+   its fp weights drawn whole (13.5 GB) and run over 2 seeded synthetic
+   calibration batches of 4 x 128 tokens with the capture on
+   (``ptq.collect_calibration``: 512 rows per linear). For each of layer
+   0's seven linears, AWQ's and OmniQuant's calibration output MSE must
+   be at most RTN's (both grids hold the RTN point). Then W4A8 g128 IS
+   under GPTQ, AWQ, SmoothQuant and OmniQuant in turn (each PTQ, which
+   captures the batches again, timed; the fp weights freed before
+   OmniQuant is served, held while the others are), each served as in
+   phase 5: every outcome ``ok``, one
+   capture per step, exactly the IS kernels and the graphs' counts, the
+   first token the argmax, the first 2 layers against the CPU's plain
+   versions; GPTQ's and AWQ's streams equal the eager greedy loop;
+   ``[launches]``: act_quant 4 a layer under GPTQ and OmniQuant, 7 under
+   AWQ and SmoothQuant (each linear divides its own input by its
+   ``pre_scale`` before quantizing it).
 8. ``mixtral-8x7b`` at full width (32 layers, 8 experts top-2, expert d_ff
    14336), built block by block (``ptq.quantize_by_layer``: one block's
    fp weights on the card at a time) under IS, FS and W4A16, one recipe at
@@ -131,6 +147,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    The tick's launches are counted as in phase 5: act_quant exactly 2
    dense (q/k/v, o) and 2 routed (gate/up, down) a layer under IS and
    FS (4 and 3 in a tree whose linears each quantize their own).
+8b. ``[llama3]``: ``llama3.2-3b`` at full width (28 layers, 24 query
+   heads over 8 KV heads of 128, bf16, seed 0) quantized under the
+   paper's LLaMA-3 recipe (``LLAMA3_RECIPE``: W8A8 g128 heuristic+6 on
+   the down projections, W4A8 g128 IS elsewhere, QuaRot rotation on every
+   linear, one rotation per (K, layer) shared by the linears that take
+   it); every down projection's overflow certificate must be certified
+   or capped. Served as in phase 5 (streams equal the eager greedy loop;
+   act_quant 7 a layer; one tick's quantized GEMM calls 168 W4A8 IS and
+   28 W8A8 IS), then one eager decode step profiled with shapes for the
+   device time of its 196 ``x @ rot`` products, which are also timed
+   alone as a replayed graph.
 9. Print the ``kernels`` JSON line (the eight kernels, launches summed
    over every served path; the five qlint fixtures, launches from their
    run in phase 2b), then the result line
@@ -221,6 +248,10 @@ QLINT_LIBRARY = {"broken_index_map": lambda x: x.narrow(0, 4, 8).clone(),
 # llama2-7b (the CPU's plain grouped GEMMs take about 15 s a layer on the
 # card's 8-core host), with the same bound
 MIXTRAL_PLAIN_CHECK_LAYERS = 2
+# phase 7b: the calibration algorithms on llama2-7b, calibrated on this
+# many seeded synthetic batches of 4 x 128 tokens
+CALIB_ALGOS = ("gptq", "awq", "smoothquant", "omniquant")
+CALIB_BATCHES = 2
 
 
 def log(*a):
@@ -922,11 +953,14 @@ def shares_quantization() -> bool:
     return hasattr(ops, "quantize_for")
 
 
-def tick_launches(api, cfg, model, sc):
+def tick_launches(api, cfg, model, sc, schemes=None):
     """Each kernel's launches in one 4-slot decode step, and how many of
     the act_quant launches were its routed entry's (counted by wrapping
-    the name the grouped wrappers call)."""
+    the name the grouped wrappers call). ``schemes``: a dict that gets
+    the step's quantized GEMM calls per scheme (``w4a8-is``, ``w8a8-is``
+    ...)."""
     import torch
+    from repro_torch import obs
     from repro_torch.kernels import _build, moe_gemm
 
     cache, toks, pos = _decode_inputs(api, cfg, sc)
@@ -937,8 +971,9 @@ def tick_launches(api, cfg, model, sc):
         return real(*a, **k)
 
     moe_gemm.act_quant_routed = counted
+    reg = obs.Registry()
     try:
-        with torch.inference_mode():
+        with torch.inference_mode(), obs.use_registry(reg):
             torch.cuda.synchronize()
             _build.reset_launches()
             model(toks, mode="decode", cache=cache, pos=pos)
@@ -946,19 +981,28 @@ def tick_launches(api, cfg, model, sc):
             launches = dict(_build.LAUNCHES)
     finally:
         moe_gemm.act_quant_routed = real
+    if schemes is not None:
+        calls = reg.counter("qgemm_calls_total", "",
+                            ("scheme", "kind", "shape", "block"))
+        for (scheme, *_), n in calls.items():
+            schemes[scheme] = schemes.get(scheme, 0) + int(n)
     del cache
     return launches, len(routed)
 
 
-def check_tick_launches(tag, name, cfg, launches, routed):
+def check_tick_launches(tag, name, cfg, launches, routed, per_layer=None):
     """act_quant launches of one decode tick: one per distinct quantized
     activation (dense: q/k/v, o, gate/up, down; MoE: q/k/v, o dense and
     gate/up, down routed), or one per W4A8 linear in a tree that does not
-    share; none under W4A16. Logs and returns the counts."""
+    share; none under W4A16; ``per_layer`` dense ones a layer where the
+    caller states it (a recipe whose linears transform their inputs).
+    Logs and returns the counts."""
     L = cfg.num_layers
     moe_layers = bool(cfg.num_experts)
     shared = shares_quantization()
-    if name.startswith("w4a16"):
+    if per_layer is not None:
+        want_dense, want_routed = per_layer * L, 0
+    elif name.startswith("w4a16"):
         want_dense, want_routed = 0, 0
     elif moe_layers:
         want_dense, want_routed = (2 * L, 2 * L) if shared else (4 * L, 3 * L)
@@ -1409,6 +1453,250 @@ def check_qlint(smi: str):
                       launches=launches, seconds=secs, ptx_build_s=ptx_s)
 
 
+def serve_checked(tag, name, api, cfg, qparams, recipe, sc, prompts, toks,
+                  n0, launches_total, *, per_layer, eager):
+    """Phase 5's serve and checks for one recipe of a later phase: every
+    outcome ok, exactly the W4A8 IS kernels launched and exactly the
+    graphs' counts, the first token the argmax of the logits, the first
+    layers on the card against the CPU's plain versions, the engine's
+    streams against the eager greedy loop (``eager``), and ``per_layer``
+    act_quant a layer in one decode tick. Returns (stats, the tick's
+    quantized GEMM calls per scheme)."""
+    eng, outs, launches, reg, wall, peak = serve_recipe(
+        api, cfg, qparams, recipe, sc, prompts)
+    check_launches(f"{tag} {name}", launches, KERNELS_OF["w4a8-is"])
+    steps = check_steps(f"{tag} {name}", eng, reg, launches)
+    for k, n in launches.items():
+        launches_total[k] += n
+    first_token_is_argmax(f"{tag} {name}", eng, toks, n0, outs[0][0])
+    if eager:
+        check_eager_streams(f"{tag} {name}", api, cfg, eng, prompts, sc,
+                            outs)
+    rel, cpu_s = plain_check(api, cfg, qparams, recipe, toks, n0,
+                             PLAIN_CHECK_LAYERS)
+    st = report_serve(tag, name, api, cfg, eng, outs, launches, reg, wall,
+                      sc, peak)
+    schemes: dict = {}
+    st.update(steps=steps, plain_logit_rel=rel, plain_cpu_s=cpu_s,
+              tick_launches=check_tick_launches(
+                  tag, name, cfg, *tick_launches(api, cfg, eng.model, sc,
+                                                 schemes),
+                  per_layer=per_layer),
+              tick_gemm_calls=schemes)
+    return st, eng
+
+
+def _fp_linear(fp, path):
+    node = fp
+    for k in path.split("/"):
+        node = node[int(k)] if isinstance(node, list) else node[k]
+    return node["w"].float()
+
+
+def calib_phase(api, cfg, sc, prompts, toks, n0, launches_total, smi):
+    """Phase 7b: llama2-7b's fp weights drawn whole, captured over the
+    calibration batches, quantized W4A8 g128 IS under each calibration
+    algorithm and served. Layer 0's seven linears: AWQ's and OmniQuant's
+    calibration output MSE at most RTN's."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import ptq
+    from repro_torch.core.algorithms import awq, omniquant
+    from repro_torch.core.recipe import QuantRecipe, QuantSpec
+    from repro_torch.data.pipeline import calib_batches
+    from repro_torch.nn import spec as S
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    fp = S.materialize(api.param_specs(cfg, None), gen, device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    batches = calib_batches(CALIB_BATCHES, vocab_size=cfg.vocab_size,
+                            seq_len=128, batch_size=4)
+    t0 = time.perf_counter()
+    captured = ptq.collect_calibration(api, cfg, fp, batches)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    rows = {len(torch.cat(r)) for r in captured.values()}
+    log(f"[calib] {cfg.name}: {cfg.num_layers} layers, random bf16 weights "
+        f"{draw_s:.2f} s; {len(batches)} calibration batches of 4 x 128 "
+        f"synthetic tokens captured in {calib_s:.2f} s: {len(captured)} "
+        f"linears, {sorted(rows)} rows each")
+    if len(captured) != 7 * cfg.num_layers:
+        raise AssertionError(f"calibration captured {len(captured)} linears")
+
+    mse = {}
+    for path in sorted(p for p in captured if p.startswith("blocks/0/")):
+        w, x = _fp_linear(fp, path), torch.cat(captured[path])
+        ref = x @ w
+        rtn = awq.output_mse(x, ref, *awq._rtn(w, 4, GROUP))
+        a = awq.output_mse(x, ref, *awq.awq_quantize(w, x, 4, GROUP))
+        o = awq.output_mse(x, ref, *omniquant.omniquant_quantize(w, x, 4,
+                                                                 GROUP))
+        mse[path] = dict(rtn=rtn, awq=a, omniquant=o)
+        log(f"[calib] layer 0 {path}: calibration output MSE RTN {rtn:.6g}, "
+            f"AWQ {a:.6g} ({a / rtn:.4f}x), OmniQuant {o:.6g} "
+            f"({o / rtn:.4f}x)")
+        if not (a <= rtn and o <= rtn):
+            raise AssertionError(f"{path}: a search lost to RTN: {mse[path]}")
+
+    del captured
+    stats = {"draw_s": draw_s, "calib_s": calib_s, "layer0_mse": mse}
+    for algo in CALIB_ALGOS:
+        recipe = QuantRecipe(rules=(("*", QuantSpec(algo=algo)),),
+                             name=f"w4a8-is-{algo}")
+        t0 = time.perf_counter()
+        with obs.use_registry(obs.Registry()):
+            qp = ptq.post_training_quantize(api, cfg, fp, recipe, batches)
+        torch.cuda.synchronize()
+        ptq_s = time.perf_counter() - t0
+        if algo == CALIB_ALGOS[-1]:
+            # the last recipe serves without the fp weights on the card
+            # (the others with them): whether they slow the served tick
+            del fp
+            gc.collect()
+            torch.cuda.empty_cache()
+        pre = sum(1 for blk in qp["blocks"] for part in ("attn", "mlp")
+                  for lin in blk[part].values() if "pre_scale" in lin)
+        log(f"[calib] {recipe.name}: PTQ {ptq_s:.2f} s on the card "
+            f"(capture included); {pre} linears carry pre_scale; fp weights "
+            f"{'freed' if algo == CALIB_ALGOS[-1] else 'held'} while "
+            f"serving; {smi}")
+        per_layer = 7 if algo in ("awq", "smoothquant") else 4
+        if pre != (7 * cfg.num_layers if per_layer == 7 else 0):
+            raise AssertionError(f"{recipe.name}: {pre} pre_scale leaves")
+        st, eng = serve_checked("calib", recipe.name, api, cfg, qp, recipe,
+                                sc, prompts, toks, n0, launches_total,
+                                per_layer=per_layer,
+                                eager=algo in ("gptq", "awq"))
+        st["ptq_s"] = ptq_s
+        stats[recipe.name] = st
+        del eng, qp
+        gc.collect()
+        torch.cuda.empty_cache()
+    return stats
+
+
+def profile_rot_products(api, cfg, model, sc):
+    """One eager decode step under ``torch.profiler`` with shapes: the
+    device time of the ``x @ rot`` products (the bf16 ``aten::mm`` of an
+    (M, K) activation by a (K, K) rotation) and of all kernels, in ms,
+    and the number of such products."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cache, toks, pos = _decode_inputs(api, cfg, sc)
+    with torch.inference_mode():
+        model(toks, mode="decode", cache=cache, pos=pos)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            model(toks, mode="decode", cache=cache, pos=pos)
+            torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA) / 1e3
+    rot_ms, n = 0.0, 0
+    for e in prof.key_averages(group_by_input_shape=True):
+        shapes = e.input_shapes or []
+        if (e.key == "aten::mm" and len(shapes) >= 2 and len(shapes[1]) == 2
+                and shapes[1][0] == shapes[1][1] == shapes[0][-1]):
+            rot_ms += e.device_time_total / 1e3
+            n += e.count
+    del cache
+    return rot_ms, total, n
+
+
+def llama3_phase(sc, prompts, toks, n0, launches_total, smi):
+    """Phase 8b: llama3.2-3b at full width under the paper's LLaMA-3
+    recipe (W8A8 heuristic+6 on the down projections, W4A8 IS elsewhere,
+    QuaRot rotation on every linear), served as in phase 5; every down
+    projection's certificate certified or capped; the x @ rot products'
+    share of a decode step."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.analysis import certify
+    from repro_torch.core import ptq
+    from repro_torch.core.recipe import LLAMA3_RECIPE
+    from repro_torch.models.registry import get_arch, get_model
+    from repro_torch.nn import spec as S
+
+    cfg = get_arch("llama3.2-3b")
+    api = get_model(cfg)
+    L = cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    fp = S.materialize(api.param_specs(cfg, None), gen, device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    fp_bytes = sum(t.numel() * t.element_size() for t in S.leaves(fp))
+    log(f"[llama3] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} query heads over {cfg.num_kv_heads} KV heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; random "
+        f"bf16 weights {fp_bytes / 1e9:.2f} GB in {draw_s:.2f} s")
+    n_before = len(certify.log())
+    t0 = time.perf_counter()
+    with obs.use_registry(obs.Registry()):
+        qp = ptq.post_training_quantize(api, cfg, fp, LLAMA3_RECIPE)
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    del fp
+    gc.collect()
+    torch.cuda.empty_cache()
+    certs = certify.log()[n_before:]
+    downs = [c for c in certs if c.kernel.endswith("/mlp/down")]
+    if len(downs) != L or not all(c.ok for c in downs):
+        raise AssertionError(f"llama3 down projections' certificates: "
+                             f"{[str(c) for c in downs]}")
+    down_s = certify.summary(downs)
+    rots = {t.data_ptr(): t for blk in qp["blocks"]
+            for part in ("attn", "mlp") for lin in blk[part].values()
+            for t in (lin["rot"],)}
+    rot_bytes = sum(t.numel() * t.element_size() for t in rots.values())
+    code_bytes = sum(t.numel() * t.element_size() for blk in qp["blocks"]
+                     for part in ("attn", "mlp") for lin in blk[part].values()
+                     for k, t in lin.items() if k != "rot")
+    log(f"[llama3] {LLAMA3_RECIPE.name}: PTQ {ptq_s:.2f} s on the card "
+        f"(one rotation per (K, layer): {len(rots)} matrices, "
+        f"{rot_bytes / 1e9:.2f} GB bf16; codes and scales "
+        f"{code_bytes / 1e9:.2f} GB); W8A8 down projections' certificates "
+        f"{down_s['certified']} certified / {down_s['capped-alpha']} capped / "
+        f"{down_s['fallback']} fallback, worst accumulator "
+        f"{down_s['worst_frac']:.4f} of 2^31; {smi}")
+    for c in downs[:2]:
+        log(f"[llama3]   {c}")
+    st, eng = serve_checked("llama3", LLAMA3_RECIPE.name, api, cfg, qp,
+                            LLAMA3_RECIPE, sc, prompts, toks, n0,
+                            launches_total, per_layer=7, eager=True)
+    gemms = st["tick_gemm_calls"]
+    if gemms.get("w8a8-is") != L or gemms.get("w4a8-is") != 6 * L:
+        raise AssertionError(f"llama3: one tick's GEMM calls {gemms}")
+    rot_ms, step_ms, n = profile_rot_products(api, cfg, eng.model, sc)
+    if n != 7 * L:
+        raise AssertionError(f"llama3: {n} x @ rot products in a step")
+    # the same products alone, replayed as a graph at the decode shape
+    xs = {K: torch.randn((sc.max_slots, K), device="cuda").to(torch.bfloat16)
+          for K in {t.shape[0] for t in rots.values()}}
+    per_step = [(xs[lin["rot"].shape[0]], lin["rot"]) for blk in qp["blocks"]
+                for part in ("attn", "mlp") for lin in blk[part].values()]
+    alone_ms = time_ms(lambda: [x @ r for x, r in per_step], [()], iters=3)
+    log(f"[llama3] one 4-slot decode step (eager, profiled): {step_ms:.3f} "
+        f"ms of device kernels, {n} x @ rot products {rot_ms:.3f} ms "
+        f"({rot_ms / step_ms:.3f}); the {n} products alone as a replayed "
+        f"graph {alone_ms:.3f} ms, against the step's graph replay "
+        f"{st['step_graph_ms']:.3f} ms ({alone_ms / st['step_graph_ms']:.3f});"
+        f" one tick's GEMM calls {json.dumps(gemms)}; {smi}")
+    st.update(ptq_s=ptq_s, draw_s=draw_s, rot_bytes=rot_bytes,
+              code_bytes=code_bytes, down_certificates=down_s,
+              rot_ms_profiled=rot_ms, step_ms_profiled=step_ms,
+              rot_products=n, rot_alone_ms=alone_ms)
+    del eng, qp, per_step, rots
+    gc.collect()
+    torch.cuda.empty_cache()
+    return st
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1581,6 +1869,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 7b. llama2-7b under the calibration algorithms ------------------------
+    calib_stats = calib_phase(api, cfg, sc, prompts, toks, n0, launches_total,
+                              smi)
+
     # -- 8. mixtral-8x7b at full width, one recipe at a time ------------------------
     mcfg = get_arch("mixtral-8x7b")
     mapi = get_model(mcfg)
@@ -1646,6 +1938,10 @@ def main() -> int:
         del eng, mq
         gc.collect()
         torch.cuda.empty_cache()
+
+    # -- 8b. llama3.2-3b under the paper's LLaMA-3 recipe ------------------------
+    llama3_stats = llama3_phase(sc, prompts, toks, n0, launches_total, smi)
+
     missing = sorted(k for k in _build.KERNELS if launches_total[k] <= 0)
     if missing:
         raise AssertionError(f"kernels never launched on a served path: "
@@ -1711,7 +2007,8 @@ def main() -> int:
                   "plain_cpu_s": cpu_s, "mixtral_plain_logit_rel": mrel,
                   "mixtral_plain_layers": MIXTRAL_PLAIN_CHECK_LAYERS,
                   "mixtral_plain_cpu_s": mcpu_s},
-        "mixtral": mixtral_stats,
+        "mixtral": mixtral_stats, "calib": calib_stats,
+        "llama3": llama3_stats,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -204,7 +204,7 @@ class Interval:
 
     def __repr__(self) -> str:  # compact for findings/certificates
         def f(v):
-            if v == int(v) and abs(v) < 2**63 and math.isfinite(v):
+            if math.isfinite(v) and v == int(v) and abs(v) < 2**63:
                 return str(int(v))
             return f"{v:.3g}"
         return f"[{f(self.lo)}, {f(self.hi)}]"

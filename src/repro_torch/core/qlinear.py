@@ -44,7 +44,6 @@ def linear_specs(K: int, N: int, qspec: QuantSpec | None, *,
     if qspec is None:
         out["w"] = S.w((K, N), dtype=dtype)
     else:
-        _check_supported(qspec)
         G = _num_groups(K, qspec.group_size)
         if qspec.w_bits == 4:
             out["qvalue"] = S.zeros((K // 2, N), dtype=torch.int8)
@@ -58,6 +57,12 @@ def linear_specs(K: int, N: int, qspec: QuantSpec | None, *,
             out["alpha"] = S.ones((), dtype=torch.float32)
         else:
             out["scale"] = S.ones((G, N), dtype=torch.float32)
+        if qspec.algo in ("awq", "smoothquant"):
+            # per-in-channel activation compensation (x / pre_scale)
+            out["pre_scale"] = S.ones((K,), dtype=torch.float32)
+        if qspec.rotate:
+            # QuaRot-style orthogonal rotation applied online to x
+            out["rot"] = S.w((K, K), dtype=dtype)
     if bias:
         out["b"] = S.zeros((N,), dtype=dtype)
     return out
@@ -67,17 +72,11 @@ def expert_linear_specs(E: int, K: int, N: int, qspec: QuantSpec | None, *,
                         dtype=torch.bfloat16) -> dict:
     """Specs of E stacked linears (K, N): every leaf of
     :func:`linear_specs` with a leading expert axis, so a quantized
-    expert stack carries one amplifier per expert (``alpha`` (E,))."""
+    expert stack carries one amplifier per expert (``alpha`` (E,)), and
+    ``pre_scale`` (E, K) / ``rot`` (E, K, K) where its spec asks."""
     return S.tree_map(
         lambda s: S.ParamSpec((E, *s.shape), s.dtype, s.init, s.init_scale),
         linear_specs(K, N, qspec, dtype=dtype))
-
-
-def _check_supported(qspec: QuantSpec) -> None:
-    if qspec.algo in ("awq", "smoothquant") or qspec.rotate:
-        raise NotImplementedError(
-            f"{qspec.name}: activation compensation (pre_scale) and rotation "
-            "(rot) come with the calibration port slice")
 
 
 # ---------------------------------------------------------------------------
@@ -94,20 +93,19 @@ def finish_quant(
     pre_scale: torch.Tensor | None = None,
     rot: torch.Tensor | None = None,
 ) -> dict[str, torch.Tensor]:
-    """Shared finishing step: pack int4, integerize the scales (the paper's
-    free lunch), assemble the param dict. Every integer-scale layer's
-    amplifier is certified (``analysis.certify.resolve_amplifier``, logged
-    with the enclosing ``certify.context``) and, where the certificate
-    caps it, integerized again at the certified power of two.
+    """Shared finishing step of every algorithm: pack int4, integerize the
+    scales (the paper's free lunch), assemble the param dict (with AWQ's
+    and SmoothQuant's ``pre_scale`` as f32, QuaRot's ``rot`` as given).
+    Every integer-scale layer's amplifier is certified
+    (``analysis.certify.resolve_amplifier``, logged with the enclosing
+    ``certify.context``) and, where the certificate caps it, integerized
+    again at the certified power of two.
 
     Telemetry: one ``quantized_layers_total{scheme}`` tick per layer, and
     ``alpha_cap_events_total`` whenever the certificate forces the
     amplifier below the requested value (created unconditionally, so
     snapshots show 0).
     """
-    if pre_scale is not None or rot is not None:
-        raise NotImplementedError(
-            "pre_scale / rot come with the calibration port slice")
     from repro_torch.analysis import certify
 
     reg = obs.current_registry()
@@ -142,13 +140,17 @@ def finish_quant(
                 ("scheme",)).inc(scheme=scheme)
     if bias is not None:
         out["b"] = bias
+    if pre_scale is not None:
+        out["pre_scale"] = pre_scale.float()
+    if rot is not None:
+        out["rot"] = rot
     return out
 
 
 def quantize_linear(w: torch.Tensor, qspec: QuantSpec, *,
                     bias: torch.Tensor | None = None) -> dict:
-    """RTN path (calibration algorithms come with a later slice)."""
-    _check_supported(qspec)
+    """RTN path (``core.algorithms`` provide GPTQ/AWQ/... on top of
+    :func:`finish_quant`, through ``core.ptq.quantize_one``)."""
     qw = quantize_weight(w, qspec.w_bits, qspec.group_size, qspec.clip_ratio)
     scales = qw.scale if qspec.fine_grained else qw.scale[None, :]
     return finish_quant(qw.qvalue, scales, qspec, bias=bias)
@@ -175,20 +177,25 @@ def linear_apply(params: dict, x: torch.Tensor,
     """y = x @ W (+ b), honoring the quantization spec.
 
     x: (..., K) activation (bf16/f32). Returns the same float dtype as x.
+    AWQ's and SmoothQuant's ``pre_scale`` divides x, and QuaRot's ``rot``
+    rotates it, in x's dtype, before the quantized GEMM.
     ``xq``: x's codes and scales when several linears share x
-    (``kernels.ops.quantize_for``); None quantizes x for this one.
+    (``kernels.ops.quantize_for``, which makes none for a linear that
+    transforms x first); None quantizes x for this one.
     """
     if qspec is None:
         y = x @ params["w"].to(x.dtype)
         if "b" in params:
             y = y + params["b"].to(y.dtype)
         return y
-    if "pre_scale" in params or "rot" in params:
-        raise NotImplementedError(
-            "pre_scale / rot come with the calibration port slice")
 
     lead = x.shape[:-1]
-    y2 = kops.qgemm(x.reshape(-1, x.shape[-1]), params, qspec, xq=xq)
+    x2 = x.reshape(-1, x.shape[-1])
+    if "pre_scale" in params:  # AWQ/SmoothQuant activation compensation
+        x2 = x2 / params["pre_scale"].to(x2.dtype)
+    if "rot" in params:  # QuaRot-style online rotation
+        x2 = x2 @ params["rot"].to(x2.dtype)
+    y2 = kops.qgemm(x2, params, qspec, xq=xq)
     y = y2.reshape(*lead, -1).to(x.dtype)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
@@ -209,19 +216,23 @@ def grouped_linear_apply(params: dict, x: torch.Tensor,
     per-expert ``alpha`` in its epilogue. ``row_counts`` (int32 (E,), on
     the device; rows past it are zero-filled by the dispatch) lets the
     kernel skip capacity-padding m-tiles; ``None`` treats every slot as
-    routed. Returns x's dtype.
+    routed. Per-expert ``pre_scale`` (E, K) and ``rot`` (E, K, K) apply
+    to x first, as in :func:`linear_apply` (rows past the counts stay
+    zero). Returns x's dtype.
     """
     if qspec is None:
         y = torch.bmm(x, params["w"].to(x.dtype))
         if "b" in params:
             y = y + params["b"][:, None, :].to(y.dtype)
         return y
-    if "pre_scale" in params or "rot" in params:
-        raise NotImplementedError(
-            "pre_scale / rot come with the calibration port slice")
+    x2 = x
+    if "pre_scale" in params:  # (E, K) per-expert compensation
+        x2 = x2 / params["pre_scale"][:, None, :].to(x2.dtype)
+    if "rot" in params:  # (E, K, K) per-expert rotation
+        x2 = torch.bmm(x2, params["rot"].to(x2.dtype))
     core = {k: v for k, v in params.items()
             if k in ("qvalue", "scale", "alpha")}
-    y = kops.qgemm_grouped(x, core, qspec, row_counts=row_counts,
+    y = kops.qgemm_grouped(x2, core, qspec, row_counts=row_counts,
                            xq=xq).to(x.dtype)
     if "b" in params:
         y = y + params["b"][:, None, :].to(y.dtype)

@@ -75,3 +75,15 @@ class SyntheticPipeline:
     def unigram_entropy(self) -> float:
         p = self._unigram
         return float(-(p * np.log(p)).sum())
+
+
+def calib_batches(n: int = 2, *, vocab_size: int = 512, seq_len: int = 128,
+                  batch_size: int = 8) -> list[dict[str, np.ndarray]]:
+    """PTQ calibration batches: global batches 50_000 .. 50_000 + n - 1 of
+    the synthetic stream (the benchmarks' calibration region, never
+    trained on). The defaults are the ~30M bench LM's
+    (``benchmarks/common.py`` ``calib_batches``)."""
+    pipe = SyntheticPipeline(DataConfig(vocab_size=vocab_size,
+                                        seq_len=seq_len,
+                                        batch_size=batch_size))
+    return [pipe.global_batch(50_000 + i) for i in range(n)]

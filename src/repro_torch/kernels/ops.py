@@ -90,19 +90,24 @@ def _resolve_alpha(alpha, qspec: QuantSpec):
         "amplifiers")
 
 
-def quantize_for(x: torch.Tensor, qspecs, *, grouped: bool = False,
+def quantize_for(x: torch.Tensor, linears, *, grouped: bool = False,
                  row_counts=None):
-    """One activation quantization for every linear of ``qspecs`` that
-    reads ``x``, or None when they do not all quantize it alike (a linear
-    left in bf16, a weight-only one, another ``a_bits``): then each
-    quantizes its own, as alone.
+    """One activation quantization for every module of ``linears`` that
+    reads ``x`` (each with its ``qspec`` and its params as attributes),
+    or None when they do not all quantize it alike (a linear left in
+    bf16, a weight-only one, another ``a_bits``, or one carrying
+    AWQ's/SmoothQuant's ``pre_scale`` or QuaRot's ``rot``, which
+    transform x before it is quantized): then each quantizes its own, as
+    alone.
 
     Dense: x (..., K) -> (codes int8 (M, K), scales f32 (M, 1)) over the
     rows of x, for ``qgemm(..., xq=)``. ``grouped``: the (E, C, K) dispatch
     buffer -> (codes (E, C, K), scales (E, C, 1)), zero at or past
     ``row_counts``, for ``qgemm_grouped(..., xq=)``."""
-    bits = {None if s is None or s.weight_only else s.a_bits
-            for s in qspecs}
+    if any(hasattr(m, "pre_scale") or hasattr(m, "rot") for m in linears):
+        return None
+    bits = {None if m.qspec is None or m.qspec.weight_only
+            else m.qspec.a_bits for m in linears}
     if len(bits) != 1 or None in bits:
         return None
     (bits,) = bits

@@ -11,23 +11,30 @@ continuous-batching engine over a stream of requests. Port of
         --arch mixtral-8x7b --smoke                # MoE, plain versions
 
 The recipe flags (``--scale-mode``, ``--w-bits``, ``--a-bits``,
-``--group``, ``--amplifier``, ``--fp``) choose among the paper's schemes:
-W4A8 Integer Scale (the default), float scale (``--scale-mode float``),
-coarse per-channel (``--group -1``) and W4A16 weight-only
-(``--a-bits 16``). With weights on the card every quantized linear
-launches its Hopper kernel; with ``--device cpu`` the kernels' plain
-versions run.
+``--group``, ``--amplifier``, ``--algo``, ``--fp``) choose among the
+paper's schemes: W4A8 Integer Scale (the default), float scale
+(``--scale-mode float``), coarse per-channel (``--group -1``) and W4A16
+weight-only (``--a-bits 16``), each under RTN, GPTQ, AWQ, SmoothQuant or
+OmniQuant (``--algo``). The paper's LLaMA-3 recipe
+(``core.recipe.LLAMA3_RECIPE``) is reached through the API, as in the
+reference: ``Engine(..., recipe=LLAMA3_RECIPE)`` over
+``core.ptq.post_training_quantize`` (``chip_smoke.py``'s ``[llama3]``
+phase). With weights on the card every quantized linear launches its
+Hopper kernel; with ``--device cpu`` the kernels' plain versions run.
 
 ``--arch bench-lm`` (the default) is a random init of the reference's
 ~30M benchmark LM, reported as ``trained=False``: the reference loads a
 trained checkpoint through ``benchmarks.common``, which is outside the
 port and absent from the repo. Registry architectures run at their
 published widths unless ``--smoke`` is given. Weights are random, drawn
-block by block from generators seeded per block (``core.ptq``): a
-quantized model is built one block at a time, so Mixtral-8x7B, whose
-93 GB of bf16 weights exceed the card, never holds more than one block's
-fp weights (about 2.9 GB) on it. Only ``--algo rtn`` is ported; the calibration
-algorithms come with the calibration slice.
+block by block from generators seeded per block (``core.ptq``). As in
+the reference, only ``--arch bench-lm`` is calibrated (one batch of 8 x
+128 synthetic tokens, ``data.pipeline.calib_batches``): its fp weights
+are drawn whole and quantized with the calibration rows. Every other
+arch is quantized one block at a time without calibration (the
+calibration algorithms fall back to RTN there, rotation applies), so
+Mixtral-8x7B, whose 93 GB of bf16 weights exceed the card, never holds
+more than one block's fp weights (about 2.9 GB) on it.
 
 ``--metrics-out PATH`` writes the run's telemetry as JSONL (one event per
 line, then a ``{"snapshot": ...}`` line); ``--trace-out PATH`` writes the
@@ -57,13 +64,16 @@ import time
 from repro_torch import obs
 from repro_torch.core import ptq
 from repro_torch.core.recipe import QuantRecipe, QuantSpec
-from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+from repro_torch.data.pipeline import (DataConfig, SyntheticPipeline,
+                                       calib_batches)
 from repro_torch.serving.engine import Engine, ServeConfig
 
 
 def _load_model(arch: str, smoke: bool, device: str, recipe):
     """(api, cfg, params, trained): random weights from seed 0 on
-    ``device``, quantized block by block under ``recipe`` (fp if None)."""
+    ``device``, quantized under ``recipe`` (fp if None): the bench LM
+    whole, with one calibration batch; any other arch block by block,
+    without calibration."""
     from repro_torch.configs.paper_llama import bench_lm
     from repro_torch.models.registry import get_arch, get_model
 
@@ -71,6 +81,10 @@ def _load_model(arch: str, smoke: bool, device: str, recipe):
     api = get_model(cfg)
     if recipe is None:
         params = ptq.materialize_by_layer(api, cfg, device=device)
+    elif arch == "bench-lm":
+        params = ptq.post_training_quantize(
+            api, cfg, ptq.materialize_by_layer(api, cfg, device=device),
+            recipe, calib_batches(1))
     else:
         params = ptq.quantize_by_layer(api, cfg, recipe, device=device)
     return api, cfg, params, False
@@ -206,10 +220,6 @@ def main(argv: list[str] | None = None) -> int:
                     help="capture a torch.profiler Chrome trace of the "
                          "serving loop into this directory")
     args = ap.parse_args(argv)
-    if args.algo != "rtn":
-        raise NotImplementedError(
-            f"--algo {args.algo}: only RTN is ported; the calibration "
-            "algorithms come with the calibration slice (ROADMAP item 12)")
 
     reg = obs.current_registry()
     recipe = None
@@ -226,7 +236,9 @@ def main(argv: list[str] | None = None) -> int:
     print(f"[serve] model={cfg.name} layers={cfg.num_layers} "
           f"d_model={cfg.d_model} trained={trained} device={args.device}")
     if recipe is not None:
-        print(f"[serve] quantized ({recipe.name}) block by block in "
+        how = ("with calibration" if args.arch == "bench-lm"
+               else "block by block")
+        print(f"[serve] quantized ({recipe.name}) {how} in "
               f"{time.time() - t0:.1f}s")
 
     sc = ServeConfig(max_slots=args.slots, max_seq=args.max_seq,

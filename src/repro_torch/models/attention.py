@@ -141,7 +141,7 @@ class GQAttention(nn.Module):
         B, Sq, _ = x.shape
         hd, Hq, Hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
         # q, k and v read x: quantized once for all three where they can
-        xq = kops.quantize_for(x, [self.q.qspec, self.k.qspec, self.v.qspec])
+        xq = kops.quantize_for(x, (self.q, self.k, self.v))
         q = self.q(x, xq).reshape(B, Sq, Hq, hd)
         k = self.k(x, xq).reshape(B, Sq, Hkv, hd)
         v = self.v(x, xq).reshape(B, Sq, Hkv, hd)

@@ -1,6 +1,6 @@
-"""Shared model-building helpers: recipe-aware linears and norms. Port of
-``repro/models/common.py`` (calibration capture and scan stacking are not
-ported: the port keeps one module per layer)."""
+"""Shared model-building helpers: recipe-aware linears, norms and the
+calibration capture. Port of ``repro/models/common.py`` (scan stacking is
+not ported: the port keeps one module per layer)."""
 from __future__ import annotations
 
 import torch
@@ -9,6 +9,36 @@ from torch import nn
 from repro_torch.core import qlinear
 from repro_torch.core.recipe import QuantRecipe
 from repro_torch.nn import spec as S
+
+
+# Calibration capture: while on (``start_capture`` .. ``end_capture``),
+# every :class:`Linear` records a sample of its input per path, in call
+# order: GPTQ/AWQ/SmoothQuant/OmniQuant read these (core/ptq.py). The
+# sample is the reference's: every ``step``-th row, at most 256, in f32.
+_CAPTURE: dict | None = None
+_CAPTURE_SAMPLES = 256
+
+
+def start_capture() -> None:
+    global _CAPTURE
+    _CAPTURE = {}
+
+
+def end_capture() -> dict:
+    global _CAPTURE
+    out, _CAPTURE = _CAPTURE, None
+    return out or {}
+
+
+def _record(path: str, x: torch.Tensor) -> None:
+    """Record x's sample under ``path``, unless a CUDA graph is being
+    captured (its tensors hold no values yet)."""
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        return
+    x2 = x.detach().reshape(-1, x.shape[-1])
+    step = max(1, x2.shape[0] // _CAPTURE_SAMPLES)
+    _CAPTURE.setdefault(path, []).append(
+        x2[::step][:_CAPTURE_SAMPLES].float().clone())
 
 
 def linear(recipe: QuantRecipe | None, path: str, K: int, N: int, *,
@@ -20,12 +50,15 @@ def linear(recipe: QuantRecipe | None, path: str, K: int, N: int, *,
 
 class Linear(nn.Module):
     """A recipe-aware linear holding its param dict (``w``, or ``qvalue``/
-    ``scale``/``alpha``; ``b``) as buffers: the port serves, it does not
-    train, so nothing here needs a gradient. ``qspec`` is the recipe's
-    spec for its path (None: bf16)."""
+    ``scale``/``alpha``, and ``pre_scale``/``rot`` where its algorithm
+    made them; ``b``) as buffers: the port serves, it does not train, so
+    nothing here needs a gradient. ``qspec`` is the recipe's spec for its
+    path (None: bf16); while the calibration capture is on, its input is
+    recorded under ``path``."""
 
     def __init__(self, recipe: QuantRecipe | None, path: str, params: dict):
         super().__init__()
+        self.path = path
         self.qspec = recipe.spec_for(path) if recipe is not None else None
         for name, t in params.items():
             self.register_buffer(name, t)
@@ -33,6 +66,8 @@ class Linear(nn.Module):
     def forward(self, x: torch.Tensor, xq=None) -> torch.Tensor:
         """``xq``: x's codes and scales from ``kernels.ops.quantize_for``,
         when several linears read x."""
+        if _CAPTURE is not None:
+            _record(self.path, x)
         return qlinear.linear_apply(dict(self.named_buffers(recurse=False)),
                                     x, self.qspec, xq=xq)
 

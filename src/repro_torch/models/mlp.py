@@ -29,7 +29,7 @@ class MLP(nn.Module):
         self.down = Linear(recipe, f"{base}/down", params["down"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xq = kops.quantize_for(x, [self.gate.qspec, self.up.qspec])
+        xq = kops.quantize_for(x, (self.gate, self.up))
         g = self.gate(x, xq)
         u = self.up(x, xq)
         h = F.silu(g.float()).to(x.dtype) * u

@@ -154,7 +154,8 @@ def capacity(tokens: int, top_k: int, num_experts: int,
 
 class ExpertLinear(nn.Module):
     """E stacked linears, applied in one grouped call; holds the stacked
-    param dict (``w``, or ``qvalue``/``scale``/``alpha``) as buffers."""
+    param dict (``w``, or ``qvalue``/``scale``/``alpha``, and ``rot``
+    under QuaRot) as buffers."""
 
     def __init__(self, recipe, path: str, params: dict):
         super().__init__()
@@ -251,8 +252,8 @@ class MoE(nn.Module):
         # --- expert FFN: one grouped GEMM per linear -----------------------
         be = buf.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
         # gate and up read be: its routed rows quantized once for both
-        xq = kops.quantize_for(be, [self.gate.qspec, self.up.qspec],
-                               grouped=True, row_counts=row_counts)
+        xq = kops.quantize_for(be, (self.gate, self.up), grouped=True,
+                               row_counts=row_counts)
         g = self.gate(be, row_counts, xq)
         u = self.up(be, row_counts, xq)
         h = F.silu(g.float()).to(be.dtype) * u

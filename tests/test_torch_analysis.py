@@ -520,3 +520,12 @@ def test_ptq_span_fields_equal_reference(jax_literal, capsys):
                 if ln.startswith("[ptq] overflow certificates")]
 
     assert summary_line(out) == summary_line(jout) != []
+
+
+def test_interval_repr_of_unbounded_and_large_bounds():
+    """An interval with an infinite bound prints (a layer whose
+    accumulator overflows is reported, not a crash); integral bounds
+    print as integers."""
+    assert repr(Interval(-float("inf"), float("inf"))) == "[-inf, inf]"
+    assert repr(Interval(-3.0, 2.0 ** 40)) == f"[-3, {2 ** 40}]"
+    assert repr(Interval(0.5, 1.5)) == "[0.5, 1.5]"

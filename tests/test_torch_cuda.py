@@ -42,6 +42,12 @@ bits; every integer-scale kernel on the int8 MMA, no float MMA); the
 fixtures whose reference rule has a PTX form are flagged from their PTX;
 and each fixture's kernel, launched once, equals its plain version bit
 for bit with every input, pad and guard unchanged.
+
+Calibration PTQ on the card (``repro_torch.core.algorithms``): GPTQ, AWQ
+and QuaRot against the same functions on the CPU, with the tolerances
+each test states (their f32 products sum in another order on the card),
+and the calibration capture records nothing while a CUDA graph is
+captured.
 """
 import numpy as np
 import pytest
@@ -1219,3 +1225,123 @@ def test_fixture_launch_equals_plain_pad_untouched(cuda, entry):
     before = _build.LAUNCHES.get(name, 0)
     assert qfixtures.run_on_card(entry.op, seed=3) == 0.0
     assert _build.LAUNCHES[name] == before + 1
+
+
+# -- calibration PTQ on the card --------------------------------------------
+
+
+def _calib_layer(K, N, n, seed):
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((K, N)) * 0.05).astype(np.float32)
+    x = (rng.standard_normal((n, K)) * rng.uniform(0.2, 4.0, K)
+         ).astype(np.float32)
+    return torch.from_numpy(w), torch.from_numpy(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,n", [(512, 384, 256), (4096, 1024, 512)])
+@pytest.mark.parametrize("algo", ["gptq", "awq", "quarot"])
+def test_calibration_on_card_matches_cpu(cuda, algo, K, N, n):
+    """GPTQ, AWQ and QuaRot on the card against the same function on the
+    CPU (held to the reference there, ``tests/test_torch_calib.py``).
+    AWQ: pre_scale and codes bit-equal (the scale vector is formed as on
+    the CPU; only the MSE products run in another order). QuaRot: the
+    rotation equal as bf16 bits; codes of ``rot.T @ w`` (an f32 product
+    summed in another order) equal but for at most 1e-4 of them, each by
+    one step. GPTQ: its Hessian is an f32 Gram product, summed in another
+    order, and an error moves every later row's compensation: at least
+    99 % of the codes equal and the calibration output MSE within 1 % of
+    the CPU's."""
+    from repro_torch.core.algorithms import awq, gptq, quarot
+
+    w, x = _calib_layer(K, N, n, seed=K + n)
+    if algo == "gptq":
+        cpu = gptq.gptq_quantize(w, x, 4, 128)
+        dev = gptq.gptq_quantize(w.to(cuda), x.to(cuda), 4, 128)
+    elif algo == "awq":
+        cpu = awq.awq_quantize(w, x, 4, 128)
+        dev = awq.awq_quantize(w.to(cuda), x.to(cuda), 4, 128)
+    else:
+        cpu = quarot.quarot_quantize(w, 4, 128, seed=n)
+        dev = quarot.quarot_quantize(w.to(cuda), 4, 128, seed=n)
+    dev = [t.cpu() for t in dev]
+    diff = (dev[0].int() - cpu[0].int()).abs()
+    if algo == "awq":
+        assert torch.equal(dev[2], cpu[2])
+        assert torch.equal(dev[0], cpu[0])
+        torch.testing.assert_close(dev[1], cpu[1], rtol=1e-6, atol=0)
+    elif algo == "quarot":
+        assert torch.equal(dev[2].to(torch.bfloat16).view(torch.int16),
+                           cpu[2].to(torch.bfloat16).view(torch.int16))
+        assert int(diff.max()) <= 1
+        assert int((diff > 0).sum()) <= 1e-4 * diff.numel()
+    else:
+        assert float((diff == 0).float().mean()) >= 0.99
+        ref = x @ w
+        mse = [awq.output_mse(x, ref, *o) for o in (cpu, dev)]
+        assert abs(mse[1] - mse[0]) <= 0.01 * mse[0], mse
+
+
+@pytest.mark.cuda
+def test_capture_records_nothing_while_a_graph_is_captured(cuda):
+    """The calibration hook records eager calls and skips a CUDA graph's
+    capture (its tensors hold no values yet)."""
+    from repro_torch.models import common as MC
+
+    lin = MC.Linear(None, "p", {"w": _normal(60, (64, 32), device=cuda)})
+    x = _normal(61, (3, 64), device=cuda)
+    MC.start_capture()
+    try:
+        lin(x)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            lin(x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            lin(x)
+        graph.replay()
+    finally:
+        rec = MC.end_capture()
+    assert len(rec["p"]) == 2
+    assert torch.equal(rec["p"][0], x)
+
+
+@pytest.mark.cuda
+def test_gptq_captured_group_loop_equals_eager_when_reused(cuda):
+    """GPTQ's group loop replayed from a captured graph, kept in a cache
+    across calls of other shapes, gives the codes and scales of the same
+    loop run eagerly on the card, bit for bit (a graph reads the memory
+    its tensors had at capture, which must stay theirs)."""
+    from repro_torch.core.algorithms import gptq
+
+    def eager(w, x):
+        K, N = w.shape
+        f64 = torch.float64
+        H = 2.0 * (x.T @ x).to(f64)
+        d = torch.diagonal(H)
+        d += 0.01 * torch.mean(d)
+        w = w.to(f64).clone()
+        hinv = torch.linalg.cholesky(torch.linalg.inv(H), upper=True)
+        codes = torch.empty((K, N), dtype=torch.int8, device=cuda)
+        scales = torch.empty((K // 128, N), device=cuda)
+        s = torch.empty((N,), dtype=f64, device=cuda)
+        err = torch.empty((128, N), dtype=f64, device=cuda)
+        qmt = torch.full((), 7.0, dtype=f64, device=cuda)
+        for g in range(K // 128):
+            i0, i1 = g * 128, (g + 1) * 128
+            gptq._group_rows(w[i0:i1], s, hinv[i0:i1, i0:i1], codes[i0:i1],
+                             err, 7, qmt)
+            scales[g] = s.float()
+            w[i1:] -= hinv[i0:i1, i1:].T @ err
+        return codes, scales
+
+    cache = {}
+    for K, N, seed in ((512, 256, 70), (384, 128, 71), (768, 256, 72)):
+        w, x = _calib_layer(K, N, 256, seed)
+        w, x = w.to(cuda), x.to(cuda)
+        got = gptq.gptq_quantize(w, x, 4, 128, cache=cache)
+        want = eager(w, x)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert len(cache) == 2

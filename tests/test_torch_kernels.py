@@ -35,7 +35,7 @@ from repro.kernels.w4a8_gemm import fg_gemm_integer_scale as pallas_is_gemm
 from repro.kernels.w4a8_gemm_fscale import \
     fg_gemm_float_scale as pallas_fs_gemm
 from repro_torch.core import qlinear as tqlinear
-from repro_torch.core.recipe import QuantSpec
+from repro_torch.core.recipe import QuantRecipe, QuantSpec
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels import moe_gemm as mg
@@ -819,6 +819,14 @@ def test_grouped_w4a8_ring_emulation_matches_ragged_plain(g, splits, C):
         assert y[1].any() and torch.isfinite(y).all()
 
 
+def _linears(specs):
+    """Param-less ``Linear`` modules under ``specs`` (None: bf16)."""
+    from repro_torch.models.common import Linear
+
+    return [Linear(None if s is None else QuantRecipe(rules=(("*", s),)),
+                   "l", {}) for s in specs]
+
+
 SHARED_SPECS = {  # case -> (the specs of the linears reading x, a_bits or
     # None where each linear quantizes its own)
     "q/k/v IS": ([QuantSpec()] * 3, 8),
@@ -844,8 +852,9 @@ def test_quantize_for_shares_only_alike_specs(case, grouped):
     rng = np.random.default_rng(51)
     x = torch.from_numpy(rng.normal(size=(3, 5, 256)).astype(np.float32))
     counts = torch.tensor([0, 5, 2], dtype=torch.int32)
-    got = (ops.quantize_for(x, specs, grouped=True, row_counts=counts)
-           if grouped else ops.quantize_for(x, specs))
+    got = (ops.quantize_for(x, _linears(specs), grouped=True,
+                            row_counts=counts)
+           if grouped else ops.quantize_for(x, _linears(specs)))
     if bits is None:
         assert got is None
         return
@@ -870,11 +879,12 @@ def test_qgemm_takes_shared_codes_bit_for_bit(scheme):
     x = torch.from_numpy(rng.normal(size=(3, 8, 256)).astype(np.float32))
     counts = torch.tensor([8, 0, 5], dtype=torch.int32)
     dense = tqlinear.quantize_linear(w[0], spec)
-    xq = ops.quantize_for(x[0], [spec, spec])
+    xq = ops.quantize_for(x[0], _linears([spec, spec]))
     assert torch.equal(ops.qgemm(x[0], dense, spec, xq=xq),
                        ops.qgemm(x[0], dense, spec))
     stack = tqlinear.quantize_experts(w, spec)
-    gq = ops.quantize_for(x, [spec], grouped=True, row_counts=counts)
+    gq = ops.quantize_for(x, _linears([spec]), grouped=True,
+                          row_counts=counts)
     assert torch.equal(
         ops.qgemm_grouped(x, stack, spec, row_counts=counts, xq=gq),
         ops.qgemm_grouped(x, stack, spec, row_counts=counts))

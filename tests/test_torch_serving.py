@@ -33,6 +33,8 @@ from repro.serving import chaos as jchaos
 from repro.serving.engine import Engine as JEngine
 from repro.serving.engine import ServeConfig as JServeConfig
 from repro_torch import convert, obs
+from repro_torch.core import ptq
+from repro_torch.core.recipe import QuantRecipe, QuantSpec
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
 from repro_torch.distributed import fault
 from repro_torch.launch import serve
@@ -370,8 +372,52 @@ def test_serve_cli_chaos_drill_writes_telemetry(capsys, tmp_path):
         'phase="decode"'] == 1
     names = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]]
     assert sum(n.endswith("retire:nan") for n in names) == 3
-    with pytest.raises(NotImplementedError, match="calibration slice"):
-        serve.main(CLI + ["--algo", "gptq"])
+    # the calibration algorithms serve too (without calibration rows on
+    # a registry arch, as in the reference: RTN codes under their spec)
+    for algo in ("gptq", "awq"):
+        with obs.use_registry(obs.Registry()):
+            assert serve.main(CLI + ["--algo", algo]) == 0
+        out = capsys.readouterr().out
+        assert f"quantized (W4A8-g128-IS-{algo})" in out
+        assert "conserved=yes" in out and 'outcome="ok"\': 3' in out
+
+
+@pytest.mark.parametrize("algo", ["gptq", "awq"])
+def test_serve_cli_calibrates_bench_lm(capsys, monkeypatch, algo):
+    """``--arch bench-lm`` is served calibrated, as in the reference: its
+    tree differs from the RTN tree of the same weights in every linear's
+    codes (GPTQ) or carries ``pre_scale`` on every linear (AWQ), and every
+    request ends ok."""
+    served = {}
+
+    def spy(*a):
+        served["model"] = load(*a)
+        return served["model"]
+
+    load = serve._load_model
+    monkeypatch.setattr(serve, "_load_model", spy)
+    with obs.use_registry(obs.Registry()):
+        assert serve.main(["--device", "cpu", "--algo", algo, "--requests",
+                           "3", "--max-new", "4", "--prefill-len", "16",
+                           "--max-seq", "64"]) == 0
+    out = capsys.readouterr().out
+    assert f"quantized (W4A8-g128-IS-{algo}) with calibration" in out
+    assert "conserved=yes" in out and 'outcome="ok"\': 3' in out
+    api, cfg, qp, _ = served["model"]
+    lins = [lin for blk in qp["blocks"] for part in ("attn", "mlp")
+            for lin in blk[part].values()]
+    assert len(lins) == 7 * cfg.num_layers
+    if algo == "awq":
+        assert all("pre_scale" in lin for lin in lins)
+        return
+    rtn = ptq.post_training_quantize(
+        api, cfg, ptq.materialize_by_layer(api, cfg, device="cpu"),
+        QuantRecipe(rules=(("*", QuantSpec()),)))
+    rtn_lins = [lin for blk in rtn["blocks"] for part in ("attn", "mlp")
+                for lin in blk[part].values()]
+    assert not any("pre_scale" in lin for lin in lins)
+    assert all(not torch.equal(a["qvalue"], b["qvalue"])
+               for a, b in zip(lins, rtn_lins))
 
 
 # -- the fault drills of tests/test_chaos.py, on both engines -------------------
