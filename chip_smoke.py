@@ -70,6 +70,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    / bmm, IS / W4A16, share of the bound). A tree whose grouped W4A8
    wrappers take no ``splits=`` (an earlier commit) skips the routed and
    forced-split parts.
+   Then the widths of phase 8c's configs: act_quant also at K = 8192,
+   29568, 6144, 24576 and 6400; the IS GEMM bit-exact at Qwen2-72B's and
+   Granite-34B's (K, N) (``CONFIG_GEMM_KN``, Granite's single KV head at
+   N = 128 included), timed beside its plain version, its bound and a
+   bf16 ``torch.matmul``, with its launch plan; flash attention at 64
+   query heads over 8 and 48 over 1 (heads of 128); the ragged IS GEMM
+   and act_quant's routed entry at Phi-3.5-MoE's 16 experts, (4096 ->
+   6400) and (6400 -> 4096) at capacity 8 and 24, bit-exact and timed
+   beside a bf16 ``torch.bmm``.
 4. Build ``llama2-7b`` at its full published widths (32 layers) in bf16
    from a seeded generator on the card, and RTN-quantize it under four
    recipes: W4A8 IS g128 alpha=1024 (the paper's), W4A8 FS g128 (Eq. 1),
@@ -90,7 +99,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    IS the engine's streams equal a plain eager greedy loop over the same
    model on the engine's schedule (``eager_greedy``), and the first
    layers, copied to the CPU where every wrapper takes its plain version,
-   must agree with the same layers on the card within a stated bound.
+   must agree with the same layers on the card within a stated bound,
+   on a prefill that writes the KV cache and one decode step that reads
+   it back.
    One 4-slot decode step and one 128-token prefill of seeded tokens
    are timed eagerly and as replayed CUDA graphs (the difference is the
    host's share of an eager step); the served tick's idle share is 1 - the device timer's
@@ -100,6 +111,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    in a tick (``[launches]``): act_quant exactly 4 a layer under IS, FS
    and coarse (q/k/v share one quantization, gate/up another; 7 in a
    tree whose linears each quantize their own), none under W4A16.
+5b. ``[kv8]``: the int8 KV cache. ``quantize_kv`` on the card equals the
+   CPU's bit for bit on one seeded (4, 128, 32, 128) bf16 input; then the
+   IS weights served with ``kv_cache_dtype="int8"`` (int8 codes and f32
+   per-token, per-head scales, written in place, splice of every key into
+   the slot) and checked as IS is in phase 5: outcomes, one capture per
+   step, exact launches, the argmax, streams equal to the eager greedy
+   loop under the same cache, the first 2 layers against the CPU's plain
+   versions through the cache (a prefill, then a decode step that reads
+   it back), act_quant 4 a layer. Logs the cache's bytes in bf16 and
+   int8, the tick, device timer and idle share, and the share of stream
+   tokens equal to phase 5's bf16-cache IS streams (not a gate).
 6. Breaker drill: serve the IS weights with the FS weights as the
    circuit breaker's fallback (threshold 2) while a ``ChaosMonkey``
    fails the decode at tick 3 twice; the engine must fall back once,
@@ -158,6 +180,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    28 W8A8 IS), then one eager decode step profiled with shapes for the
    device time of its 196 ``x @ rot`` products, which are also timed
    alone as a replayed graph.
+8c. ``[configs]``: ``qwen2-72b`` (80 layers, 64 query heads over 8 KV
+   heads of 128, d_ff 29568, QKV bias), ``granite-34b`` (88 layers, MQA:
+   48 query heads over one KV head, d_ff 24576) and
+   ``phi3.5-moe-42b-a6.6b`` (32 layers, 16 experts top-2 of d_ff 6400),
+   each at full width and full depth under W4A8 g128 IS, built block by
+   block with seed 0; every certificate certified or capped, each capped
+   layer printed. Each is served as in phase 8 (outcomes, captures,
+   exact launches, the argmax, m-tiles for Phi), Qwen2-72B a second time
+   over an int8 KV cache on the same weights; build seconds, peak memory
+   building and serving, tick, prefill, TTFT, idle share and the (K,
+   dtype) of every dense act_quant row are logged. Each model is freed
+   before the next is built.
 9. Print the ``kernels`` JSON line (the eight kernels, launches summed
    over every served path; the five qlint fixtures, launches from their
    run in phase 2b), then the result line
@@ -189,8 +223,14 @@ BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 
 GEMM_KN = ((4096, 4096), (4096, 11008), (11008, 4096))
-# act_quant's rows: LLaMA-2-7B's two K and Mixtral's down projection
-ACT_QUANT_K = (4096, 11008, 14336)
+# act_quant's rows: LLaMA-2-7B's two K and Mixtral's down projection; then
+# Qwen2-72B's (8192, 29568), Granite-34B's (6144, 24576) and Phi-3.5-MoE's
+# routed down projection (6400)
+ACT_QUANT_K = (4096, 11008, 14336, 8192, 29568, 6144, 24576, 6400)
+# the IS GEMM at Qwen2-72B's linears (K, N): q/o, k/v, gate/up, down; and
+# Granite-34B's: q/o, its single KV head (N = 128), gate/up, down
+CONFIG_GEMM_KN = ((8192, 8192), (8192, 1024), (8192, 29568), (29568, 8192),
+                  (6144, 6144), (6144, 128), (6144, 24576), (24576, 6144))
 DECODE_M = (1, 2, 3, 4)
 PREFILL_M = 128
 TIMED_M = (4, PREFILL_M)
@@ -231,6 +271,12 @@ MOE_C = (8, 40)
 # the forced K split of the grouped W4A8 kernels: Mixtral's down
 # projection at the decode capacity (its plan runs unsplit)
 MOE_SPLIT = (14336, 4096, 8, 4)  # K, N, C, splits
+# Phi-3.5-MoE's expert linears: 16 experts, gate/up and down, at the 4-slot
+# decode capacity and the 128-token prefill capacity
+# (models.moe.capacity(4, 2, 16, 1.25) = 8, capacity(128, 2, 16, 1.25) = 24)
+PHI_E = 16
+PHI_KN = ((4096, 6400), (6400, 4096))
+PHI_C = (8, 24)
 # qlint: each fixture's reference rule, and the rule its PTX must show
 # where the rule has a PTX form (tests/test_qlint.py's map)
 QLINT_RULE = {"broken-fp32-dot": "float-accum-on-is-path",
@@ -252,6 +298,8 @@ MIXTRAL_PLAIN_CHECK_LAYERS = 2
 # many seeded synthetic batches of 4 x 128 tokens
 CALIB_ALGOS = ("gptq", "awq", "smoothquant", "omniquant")
 CALIB_BATCHES = 2
+# phase 8c: the configs served at full width and depth under W4A8 g128 IS
+CONFIG_ARCHS = ("qwen2-72b", "granite-34b", "phi3.5-moe-42b-a6.6b")
 
 
 def log(*a):
@@ -555,6 +603,69 @@ def check_gemms(gen, rows):
     return errs
 
 
+def check_config_gemms(gen, rows):
+    """The IS GEMM at Qwen2-72B's and Granite-34B's widths
+    (``CONFIG_GEMM_KN``) against its plain version, bit for bit, at decode
+    M 1..4 and prefill M 128; timed at M = 4 and 128 beside its plain
+    version, one bf16 ``torch.matmul`` and its bound, with its launch plan.
+    Each timed graph reads at least ``ROTATE_BYTES`` of weights (more calls
+    a graph where one layer is small), so every launch reads them from
+    device memory."""
+    import torch
+    from repro_torch.kernels.act_quant import act_quant_plain
+    from repro_torch.kernels.w4a8_gemm import (fg_gemm_integer_scale,
+                                               fg_gemm_integer_scale_plain)
+
+    def kern(xq, sa, q, s, a):
+        return fg_gemm_integer_scale(xq, sa, q, s, group_size=GROUP, alpha=a)
+
+    def plain(xq, sa, q, s, a):
+        return fg_gemm_integer_scale_plain(xq, sa, q, s, group_size=GROUP,
+                                           alpha=a)
+
+    err = 0.0
+    for K, N in CONFIG_GEMM_KN:
+        wbytes = K * N // 2 + (K // GROUP) * N * 4
+        copies = max(1, math.ceil(ROTATE_BYTES / wbytes))
+        sets = weight_sets(gen, K, N, copies)
+        x = torch.randn((PREFILL_M, K), generator=gen, device="cuda")
+        xq_all, sa_all = act_quant_plain(x)
+        xb_all = x.to(torch.bfloat16)
+        for M in (*DECODE_M, PREFILL_M):
+            xq, sa, xb = (t[:M].contiguous()
+                          for t in (xq_all, sa_all, xb_all))
+            args = [(xq, sa, d["packed"], d["int_scale"], d["alpha"])
+                    for d in sets]
+            y = kern(*args[0])
+            err = max(err, _check("w4a8_gemm_is", [M, K, N], y,
+                                  plain(*args[0]), "exact"))
+            if not torch.equal(y, kern(*args[0])):
+                raise AssertionError(f"w4a8_gemm_is {[M, K, N]}: two "
+                                     "launches gave different bits")
+            if M not in TIMED_M:
+                continue
+            iters = max(30, copies)
+            b, by = bound(M * K + M * 4 + wbytes + M * N * 4,
+                          (2 * M * K * N, INT8_OPS_PER_S))
+            rows.append(dict(
+                kernel="w4a8_gemm_is", variant="fine", shape=[M, K, N],
+                ms=time_ms(kern, args, iters=iters),
+                plain_ms=time_ms(plain, args[:2], iters=3, reps=3),
+                bound_ms=b, bound_by=by, library_ms=None,
+                bf16_matmul_ms=time_ms(lambda a, w: a @ w,
+                                       [(xb, d["wd"]) for d in sets],
+                                       iters=iters),
+                copies=copies, plan=launch_plan(M, N, K)))
+            r = rows[-1]
+            log(f"[kernel] w4a8_gemm_is at a new width {[M, K, N]}: "
+                f"{r['ms']:.4f} ms, bf16 matmul {r['bf16_matmul_ms']:.4f} "
+                f"ms (IS / bf16 {r['ms'] / r['bf16_matmul_ms']:.3f}), share "
+                f"of bound {b / r['ms']:.3f}; plan {r['plan']}")
+        del sets, x, xq_all, sa_all, xb_all
+        torch.cuda.empty_cache()
+    return err
+
+
 def check_flash(gen, rows):
     import torch
     import torch.nn.functional as F
@@ -567,7 +678,9 @@ def check_flash(gen, rows):
     for B, S, Hq, Hkv, D, win in ((1, 128, 32, 32, 128, None),
                                   (1, 128, 32, 8, 128, None),  # Mixtral GQA
                                   (2, 200, 8, 2, 128, 64),
-                                  (1, 77, 4, 1, 64, None)):
+                                  (1, 77, 4, 1, 64, None),
+                                  (1, 128, 64, 8, 128, None),  # Qwen2-72B
+                                  (1, 128, 48, 1, 128, None)):  # Granite
         shape = (B, S, Hq, Hkv, D, win)
         q, k, v = (torch.randn((B, S, h, D), generator=gen, device="cuda"
                                ).to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
@@ -612,22 +725,22 @@ def check_flash(gen, rows):
     return err
 
 
-def moe_counts(C, seed):
-    """Seeded routed counts of 8 experts at capacity C: expert 0 empty,
+def moe_counts(C, seed, E=MOE_E):
+    """Seeded routed counts of E experts at capacity C: expert 0 empty,
     expert 1 full, the rest in [1, C) (none a multiple of the row tile)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    return [0, C] + rng.integers(1, C, size=MOE_E - 2).tolist()
+    return [0, C] + rng.integers(1, C, size=E - 2).tolist()
 
 
-def moe_weights(gen, K, N, w_bits=4):
-    """Stacked RTN weights of 8 experts, as ``weight_sets`` makes one
+def moe_weights(gen, K, N, w_bits=4, E=MOE_E):
+    """Stacked RTN weights of E experts, as ``weight_sets`` makes one
     layer's: packed codes with f32 and integer scales (per-expert alpha),
     per-channel codes and scales, and the bf16 dequantized weight."""
     import torch
 
-    sets = weight_sets(gen, K, N, MOE_E, w_bits=w_bits)
+    sets = weight_sets(gen, K, N, E, w_bits=w_bits)
     out = {k: torch.stack([d[k] for d in sets])
            for k in ("packed", "scale", "int_scale", "packed_c", "scale_c",
                      "wd")}
@@ -717,7 +830,8 @@ def check_grouped(gen, rows):
         ragged, ragged_plain, dense, dense_plain, how = fns
         kw = {} if w_bits == 4 else dict(w_bits=8)
         kk = dict(kw, splits=splits) if splits else kw  # the kernels' kwargs
-        shape = [MOE_E, C, K, N]
+        E = x.shape[0]
+        shape = [E, C, K, N]
         dargs = (x, None, w) if name == "moe_w4a16" else (xq, sa, w)
         y = ragged(x, rc, w, **kk)
         y_d = dense(*dargs, **kk)
@@ -735,20 +849,20 @@ def check_grouped(gen, rows):
         routed, active = sum(counts), sum(c > 0 for c in counts)
         wbytes = K * N // (2 if w_bits == 4 else 1)
         sbytes = (K // GROUP if variant == "fine" else 1) * N * 4
-        out_bytes = MOE_E * C * N * 4
+        out_bytes = E * C * N * 4
         wo = name == "moe_w4a16"
         rate = BF16_FLOPS_PER_S if wo else INT8_OPS_PER_S
         # ragged: the routed experts' weights, the routed bf16 rows; dense
         # grouped: every expert and every row (codes + scale, or bf16)
         b, by = bound(active * (wbytes + sbytes) + routed * K * 2
                       + out_bytes, (2 * routed * K * N, rate))
-        db, dby = bound(MOE_E * (wbytes + sbytes) + out_bytes
-                        + MOE_E * C * (K * 2 if wo else K + 4),
-                        (2 * MOE_E * C * K * N, rate))
-        plan = launch_plan(C, N, K, MOE_E) if wo or ring else None
+        db, dby = bound(E * (wbytes + sbytes) + out_bytes
+                        + E * C * (K * 2 if wo else K + 4),
+                        (2 * E * C * K * N, rate))
+        plan = launch_plan(C, N, K, E) if wo or ring else None
         if splits:
             plan = dict(plan, splits=splits,
-                        workspace=splits * MOE_E * C * N)
+                        workspace=splits * E * C * N)
         return dict(
             kernel=name, variant=(variant if w_bits == 4 else "w8")
             + (f" split{splits}" if splits else ""),
@@ -765,32 +879,34 @@ def check_grouped(gen, rows):
     def routed_quant(C, K, x, rc):
         """act_quant's routed entry (the grouped W4A8 kernels' input)
         against its plain version, bit for bit, and timed."""
+        E = x.shape[0]
         got = aq.act_quant_routed(x, rc)
         want = aq.act_quant_routed_plain(x, rc)
         for g_, w_ in zip(got, want):
-            e = _check("act_quant routed", [MOE_E, C, K], g_.float(),
+            e = _check("act_quant routed", [E, C, K], g_.float(),
                        w_.float(), "exact")
             errs["act_quant"] = max(errs.get("act_quant", 0.0), e)
         routed = sum(min(max(int(c), 0), C) for c in rc.tolist())
-        b, by = bound(routed * K * 2 + MOE_E * C * (K + 4),
+        b, by = bound(routed * K * 2 + E * C * (K + 4),
                       (2 * routed * K, F32_FLOPS_PER_S))
         return dict(kernel="act_quant", variant="routed",
-                    shape=[MOE_E, C, K], ms=time_ms(
+                    shape=[E, C, K], ms=time_ms(
                         aq.act_quant_routed, [(x, rc)]),
                     plain_ms=time_ms(aq.act_quant_routed_plain, [(x, rc)]),
                     bound_ms=b, bound_by=by, library_ms=None,
                     bf16_matmul_ms=None)
 
     def inputs(C, K, counts):
-        """A bf16 (E, C, K) dispatch buffer zero past ``counts``, its
-        counts on the card, and its codes and scales."""
+        """A bf16 (E, C, K) dispatch buffer zero past ``counts`` (E =
+        len(counts)), its counts on the card, and its codes and scales."""
+        E = len(counts)
         rc = torch.tensor(counts, dtype=torch.int32, device="cuda")
         live = torch.arange(C, device="cuda")[None, :] < rc[:, None]
         x = torch.where(live[..., None], torch.randn(
-            (MOE_E, C, K), generator=gen, device="cuda"), 0.0
+            (E, C, K), generator=gen, device="cuda"), 0.0
         ).to(torch.bfloat16)
-        xq, sa = act_quant_plain(x.reshape(MOE_E * C, K))
-        return x, rc, xq.reshape(MOE_E, C, K), sa.reshape(MOE_E, C, 1)
+        xq, sa = act_quant_plain(x.reshape(E * C, K))
+        return x, rc, xq.reshape(E, C, K), sa.reshape(E, C, 1)
 
     for K, N in MOE_KN:
         w = moe_weights(gen, K, N)
@@ -814,6 +930,26 @@ def check_grouped(gen, rows):
             del x, xq, sa
         del w
         torch.cuda.empty_cache()
+
+    # Phi-3.5-MoE's experts (16) through the ragged IS kernel, the one its
+    # served path runs, with act_quant's routed entry before it
+    if ring:
+        key = ("moe_w4a8_is", "fine")
+        for K, N in PHI_KN:
+            w = moe_weights(gen, K, N, E=PHI_E)
+            for C in PHI_C:
+                x, rc, xq, sa = inputs(C, K, moe_counts(C, C * K, E=PHI_E))
+                rows.append(routed_quant(C, K, x, rc))
+                r = one(*key, C, K, N, x, rc, xq, sa, w, groups[key])
+                rows.append(dict(r, library_ms=None, bf16_matmul_ms=time_ms(
+                    bmm, [(x, w["wd"])]), copies=1))
+                log(f"[kernel] grouped IS {r['shape']} (Phi-3.5-MoE): "
+                    f"{r['ms']:.4f} ms, bf16 bmm "
+                    f"{rows[-1]['bf16_matmul_ms']:.4f} ms, share of bound "
+                    f"{r['bound_ms'] / r['ms']:.3f}; plan {r['plan']}")
+                del x, xq, sa
+            del w
+            torch.cuda.empty_cache()
 
     # W8A8 weights through the IS kernel at one decode shape
     K, N, C = 4096, 14336, 8
@@ -1175,27 +1311,43 @@ def first_token_is_argmax(tag, eng, toks, n0, first):
                              "is not the argmax of the model's logits")
 
 
-def plain_check(api, cfg, qparams, recipe, toks, n0, layers):
-    """Logits of the model cut to its first ``layers`` layers on the card
-    (kernels) against the same layers copied to the CPU (plain versions):
-    (max abs diff relative to the largest logit, CPU seconds)."""
+def plain_check(api, cfg, qparams, recipe, toks, n0, layers, sc):
+    """The model cut to its first ``layers`` layers on the card (kernels)
+    against the same layers on the CPU (plain versions), through the KV
+    cache: a prefill of ``toks`` that writes the cache, then one decode
+    step at position ``n0`` that reads it back. Returns (max abs diff
+    relative to the largest logit over the prefill's logit at ``n0 - 1``
+    and the decode step's, CPU seconds)."""
     import torch
     from repro_torch.nn import spec as S
 
     cut = dict(qparams, blocks=qparams["blocks"][:layers])
     c2 = dataclasses.replace(cfg, num_layers=layers)
+
+    def run(params, device):
+        model = api.build(c2, params, recipe)
+        cache = S.materialize(api.cache_specs(c2, 1, sc.max_seq),
+                              device=device)
+        t = toks.to(device)
+        pre = model(t, mode="train", cache=cache, pos=0)[0][0, n0 - 1]
+        dec = model(t[:, :1], mode="decode", cache=cache, pos=torch.tensor(
+            [n0], device=device))[0][0, 0]
+        return pre.cpu(), dec.cpu()
+
     with torch.inference_mode():
-        la = api.build(c2, cut, recipe)(toks)[0][0, n0 - 1]
+        card = run(cut, "cuda")
         t0 = time.perf_counter()
-        on_cpu = S.tree_map(lambda t: t.cpu(), cut)
-        lp = api.build(c2, on_cpu, recipe)(toks.cpu())[0][0, n0 - 1]
+        cpu = run(S.tree_map(lambda t: t.cpu(), cut), "cpu")
         cpu_s = time.perf_counter() - t0
-    rel = ((la.cpu() - lp).abs().max() / lp.abs().max()).item()
+    rel = max(((a - b).abs().max() / b.abs().max()).item()
+              for a, b in zip(card, cpu))
     if not rel <= PLAIN_LOGIT_REL_TOL:
         raise AssertionError(f"{cfg.name}: kernels vs plain versions, first "
-                             f"{layers} layers: logits rel {rel}")
-    log(f"[check] {cfg.name} {recipe.name}: first {layers} layers, kernels "
-        f"on the card vs plain versions on the CPU ({cpu_s:.1f} s): "
+                             f"{layers} layers ({cfg.kv_cache_dtype} cache): "
+                             f"logits rel {rel}")
+    log(f"[check] {cfg.name} {recipe.name}: first {layers} layers through "
+        f"the {cfg.kv_cache_dtype} cache (a prefill, then one decode step), "
+        f"kernels on the card vs plain versions on the CPU ({cpu_s:.1f} s): "
         f"logits rel {rel:.2e} (<= {PLAIN_LOGIT_REL_TOL})")
     return rel, cpu_s
 
@@ -1473,7 +1625,7 @@ def serve_checked(tag, name, api, cfg, qparams, recipe, sc, prompts, toks,
         check_eager_streams(f"{tag} {name}", api, cfg, eng, prompts, sc,
                             outs)
     rel, cpu_s = plain_check(api, cfg, qparams, recipe, toks, n0,
-                             PLAIN_CHECK_LAYERS)
+                             PLAIN_CHECK_LAYERS, sc)
     st = report_serve(tag, name, api, cfg, eng, outs, launches, reg, wall,
                       sc, peak)
     schemes: dict = {}
@@ -1697,6 +1849,209 @@ def llama3_phase(sc, prompts, toks, n0, launches_total, smi):
     return st
 
 
+def cache_bytes(api, cfg, sc) -> int:
+    """Bytes of the engine's KV cache at ``sc``'s slots and length."""
+    from repro_torch.nn import spec as S
+
+    return sum(math.prod(sp.shape) * sp.dtype.itemsize for sp in S.leaves(
+        api.cache_specs(cfg, sc.max_slots, sc.max_seq)))
+
+
+def kv8_phase(api, cfg, qparams, recipe, sc, prompts, toks, n0,
+              launches_total, is_outs, smi):
+    """Phase 5b, ``[kv8]``: the int8 KV cache. ``quantize_kv`` on the card
+    bit-equal to the CPU's on one seeded (4, 128, 32, 128) bf16 input;
+    then phase 5's IS weights served with ``kv_cache_dtype="int8"`` and
+    checked as phase 5 checks IS (outcomes, one capture per step, exact
+    launches, the argmax, the eager greedy loop, the first 2 layers
+    against the CPU through the cache, act_quant 4 a layer). Logs the
+    cache's bytes in bf16 and int8 and the share of stream tokens equal to
+    phase 5's bf16-cache streams (information, not a gate)."""
+    import torch
+    from repro_torch.models.attention import quantize_kv
+
+    x = (torch.randn((4, 128, 32, 128), generator=torch.Generator(
+        ).manual_seed(8)) * 2).to(torch.bfloat16)
+    q, s = quantize_kv(x.cuda())
+    q_c, s_c = quantize_kv(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(q.cpu(), q_c) and torch.equal(s.cpu(), s_c)):
+        raise AssertionError("quantize_kv on the card differs from the CPU")
+    log("[kv8] quantize_kv (4, 128, 32, 128) bf16: codes and scales on the "
+        "card equal the CPU's bit for bit")
+
+    kcfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    b16, b8 = cache_bytes(api, cfg, sc), cache_bytes(api, kcfg, sc)
+    eng, outs, launches, reg, wall, peak = serve_recipe(
+        api, kcfg, qparams, recipe, sc, prompts)
+    if eng.cache["blocks"][0]["k"].dtype != torch.int8:
+        raise AssertionError("kv8: the engine's cache is not int8")
+    check_launches("kv8", launches, KERNELS_OF["w4a8-is"])
+    steps = check_steps("kv8", eng, reg, launches)
+    for k, n in launches.items():
+        launches_total[k] += n
+    first_token_is_argmax("kv8", eng, toks, n0, outs[0][0])
+    check_eager_streams("kv8", api, kcfg, eng, prompts, sc, outs)
+    rel, cpu_s = plain_check(api, kcfg, qparams, recipe, toks, n0,
+                             PLAIN_CHECK_LAYERS, sc)
+    st = report_serve("kv8", f"{recipe.name} int8 cache", api, kcfg, eng,
+                      outs, launches, reg, wall, sc, peak)
+    st.update(steps=steps, plain_logit_rel=rel, plain_cpu_s=cpu_s,
+              cache_bytes_bf16=b16, cache_bytes_int8=b8,
+              tick_launches=check_tick_launches(
+                  "kv8", recipe.name, kcfg,
+                  *tick_launches(api, kcfg, eng.model, sc)))
+    same = sum(a == b for o, p in zip(outs, is_outs) for a, b in zip(o, p))
+    st["tokens_equal_bf16_cache"] = same / sum(len(o) for o in outs)
+    log(f"[kv8] {cfg.name} {recipe.name}: KV cache {b16 / 1e6:.1f} MB in "
+        f"bf16, {b8 / 1e6:.1f} MB in int8 (codes and scales) at "
+        f"{sc.max_slots} slots x {sc.max_seq}; tick "
+        f"{st['decode_tick_s'] * 1e3:.2f} ms (device timer "
+        f"{st['decode_device_s'] * 1e3:.2f} ms, idle share "
+        f"{st['idle_share']:.3f}); stream tokens equal to the bf16 cache's "
+        f"{st['tokens_equal_bf16_cache']:.3f}; {smi}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return st
+
+
+def act_quant_rows(api, cfg, model, sc):
+    """The (K, dtype) of every dense act_quant call in one decode step."""
+    import torch
+    from repro_torch.kernels import ops
+
+    real, seen = ops.act_quant, set()
+
+    def recorded(x, *a, **k):
+        seen.add((x.shape[-1], str(x.dtype).removeprefix("torch.")))
+        return real(x, *a, **k)
+
+    cache, toks, pos = _decode_inputs(api, cfg, sc)
+    ops.act_quant = recorded
+    try:
+        with torch.inference_mode():
+            model(toks, mode="decode", cache=cache, pos=pos)
+    finally:
+        ops.act_quant = real
+    del cache
+    return sorted(seen)
+
+
+def configs_phase(sc, prompts, toks, n0, launches_total, smi):
+    """Phase 8c, ``[configs]``: each of ``CONFIG_ARCHS`` at full width
+    under W4A8 g128 IS, built block by block (random weights, seed 0),
+    every layer's overflow certificate certified or capped (each capped
+    one printed), served with phase 5's prompts and ``ServeConfig``:
+    every outcome ok, one capture per step, exactly the IS kernels (and
+    the grouped IS kernel for a MoE config) and exactly the graphs'
+    counts, the first token the argmax, m-tiles executed <= total for a
+    MoE config, act_quant per layer as phase 5 and 8. Qwen2-72B is
+    served a second time over an int8 KV cache on the same weights. Each
+    model is freed before the next is built."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.analysis import certify
+    from repro_torch.core import ptq
+    from repro_torch.core.recipe import DEFAULT_RECIPE
+    from repro_torch.models.registry import get_arch, get_model
+    from repro_torch.nn import spec as S
+
+    recipe = DEFAULT_RECIPE
+    stats: dict[str, dict] = {}
+    for arch in CONFIG_ARCHS:
+        cfg = get_arch(arch)
+        api = get_model(cfg)
+        n_before = len(certify.log())
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with obs.use_registry(obs.Registry()):
+            qp = ptq.quantize_by_layer(api, cfg, recipe, seed=0,
+                                       device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_peak = torch.cuda.max_memory_allocated()
+        qbytes = sum(t.numel() * t.element_size() for t in S.leaves(qp))
+        certs = certify.log()[n_before:]
+        if not certs or not all(c.ok for c in certs):
+            raise AssertionError(f"{arch}: certificates "
+                                 f"{[str(c) for c in certs if not c.ok]}")
+        summ = certify.summary(certs)
+        log(f"[configs] {cfg.name}: {cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.num_heads} query heads over "
+            f"{cfg.num_kv_heads} KV heads of {cfg.head_dim}, d_ff "
+            f"{cfg.moe_d_ff or cfg.d_ff}"
+            + (f", {cfg.num_experts} experts top-{cfg.top_k}"
+               if cfg.num_experts else "")
+            + f", vocab {cfg.vocab_size}; {recipe.name} built block by block"
+            f" in {build_s:.1f} s; weights on the card {qbytes / 1e9:.2f} "
+            f"GB; peak allocated while building {build_peak / 1e9:.2f} GB; "
+            f"certificates {summ['certified']} certified / "
+            f"{summ['capped-alpha']} capped / {summ['fallback']} fallback, "
+            f"worst accumulator {summ['worst_frac']:.4f} of 2^31; {smi}")
+        for c in certs:
+            if c.verdict == "capped-alpha":
+                log(f"[configs]   {c}")
+        runs = [cfg]
+        if arch == "qwen2-72b":
+            runs.append(dataclasses.replace(cfg, kv_cache_dtype="int8"))
+        for c in runs:
+            name = f"{arch} {c.kv_cache_dtype} cache"
+            torch.cuda.reset_peak_memory_stats()
+            eng, outs, launches, reg, wall, peak = serve_recipe(
+                api, c, qp, recipe, sc, prompts)
+            eng.close()  # no routing sink from here on (the timed graphs)
+            must = KERNELS_OF[recipe.name] | (
+                {MOE_KERNEL_OF[recipe.name]} if c.num_experts else set())
+            check_launches(f"configs {name}", launches, must)
+            steps = check_steps(f"configs {name}", eng, reg, launches)
+            for k, n in launches.items():
+                launches_total[k] += n
+            tiles = reg.counter("engine_moe_m_tiles_total", "", ("kind",))
+            executed = tiles.get(kind="executed")
+            total = tiles.get(kind="total")
+            if c.num_experts and not 0 < executed <= total:
+                raise AssertionError(f"configs {name}: m-tiles executed "
+                                     f"{executed}, total {total}")
+            first_token_is_argmax(f"configs {name}", eng, toks, n0,
+                                  outs[0][0])
+            st = report_serve("configs", name, api, c, eng, outs, launches,
+                              reg, wall, sc, peak)
+            st.update(
+                steps=steps, build_s=build_s, build_peak_bytes=build_peak,
+                weight_bytes=qbytes, certificates=summ,
+                capped=[str(x) for x in certs
+                        if x.verdict == "capped-alpha"],
+                cache_bytes=cache_bytes(api, c, sc),
+                m_tiles_executed=executed, m_tiles_total=total,
+                act_quant_rows=act_quant_rows(api, c, eng.model, sc),
+                tick_launches=check_tick_launches(
+                    "configs", recipe.name, c,
+                    *tick_launches(api, c, eng.model, sc)))
+            log(f"[configs] {name}: build {build_s:.1f} s, peak allocated "
+                f"building {build_peak / 1e9:.2f} GB / serving "
+                f"{peak / 1e9:.2f} GB; tick {st['decode_tick_s'] * 1e3:.2f} "
+                f"ms (device timer {st['decode_device_s'] * 1e3:.2f} ms, "
+                f"idle share {st['idle_share']:.3f}); prefill "
+                f"{st['prefill_s'] * 1e3:.2f} ms; mean TTFT "
+                f"{st['ttft_mean_s'] * 1e3:.1f} ms; KV cache "
+                f"{st['cache_bytes'] / 1e6:.1f} MB; capped certificates "
+                f"{summ['capped-alpha']}; act_quant rows (K, dtype) "
+                f"{st['act_quant_rows']}"
+                + (f"; m-tiles executed/total {executed:g}/{total:g}"
+                   if c.num_experts else "") + f"; {smi}")
+            stats[name] = st
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        del qp
+        gc.collect()
+        torch.cuda.empty_cache()
+    return stats
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1749,6 +2104,8 @@ def main() -> int:
     errs = {"act_quant": check_act_quant(gen, rows),
             **check_gemms(gen, rows),
             "flash_attention": check_flash(gen, rows)}
+    errs["w4a8_gemm_is"] = max(errs["w4a8_gemm_is"],
+                               check_config_gemms(gen, rows))
     for k, v in check_grouped(gen, rows).items():
         errs[k] = max(errs.get(k, 0.0), v)
 
@@ -1804,11 +2161,12 @@ def main() -> int:
             launches_total[k] += n
         first_token_is_argmax(name, eng, toks, n0, outs[0][0])
         if name == DEFAULT_RECIPE.name:
+            is_outs = outs
             check_eager_streams(f"serve {name}", api, cfg, eng, prompts, sc,
                                 outs)
             # the kernels against the plain versions on the same weights
             rel, cpu_s = plain_check(api, cfg, qparams[name], recipe, toks,
-                                     n0, PLAIN_CHECK_LAYERS)
+                                     n0, PLAIN_CHECK_LAYERS, sc)
         serve_stats[name] = report_serve(
             "serve", name, api, cfg, eng, outs, launches, reg, wall, sc, peak)
         serve_stats[name]["steps"] = steps
@@ -1819,6 +2177,11 @@ def main() -> int:
         del eng
         gc.collect()
         torch.cuda.empty_cache()
+
+    # -- 5b. the int8 KV cache on the IS weights ----------------------------------
+    kv8_stats = kv8_phase(api, cfg, qparams[DEFAULT_RECIPE.name],
+                          DEFAULT_RECIPE, sc, prompts, toks, n0,
+                          launches_total, is_outs, smi)
 
     # -- 6. breaker drill: IS -> FS on the card -----------------------------------
     eng, outs, launches, reg, wall, _ = serve_recipe(
@@ -1921,7 +2284,7 @@ def main() -> int:
             check_eager_streams(f"mixtral {name}", mapi, mcfg, eng, prompts,
                                 sc, outs)
             mrel, mcpu_s = plain_check(mapi, mcfg, mq, recipe, toks, n0,
-                                       MIXTRAL_PLAIN_CHECK_LAYERS)
+                                       MIXTRAL_PLAIN_CHECK_LAYERS, sc)
         st = report_serve("mixtral", name, mapi, mcfg, eng, outs, launches,
                           reg, wall, sc, peak)
         st["steps"] = steps
@@ -1941,6 +2304,9 @@ def main() -> int:
 
     # -- 8b. llama3.2-3b under the paper's LLaMA-3 recipe ------------------------
     llama3_stats = llama3_phase(sc, prompts, toks, n0, launches_total, smi)
+
+    # -- 8c. Qwen2-72B, Granite-34B and Phi-3.5-MoE at full width ------------------
+    configs_stats = configs_phase(sc, prompts, toks, n0, launches_total, smi)
 
     missing = sorted(k for k in _build.KERNELS if launches_total[k] <= 0)
     if missing:
@@ -2008,7 +2374,7 @@ def main() -> int:
                   "mixtral_plain_layers": MIXTRAL_PLAIN_CHECK_LAYERS,
                   "mixtral_plain_cpu_s": mcpu_s},
         "mixtral": mixtral_stats, "calib": calib_stats,
-        "llama3": llama3_stats,
+        "llama3": llama3_stats, "kv8": kv8_stats, "configs": configs_stats,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,11 +1,16 @@
-"""GQA attention with RoPE and a bf16 KV cache. Port of the GQA part of
-``repro/models/attention.py`` (MLA, cross attention and the int8 KV cache
-come with later slices).
+"""GQA attention with RoPE and a KV cache in the activation dtype or in
+int8. Port of the GQA part of ``repro/models/attention.py`` (MLA and cross
+attention come with later slices).
 
 Prefill/train attention runs :func:`flash_attention`, the wrapper in
 ``kernels/flash_attention.py``: the Hopper kernel on CUDA tensors, its
 plain version on CPU tensors. Decode attends one new token per slot over
 the cache with :func:`decode_attention`.
+
+With ``kv_cache_dtype="int8"`` the cache holds int8 codes and f32 scales
+per token and head (:func:`quantize_kv`), written on every store and
+multiplied back on every decode read. Prefill attends over its fresh
+k/v, not over the cache, as the reference does.
 
 The KV cache is updated in place (the reference returns a new cache):
 it is the largest serving tensor after the weights, and each write is
@@ -18,6 +23,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.core import quant
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.nn import spec as S
@@ -59,15 +65,22 @@ def decode_attention(
     *,
     window: int | None = None,
     softmax_scale: float | None = None,
+    k_scale: torch.Tensor | None = None,  # (B, Smax, Hkv, 1) if int8 KV
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Single-step attention over the KV cache."""
+    """Single-step attention over a (possibly int8) KV cache."""
     B, Smax, Hkv, D = k_cache.shape
     Dv = v_cache.shape[-1]
     Hq = q.shape[2]
     G = Hq // Hkv
     scale = softmax_scale or (1.0 / math.sqrt(D))
+    kf, vf = k_cache.float(), v_cache.float()
+    if k_scale is not None:
+        kf = kf * k_scale.float()
+    if v_scale is not None:
+        vf = vf * v_scale.float()
     qg = q.reshape(B, Hkv, G, D).float() * scale
-    s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float())
+    s = torch.einsum("bhgd,bshd->bhgs", qg, kf)
     pos = torch.arange(Smax, device=q.device)
     lens = torch.as_tensor(length, device=q.device).reshape(-1, 1)
     mask = pos[None, :] < lens
@@ -75,8 +88,23 @@ def decode_attention(
         mask &= pos[None, :] > lens - 1 - window
     s = torch.where(mask[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    out = torch.einsum("bhgs,bshd->bhgd", p, vf)
     return out.reshape(B, 1, Hq, Dv)
+
+
+# ---------------------------------------------------------------------------
+# KV-cache quantization (int8 per-token-per-head absmax)
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv(x: torch.Tensor):
+    """(B, S, H, D) -> int8 codes + (B, S, H, 1) f32 scales: the
+    reference's ``max(amax, 1e-8) / 127`` and round half to even of a true
+    f32 division, clipped to +-127 (``core.quant``'s per-token absmax,
+    whose division stays true on the card)."""
+    xf = x.float()
+    scale = quant.symmetric_scale(xf, -1, 8)
+    return quant.quantize(xf, scale, 8).to(torch.int8), scale
 
 
 # ---------------------------------------------------------------------------
@@ -101,6 +129,12 @@ def gqa_specs(cfg: ModelConfig, recipe, base: str) -> dict:
 
 def gqa_cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        scales = (*shape[:-1], 1)
+        return {"k": S.zeros(shape, dtype=torch.int8),
+                "v": S.zeros(shape, dtype=torch.int8),
+                "k_scale": S.zeros(scales, dtype=torch.float32),
+                "v_scale": S.zeros(scales, dtype=torch.float32)}
     dt = cfg.activation_dtype
     return {"k": S.zeros(shape, dtype=dt), "v": S.zeros(shape, dtype=dt)}
 
@@ -120,10 +154,16 @@ def _cache_write(cache_arr: torch.Tensor, val: torch.Tensor, pos) -> None:
         cache_arr[:, p:p + val.shape[1]] = val.to(cache_arr.dtype)
 
 
-def _store_kv(cache: dict, k, v, pos) -> dict:
+def _store_kv(cfg: ModelConfig, cache: dict, k, v, pos) -> dict:
     """Write new k/v (B, S_new, Hkv, D) into the cache at offset pos."""
-    _cache_write(cache["k"], k, pos)
-    _cache_write(cache["v"], v, pos)
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        vals = (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))
+    else:
+        vals = (("k", k), ("v", v))
+    for name, val in vals:
+        _cache_write(cache[name], val, pos)
     return cache
 
 
@@ -154,12 +194,14 @@ class GQAttention(nn.Module):
         k = apply_rope(k, cos, sin)
 
         if mode == "decode":
-            cache = _store_kv(cache, k, v, pos)
-            out = decode_attention(q, cache["k"], cache["v"], pos + Sq,
-                                   window=window).to(x.dtype)
+            cache = _store_kv(cfg, cache, k, v, pos)
+            out = decode_attention(
+                q, cache["k"], cache["v"], pos + Sq, window=window,
+                k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+            ).to(x.dtype)
         else:
             if cache is not None:  # prefill: also populate the cache
-                cache = _store_kv(cache, k, v, pos)
+                cache = _store_kv(cfg, cache, k, v, pos)
             out = flash_attention(q, k, v, causal=True,
                                   window=window).to(x.dtype)
 

@@ -50,7 +50,9 @@ class ModelConfig:
 
     # -- execution --------------------------------------------------------------
     dtype: str = "bfloat16"
-    kv_cache_dtype: Literal["bfloat16", "float32"] = "bfloat16"
+    # "int8": int8 codes plus f32 per-token, per-head scales; any other
+    # value: a cache in the activation dtype (the reference's rule)
+    kv_cache_dtype: str = "bfloat16"
 
     def __post_init__(self):
         if self.head_dim == 0:

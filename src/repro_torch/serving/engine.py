@@ -267,7 +267,8 @@ class Engine:
         # batch-1 prefill in mode="train": FULL-sequence logits (the
         # engine needs the logit at the true prompt end, which may be
         # before the padded end) while writing the batch-1 cache, whose
-        # whole rows then replace the slot's. Prefill writes only the
+        # whole rows then replace the slot's, for every key of the cache
+        # (an int8 cache's scales with its codes). Prefill writes only the
         # batch-1 cache's first prefill_len positions, so the rest stay
         # zero and the splice clears the slot's rows past the prompt: no
         # stale value (a quarantined request's NaN) reaches the masked

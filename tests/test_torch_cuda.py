@@ -1345,3 +1345,111 @@ def test_gptq_captured_group_loop_equals_eager_when_reused(cuda):
         want = eager(w, x)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert len(cache) == 2
+
+
+# ---------------------------------------------------------------------------
+# The int8 KV cache and the widths of Qwen2-72B, Granite-34B and Phi-3.5-MoE
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_kv_on_the_card_equals_the_cpu(cuda, dtype):
+    from repro_torch.models.attention import quantize_kv
+
+    x = _normal(8, (4, 128, 32, 128), 2.0).to(dtype)
+    x[0, 0] = 0.0  # the 1e-8 floor
+    q, s = quantize_kv(x.to(cuda))
+    q_c, s_c = quantize_kv(x)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert torch.equal(q.cpu(), q_c) and torch.equal(s.cpu(), s_c)
+
+
+# (K, N) of the new configs' linears: Qwen2-72B's q/o, k/v, gate/up, down;
+# Granite-34B's q/o, single-head k/v, gate/up, down
+NEW_WIDTHS = [(8192, 8192), (8192, 1024), (8192, 29568), (29568, 8192),
+              (6144, 6144), (6144, 128), (6144, 24576), (24576, 6144)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", NEW_WIDTHS)
+@pytest.mark.parametrize("M", [4, 128])
+def test_is_gemm_bit_exact_at_new_widths(cuda, M, K, N):
+    """The launch plan splits K at these widths (N = 128 takes 16
+    splits over 2 column tiles); the amplifier is the certified one."""
+    from repro_torch.analysis.certify import resolve_amplifier
+
+    qw = quant.quantize_weight(_normal(K + N, (K, N), K ** -0.5, cuda), 4,
+                               128)
+    xq, sa = quant.quantize_activation(_normal(M, (M, K), 1.0, cuda))
+    cert = resolve_amplifier(qw.scale.cpu().numpy(), alpha=1024,
+                             group_size=128, w_bits=4)
+    assert cert.ok
+    isw = isc.integerize(qw, cert.resolved_alpha)
+    w = packing.pack_int4(qw.qvalue)
+    y = fg_gemm_integer_scale(xq, sa, w, isw.int_scale, group_size=128,
+                              alpha=float(isw.alpha))
+    y_p = fg_gemm_integer_scale_plain(xq, sa, w, isw.int_scale,
+                                      group_size=128, alpha=float(isw.alpha))
+    assert torch.equal(y, y_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [8192, 29568, 6144, 24576, 6400])
+@pytest.mark.parametrize("M", [4, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_act_quant_bit_exact_at_new_widths(cuda, M, K, dtype):
+    """f32 rows of 29568 and 24576 values take the re-reading loop (beyond
+    16384), bf16 ones stay in registers (up to 32768)."""
+    x = _normal(K, (M, K), 3.0, cuda).to(dtype)
+    q, s = act_quant(x)
+    q_p, s_p = act_quant_plain(x)
+    assert torch.equal(q, q_p) and torch.equal(s, s_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(4096, 6400), (6400, 4096)])
+@pytest.mark.parametrize("C", [8, 24])
+def test_ragged_is_bit_exact_at_phi_widths(cuda, K, N, C):
+    """Phi-3.5-MoE's experts: 16 of them, capacities of a 4-slot decode
+    (8) and a 128-token prefill (24), an empty and a full expert."""
+    E = 16
+    counts = [0, C] + np.random.default_rng(C).integers(1, C, E - 2).tolist()
+    x, rc, qv, _, iscale, alpha = _grouped_operands(cuda, E, C, K, N, 128,
+                                                    counts)
+    y = moe_gemm.fg_grouped_gemm_integer_scale_ragged(
+        x, rc, qv, iscale, group_size=128, alpha=alpha)
+    y_p = moe_gemm.fg_grouped_gemm_integer_scale_ragged_plain(
+        x, rc, qv, iscale, group_size=128, alpha=alpha)
+    assert torch.equal(y, y_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv", [(64, 8), (48, 1)])
+def test_flash_kernel_at_new_head_layouts(cuda, Hq, Hkv):
+    """Qwen2-72B's 64 query heads over 8 and Granite-34B's 48 over one
+    (MQA), heads of 128, at the 128-token prefill."""
+    q, k, v = (_normal(i, (1, 128, h, 128), 1.0, cuda).to(torch.bfloat16)
+               for i, h in enumerate((Hq, Hkv, Hkv)))
+    out = flash_attention(q, k, v)
+    ref = flash_attention_plain(q, k, v)
+    assert (out.float() - ref.float()).abs().max().item() <= TOLERANCE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama2-7b", "granite-34b"])
+def test_engine_with_int8_cache_equals_an_eager_greedy_loop(cuda, arch):
+    """The captured steps over an int8 KV cache (the prefill graph splices
+    the scales with the codes): streams equal the eager loop's, one
+    capture per step."""
+    import dataclasses
+
+    api, cfg, params, recipe = _served(arch, "w4a8-is", cuda)
+    cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    prompts = _engine_prompts(cfg)
+    sc = ServeConfig(**ENGINE_SC)
+    eng, outs = _serve(api, cfg, params, recipe, prompts, sc)
+    eng.close()
+    assert eng.cache["blocks"][0]["k"].dtype == torch.int8
+    assert eng.decode_traces == eng.prefill_traces == 1
+    assert outs == eager_greedy(api, cfg, eng.model, prompts, sc)
