@@ -79,6 +79,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and act_quant's routed entry at Phi-3.5-MoE's 16 experts, (4096 ->
    6400) and (6400 -> 4096) at capacity 8 and 24, bit-exact and timed
    beside a bf16 ``torch.bmm``.
+   Then the widths of phase 8d's MLA models: act_quant also at K = 2560,
+   768, 256 (MiniCPM3) and 5120, 1536, 512, 16384, 12288, 3072
+   (DeepSeek-V2); the IS GEMM bit-exact at (K, N) = (2560, 288), (5120,
+   576), (1536, 24576), (16384, 5120), (256, 2560), (512, 16384)
+   (``MLA_GEMM_KN``: N = 288 and 576 are no multiple of the 64-column
+   tile), timed as above; flash attention at 8 query heads over 2 KV
+   heads of 32 (bf16 and f32; Qwen2-72B's smoke heads); the ragged IS
+   GEMM and act_quant's routed entry at DeepSeek-V2's 160 experts, (5120
+   -> 1536) and (1536 -> 5120) at capacity 8, with row counts from a
+   seeded top-6 routing of 4 and of 128 tokens, bit-exact, equal to the
+   dense-grouped entry and timed beside a bf16 ``torch.bmm``.
 4. Build ``llama2-7b`` at its full published widths (32 layers) in bf16
    from a seeded generator on the card, and RTN-quantize it under four
    recipes: W4A8 IS g128 alpha=1024 (the paper's), W4A8 FS g128 (Eq. 1),
@@ -192,6 +203,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    building and serving, tick, prefill, TTFT, idle share and the (K,
    dtype) of every dense act_quant row are logged. Each model is freed
    before the next is built.
+8d. ``[mla]``: ``minicpm3-4b`` (62 layers, 40 heads, q_lora 768, kv_lora
+   256, rope 32, nope 64, v 64, d_ff 6400) at full depth and
+   ``deepseek-v2-236b`` at full width cut to 24 layers (its dense first
+   layer of d_ff 12288 and 23 MoE layers of 160 experts top-6 of d_ff
+   1536 plus 2 shared; 128 heads, q_lora 1536, kv_lora 512, rope 64,
+   nope 128, v 128, vocab 102400), W4A8 g128 IS built block by block
+   with seed 0, every certificate certified or capped (the o projection
+   at K = 16384 printed), served as in phase 8 with a latent cache:
+   outcomes, one capture per step, exactly the IS kernels and the
+   graphs' counts (no flash: MLA's prefill attention is plain PyTorch,
+   as the reference's), act_quant per graph exactly 6 (prefill) or 5
+   (decode) dense a layer and 2 routed a MoE layer, the argmax, m-tiles,
+   the streams equal the eager greedy loop, the first 2 layers against
+   the CPU's plain versions through the latent cache. One decode step
+   is profiled: the share of the MLA decode's f32 einsums, of
+   ``_dense_weight`` (k_up and v_up dequantized inside the step) and of
+   the quantized GEMMs. TF32 must be off.
 9. Print the ``kernels`` JSON line (the eight kernels, launches summed
    over every served path; the five qlint fixtures, launches from their
    run in phase 2b), then the result line
@@ -225,12 +253,21 @@ F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 GEMM_KN = ((4096, 4096), (4096, 11008), (11008, 4096))
 # act_quant's rows: LLaMA-2-7B's two K and Mixtral's down projection; then
 # Qwen2-72B's (8192, 29568), Granite-34B's (6144, 24576) and Phi-3.5-MoE's
-# routed down projection (6400)
-ACT_QUANT_K = (4096, 11008, 14336, 8192, 29568, 6144, 24576, 6400)
+# routed down projection (6400); then MiniCPM3's x / o input (2560), cq
+# (768) and c_kv (256), and DeepSeek-V2's x (5120), cq and the routed
+# down projection (1536), c_kv (512), o input (16384), the dense layer's
+# down projection (12288) and the shared experts' (3072)
+ACT_QUANT_K = (4096, 11008, 14336, 8192, 29568, 6144, 24576, 6400,
+               2560, 768, 256, 5120, 1536, 512, 16384, 12288, 3072)
 # the IS GEMM at Qwen2-72B's linears (K, N): q/o, k/v, gate/up, down; and
 # Granite-34B's: q/o, its single KV head (N = 128), gate/up, down
 CONFIG_GEMM_KN = ((8192, 8192), (8192, 1024), (8192, 29568), (29568, 8192),
                   (6144, 6144), (6144, 128), (6144, 24576), (24576, 6144))
+# the IS GEMM at MLA's widths (K, N): MiniCPM3's kv_down (N = 288, 4.5
+# column tiles of 64) and k_up / v_up; DeepSeek-V2's kv_down (N = 576),
+# q_up, o (K = 16384) and k_up / v_up
+MLA_GEMM_KN = ((2560, 288), (5120, 576), (1536, 24576), (16384, 5120),
+               (256, 2560), (512, 16384))
 DECODE_M = (1, 2, 3, 4)
 PREFILL_M = 128
 TIMED_M = (4, PREFILL_M)
@@ -277,6 +314,13 @@ MOE_SPLIT = (14336, 4096, 8, 4)  # K, N, C, splits
 PHI_E = 16
 PHI_KN = ((4096, 6400), (6400, 4096))
 PHI_C = (8, 24)
+# DeepSeek-V2's routed experts: 160 of them, gate/up and down, at capacity
+# 8 for the 4-slot decode and the 128-token prefill alike
+# (models.moe.capacity(4, 6, 160, 1.25) = capacity(128, 6, 160, 1.25) = 8),
+# with routed counts from a seeded top-6 routing of 4 and of 128 tokens
+DS_E, DS_TOP_K, DS_C = 160, 6, 8
+DS_KN = ((5120, 1536), (1536, 5120))
+DS_TOKENS = (4, 128)
 # qlint: each fixture's reference rule, and the rule its PTX must show
 # where the rule has a PTX form (tests/test_qlint.py's map)
 QLINT_RULE = {"broken-fp32-dot": "float-accum-on-is-path",
@@ -300,6 +344,11 @@ CALIB_ALGOS = ("gptq", "awq", "smoothquant", "omniquant")
 CALIB_BATCHES = 2
 # phase 8c: the configs served at full width and depth under W4A8 g128 IS
 CONFIG_ARCHS = ("qwen2-72b", "granite-34b", "phi3.5-moe-42b-a6.6b")
+# phase 8d: the MLA models at full width under W4A8 g128 IS, MiniCPM3 at
+# its full depth, DeepSeek-V2 cut to its dense layer plus 23 MoE layers
+# (all 60 are about 127 GB under W4A8; 24 are about 52 GB)
+MLA_ARCHS = ("minicpm3-4b", "deepseek-v2-236b")
+MLA_DEPTH = {"deepseek-v2-236b": 24}
 
 
 def log(*a):
@@ -603,9 +652,10 @@ def check_gemms(gen, rows):
     return errs
 
 
-def check_config_gemms(gen, rows):
-    """The IS GEMM at Qwen2-72B's and Granite-34B's widths
-    (``CONFIG_GEMM_KN``) against its plain version, bit for bit, at decode
+def check_config_gemms(gen, rows, widths=CONFIG_GEMM_KN):
+    """The IS GEMM at the (K, N) of ``widths`` (Qwen2-72B's and
+    Granite-34B's, ``CONFIG_GEMM_KN``; MiniCPM3's and DeepSeek-V2's,
+    ``MLA_GEMM_KN``) against its plain version, bit for bit, at decode
     M 1..4 and prefill M 128; timed at M = 4 and 128 beside its plain
     version, one bf16 ``torch.matmul`` and its bound, with its launch plan.
     Each timed graph reads at least ``ROTATE_BYTES`` of weights (more calls
@@ -624,7 +674,7 @@ def check_config_gemms(gen, rows):
                                            alpha=a)
 
     err = 0.0
-    for K, N in CONFIG_GEMM_KN:
+    for K, N in widths:
         wbytes = K * N // 2 + (K // GROUP) * N * 4
         copies = max(1, math.ceil(ROTATE_BYTES / wbytes))
         sets = weight_sets(gen, K, N, copies)
@@ -680,7 +730,8 @@ def check_flash(gen, rows):
                                   (2, 200, 8, 2, 128, 64),
                                   (1, 77, 4, 1, 64, None),
                                   (1, 128, 64, 8, 128, None),  # Qwen2-72B
-                                  (1, 128, 48, 1, 128, None)):  # Granite
+                                  (1, 128, 48, 1, 128, None),  # Granite
+                                  (1, 128, 8, 2, 32, None)):  # heads of 32
         shape = (B, S, Hq, Hkv, D, win)
         q, k, v = (torch.randn((B, S, h, D), generator=gen, device="cuda"
                                ).to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
@@ -694,7 +745,7 @@ def check_flash(gen, rows):
         if not torch.equal(ok_, flash_attention(q, k, v, window=win)):
             raise AssertionError(f"flash {shape}: two launches gave "
                                  "different bits")
-        if S == 128 and Hq == Hkv:  # the f32 kernel, at the prefill shape
+        if S == 128 and (Hq == Hkv or D == 32):  # the f32 kernel
             qf, kf, vf = (t.float() for t in (q, k, v))
             ef = (flash_attention(qf, kf, vf)
                   - flash_attention_plain(qf, kf, vf)).abs().max().item()
@@ -720,9 +771,21 @@ def check_flash(gen, rows):
                          variant=("" if Hq == Hkv else f"gqa kv{Hkv}")
                          + ("" if win is None else f" window {win}"),
                          shape=[B, S, Hq, D], ms=ms, plain_ms=pms,
+                         max_abs_diff=e,
                          bound_ms=b, bound_by=by, library_ms=lib,
                          bf16_matmul_ms=None))
     return err
+
+
+def top_k_counts(tokens, seed, E=DS_E, k=DS_TOP_K, C=DS_C):
+    """Routed rows per expert from a seeded top-k routing of ``tokens``
+    tokens over E experts (Gaussian router logits), clipped at capacity
+    C, as the MoE dispatch clips them."""
+    import numpy as np
+
+    logits = np.random.default_rng(seed).normal(size=(tokens, E))
+    top = np.argsort(-logits, axis=1)[:, :k]
+    return np.minimum(np.bincount(top.ravel(), minlength=E), C).tolist()
 
 
 def moe_counts(C, seed, E=MOE_E):
@@ -951,6 +1014,29 @@ def check_grouped(gen, rows):
             del w
             torch.cuda.empty_cache()
 
+    # DeepSeek-V2's 160 experts through the ragged IS kernel, with
+    # act_quant's routed entry before it, at the counts of a seeded top-6
+    # routing of a 4-slot decode and of a 128-token prefill
+    if ring:
+        key = ("moe_w4a8_is", "fine")
+        for K, N in DS_KN:
+            w = moe_weights(gen, K, N, E=DS_E)
+            for tokens in DS_TOKENS:
+                counts = top_k_counts(tokens, seed=tokens)
+                x, rc, xq, sa = inputs(DS_C, K, counts)
+                rows.append(routed_quant(DS_C, K, x, rc))
+                r = one(*key, DS_C, K, N, x, rc, xq, sa, w, groups[key])
+                rows.append(dict(r, library_ms=None, bf16_matmul_ms=time_ms(
+                    bmm, [(x, w["wd"])]), copies=1, tokens=tokens))
+                log(f"[kernel] grouped IS {r['shape']} (DeepSeek-V2, top-6 "
+                    f"of {tokens} tokens: {sum(c > 0 for c in counts)} "
+                    f"experts, {sum(counts)} rows): {r['ms']:.4f} ms, bf16 "
+                    f"bmm {rows[-1]['bf16_matmul_ms']:.4f} ms, share of "
+                    f"bound {r['bound_ms'] / r['ms']:.3f}; plan {r['plan']}")
+                del x, xq, sa
+            del w
+            torch.cuda.empty_cache()
+
     # W8A8 weights through the IS kernel at one decode shape
     K, N, C = 4096, 14336, 8
     w = moe_weights(gen, K, N, w_bits=8)
@@ -1126,17 +1212,21 @@ def tick_launches(api, cfg, model, sc, schemes=None):
     return launches, len(routed)
 
 
-def check_tick_launches(tag, name, cfg, launches, routed, per_layer=None):
+def check_tick_launches(tag, name, cfg, launches, routed, per_layer=None,
+                        want=None):
     """act_quant launches of one decode tick: one per distinct quantized
     activation (dense: q/k/v, o, gate/up, down; MoE: q/k/v, o dense and
     gate/up, down routed), or one per W4A8 linear in a tree that does not
     share; none under W4A16; ``per_layer`` dense ones a layer where the
-    caller states it (a recipe whose linears transform their inputs).
+    caller states it (a recipe whose linears transform their inputs), or
+    the (dense, routed) pair ``want`` (MLA: :func:`mla_act_quant`).
     Logs and returns the counts."""
     L = cfg.num_layers
     moe_layers = bool(cfg.num_experts)
     shared = shares_quantization()
-    if per_layer is not None:
+    if want is not None:
+        want_dense, want_routed = want
+    elif per_layer is not None:
         want_dense, want_routed = per_layer * L, 0
     elif name.startswith("w4a16"):
         want_dense, want_routed = 0, 0
@@ -1938,6 +2028,35 @@ def act_quant_rows(api, cfg, model, sc):
     return sorted(seen)
 
 
+def build_by_layer(api, cfg, recipe):
+    """``cfg`` under ``recipe`` built block by block on the card (random
+    weights, seed 0), every overflow certificate certified or capped:
+    (params, build s, peak bytes allocated while building, weight bytes,
+    the certificates, their summary)."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.analysis import certify
+    from repro_torch.core import ptq
+    from repro_torch.nn import spec as S
+
+    n_before = len(certify.log())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with obs.use_registry(obs.Registry()):
+        qp = ptq.quantize_by_layer(api, cfg, recipe, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    qbytes = sum(t.numel() * t.element_size() for t in S.leaves(qp))
+    certs = certify.log()[n_before:]
+    if not certs or not all(c.ok for c in certs):
+        raise AssertionError(f"{cfg.name}: certificates "
+                             f"{[str(c) for c in certs if not c.ok]}")
+    return qp, build_s, build_peak, qbytes, certs, certify.summary(certs)
+
+
 def configs_phase(sc, prompts, toks, n0, launches_total, smi):
     """Phase 8c, ``[configs]``: each of ``CONFIG_ARCHS`` at full width
     under W4A8 g128 IS, built block by block (random weights, seed 0),
@@ -1950,35 +2069,16 @@ def configs_phase(sc, prompts, toks, n0, launches_total, smi):
     served a second time over an int8 KV cache on the same weights. Each
     model is freed before the next is built."""
     import torch
-    from repro_torch import obs
-    from repro_torch.analysis import certify
-    from repro_torch.core import ptq
     from repro_torch.core.recipe import DEFAULT_RECIPE
     from repro_torch.models.registry import get_arch, get_model
-    from repro_torch.nn import spec as S
 
     recipe = DEFAULT_RECIPE
     stats: dict[str, dict] = {}
     for arch in CONFIG_ARCHS:
         cfg = get_arch(arch)
         api = get_model(cfg)
-        n_before = len(certify.log())
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        with obs.use_registry(obs.Registry()):
-            qp = ptq.quantize_by_layer(api, cfg, recipe, seed=0,
-                                       device="cuda")
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        build_peak = torch.cuda.max_memory_allocated()
-        qbytes = sum(t.numel() * t.element_size() for t in S.leaves(qp))
-        certs = certify.log()[n_before:]
-        if not certs or not all(c.ok for c in certs):
-            raise AssertionError(f"{arch}: certificates "
-                                 f"{[str(c) for c in certs if not c.ok]}")
-        summ = certify.summary(certs)
+        qp, build_s, build_peak, qbytes, certs, summ = build_by_layer(
+            api, cfg, recipe)
         log(f"[configs] {cfg.name}: {cfg.num_layers} layers, d_model "
             f"{cfg.d_model}, {cfg.num_heads} query heads over "
             f"{cfg.num_kv_heads} KV heads of {cfg.head_dim}, d_ff "
@@ -2052,6 +2152,211 @@ def configs_phase(sc, prompts, toks, n0, launches_total, smi):
     return stats
 
 
+def mla_act_quant(cfg, mode: str) -> tuple[int, int]:
+    """(dense, routed) act_quant launches of one MLA forward. A layer
+    quantizes x once for q_down / kv_down, cq for q_up, the attention
+    output for o and its MLP's two inputs (gate / up, down): 5; in
+    prefill also c_kv for k_up / v_up (decode reads them dequantized): 6.
+    A MoE layer's MLP is its shared experts' (the same two dense) plus the
+    routed pair (gate / up over one dispatch buffer, down)."""
+    from repro_torch.models.transformer import layer_kinds
+
+    kinds = layer_kinds(cfg)
+    return ((6 if mode == "prefill" else 5) * len(kinds),
+            2 * kinds.count("moe"))
+
+
+def profile_mla_step(api, cfg, model, sc, top=8):
+    """One eager 4-slot decode step under ``torch.profiler``: its device
+    ms, and the ms of the MLA decode's f32 einsums (``aten::einsum``, the
+    absorbed attention over the latent cache), of ``_dense_weight`` (k_up
+    and v_up dequantized in the step; a profiler range around each call)
+    and of the quantized GEMMs; the ``top`` device kernels; and, as a
+    check on the profiler's range, one layer's two ``_dense_weight`` calls
+    timed alone as a replayed graph, times the layers."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import attention
+
+    real, tag = attention._dense_weight, "mla._dense_weight"
+
+    def annotated(*a, **k):
+        with record_function(tag):
+            return real(*a, **k)
+
+    cache, toks, pos = _decode_inputs(api, cfg, sc)
+    attention._dense_weight = annotated
+    try:
+        with torch.inference_mode():
+            model(toks, mode="decode", cache=cache, pos=pos)  # warm
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                model(toks, mode="decode", cache=cache, pos=pos)
+                torch.cuda.synchronize()
+    finally:
+        attention._dense_weight = real
+    avg = prof.key_averages()
+    kernels = [e for e in avg if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0 and e.key != tag]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device kernels")
+
+    def cpu_ms(key):
+        return sum(e.device_time_total for e in avg
+                   if e.key == key and e.device_type == DeviceType.CPU) / 1e3
+
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    gemm = sum(e.self_device_time_total for e in kernels
+               if any(k in e.key for k in GEMM_KERNELS)) / 1e3
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    attn = model.blocks[0].attn
+    bufs = [(dict(lin.named_buffers(recurse=False)), lin.qspec)
+            for lin in (attn.k_up, attn.v_up)]
+    with torch.inference_mode():
+        alone = time_ms(lambda: [real(p, q, cfg.kv_lora_rank,
+                                      cfg.activation_dtype)
+                                 for p, q in bufs], [()], iters=10)
+    del cache
+    return dict(device_ms=total, gemm_ms=gemm, einsum_ms=cpu_ms(
+        "aten::einsum"), dense_weight_ms=cpu_ms(tag),
+        dense_weight_alone_ms=alone * cfg.num_layers,
+        launches=sum(e.count for e in kernels),
+        top=[dict(name=e.key[:120], count=e.count,
+                  ms=e.self_device_time_total / 1e3) for e in ranked])
+
+
+def mla_phase(sc, prompts, toks, n0, launches_total, smi):
+    """Phase 8d, ``[mla]``: each of ``MLA_ARCHS`` at full width under W4A8
+    g128 IS (``MLA_DEPTH`` cuts DeepSeek-V2's depth), built block by
+    block (random weights, seed 0), every certificate certified or capped
+    (each capped one printed; DeepSeek-V2's o projection at K = 16384
+    printed), served with phase 5's prompts and ``ServeConfig``: every
+    outcome ok, one capture per step, exactly the IS kernels (the grouped
+    one on DeepSeek-V2's experts, no flash: MLA's prefill attention is
+    plain PyTorch, as the reference's) and exactly the graphs' counts,
+    act_quant per graph as :func:`mla_act_quant` counts it, the first
+    token the argmax, m-tiles executed <= total, the streams equal to the
+    eager greedy loop, the first 2 layers (DeepSeek-V2: the dense one and
+    a 160-expert one) on the card against the CPU's plain versions
+    through the latent cache; then one decode step profiled. The decode's
+    f32 einsums must run with TF32 off. Each model is freed before the
+    next is built."""
+    import torch
+    from repro_torch.core.recipe import DEFAULT_RECIPE
+    from repro_torch.models.registry import get_arch, get_model
+
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("MLA decode's f32 einsums need TF32 off")
+    recipe = DEFAULT_RECIPE
+    stats: dict[str, dict] = {}
+    for arch in MLA_ARCHS:
+        full = get_arch(arch)
+        cfg = dataclasses.replace(
+            full, num_layers=MLA_DEPTH.get(arch, full.num_layers))
+        api = get_model(cfg)
+        qp, build_s, build_peak, qbytes, certs, summ = build_by_layer(
+            api, cfg, recipe)
+        o_k = cfg.num_heads * cfg.v_head_dim
+        o_certs = [c for c in certs if c.kernel.endswith("/attn/o")
+                   and f"K={o_k} " in c.config]
+        if len(o_certs) != cfg.num_layers:
+            raise AssertionError(f"{arch}: {len(o_certs)} o-projection "
+                                 f"certificates at K = {o_k}")
+        worst_o = max(o_certs, key=lambda c: c.bound)
+        log(f"[mla] {cfg.name}: {cfg.num_layers} of {full.num_layers} "
+            f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads (q_lora "
+            f"{cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, rope "
+            f"{cfg.qk_rope_dim}, nope {cfg.qk_nope_dim}, v {cfg.v_head_dim})"
+            + (f", {cfg.num_experts} experts top-{cfg.top_k} of d_ff "
+               f"{cfg.moe_d_ff} + {cfg.num_shared_experts} shared, "
+               f"{cfg.first_dense_layers} dense layer of d_ff {cfg.d_ff}"
+               if cfg.num_experts else f", d_ff {cfg.d_ff}")
+            + f", vocab {cfg.vocab_size}; {recipe.name} built block by block"
+            f" in {build_s:.1f} s; weights on the card {qbytes / 1e9:.2f} "
+            f"GB; peak allocated while building {build_peak / 1e9:.2f} GB; "
+            f"certificates {summ['certified']} certified / "
+            f"{summ['capped-alpha']} capped / {summ['fallback']} fallback, "
+            f"worst accumulator {summ['worst_frac']:.4f} of 2^31; o "
+            f"projection at K = {o_k}: worst {worst_o}; {smi}")
+        for c in certs:
+            if c.verdict == "capped-alpha":
+                log(f"[mla]   {c}")
+        name = f"{arch} {recipe.name}"
+        torch.cuda.reset_peak_memory_stats()
+        eng, outs, launches, reg, wall, peak = serve_recipe(
+            api, cfg, qp, recipe, sc, prompts)
+        eng.close()  # no routing sink from here on (the timed graphs)
+        must = {"act_quant", "w4a8_gemm_is"} | (
+            {MOE_KERNEL_OF[recipe.name]} if cfg.num_experts else set())
+        check_launches(f"mla {name}", launches, must)
+        steps = check_steps(f"mla {name}", eng, reg, launches)
+        for mode, graph in zip(("decode", "prefill"), step_launches(eng)):
+            want = sum(mla_act_quant(cfg, mode))
+            if graph["act_quant"] != want:
+                raise AssertionError(f"mla {name}: {graph['act_quant']} "
+                                     f"act_quant in the {mode} graph, "
+                                     f"expected {want}")
+        for k, n in launches.items():
+            launches_total[k] += n
+        tiles = reg.counter("engine_moe_m_tiles_total", "", ("kind",))
+        executed = tiles.get(kind="executed")
+        total = tiles.get(kind="total")
+        if cfg.num_experts and not 0 < executed <= total:
+            raise AssertionError(f"mla {name}: m-tiles executed "
+                                 f"{executed}, total {total}")
+        first_token_is_argmax(f"mla {name}", eng, toks, n0, outs[0][0])
+        check_eager_streams(f"mla {name}", api, cfg, eng, prompts, sc, outs)
+        rel, cpu_s = plain_check(api, cfg, qp, recipe, toks, n0,
+                                 PLAIN_CHECK_LAYERS, sc)
+        st = report_serve("mla", name, api, cfg, eng, outs, launches, reg,
+                          wall, sc, peak)
+        prof = profile_mla_step(api, cfg, eng.model, sc)
+        st.update(
+            steps=steps, build_s=build_s, build_peak_bytes=build_peak,
+            weight_bytes=qbytes, certificates=summ,
+            capped=[str(x) for x in certs if x.verdict == "capped-alpha"],
+            o_projection_worst=str(worst_o),
+            cache_bytes=cache_bytes(api, cfg, sc),
+            m_tiles_executed=executed, m_tiles_total=total,
+            plain_logit_rel=rel, plain_cpu_s=cpu_s, profile=prof,
+            act_quant_rows=act_quant_rows(api, cfg, eng.model, sc),
+            tick_launches=check_tick_launches(
+                "mla", recipe.name, cfg,
+                *tick_launches(api, cfg, eng.model, sc),
+                want=mla_act_quant(cfg, "decode")))
+        log(f"[mla] {name}: build {build_s:.1f} s, peak allocated building "
+            f"{build_peak / 1e9:.2f} GB / serving {peak / 1e9:.2f} GB; tick "
+            f"{st['decode_tick_s'] * 1e3:.2f} ms (device timer "
+            f"{st['decode_device_s'] * 1e3:.2f} ms, idle share "
+            f"{st['idle_share']:.3f}); prefill {st['prefill_s'] * 1e3:.2f} "
+            f"ms; mean TTFT {st['ttft_mean_s'] * 1e3:.1f} ms; latent cache "
+            f"{st['cache_bytes'] / 1e6:.1f} MB; act_quant rows (K, dtype) "
+            f"{st['act_quant_rows']}"
+            + (f"; m-tiles executed/total {executed:g}/{total:g}"
+               if cfg.num_experts else "") + f"; {smi}")
+        dev = prof["device_ms"]
+        log(f"[profile] mla {name}: one 4-slot decode step {dev:.3f} ms of "
+            f"device kernels in {prof['launches']} launches: MLA decode "
+            f"einsums {prof['einsum_ms']:.3f} ms "
+            f"({prof['einsum_ms'] / dev:.3f}), _dense_weight "
+            f"{prof['dense_weight_ms']:.3f} ms "
+            f"({prof['dense_weight_ms'] / dev:.3f}; alone as a replayed "
+            f"graph x {cfg.num_layers} layers "
+            f"{prof['dense_weight_alone_ms']:.3f} ms), quantized GEMMs "
+            f"{prof['gemm_ms']:.3f} ms ({prof['gemm_ms'] / dev:.3f}); top "
+            f"{len(prof['top'])}:")
+        for p in prof["top"]:
+            log(f"[profile]   {p['ms']:.3f} ms  x{p['count']}  {p['name']}")
+        stats[name] = st
+        del eng, qp
+        gc.collect()
+        torch.cuda.empty_cache()
+    return stats
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2105,7 +2410,8 @@ def main() -> int:
             **check_gemms(gen, rows),
             "flash_attention": check_flash(gen, rows)}
     errs["w4a8_gemm_is"] = max(errs["w4a8_gemm_is"],
-                               check_config_gemms(gen, rows))
+                               check_config_gemms(gen, rows),
+                               check_config_gemms(gen, rows, MLA_GEMM_KN))
     for k, v in check_grouped(gen, rows).items():
         errs[k] = max(errs.get(k, 0.0), v)
 
@@ -2308,6 +2614,9 @@ def main() -> int:
     # -- 8c. Qwen2-72B, Granite-34B and Phi-3.5-MoE at full width ------------------
     configs_stats = configs_phase(sc, prompts, toks, n0, launches_total, smi)
 
+    # -- 8d. MiniCPM3-4B and DeepSeek-V2 (MLA) at full width ---------------------
+    mla_stats = mla_phase(sc, prompts, toks, n0, launches_total, smi)
+
     missing = sorted(k for k in _build.KERNELS if launches_total[k] <= 0)
     if missing:
         raise AssertionError(f"kernels never launched on a served path: "
@@ -2375,6 +2684,7 @@ def main() -> int:
                   "mixtral_plain_cpu_s": mcpu_s},
         "mixtral": mixtral_stats, "calib": calib_stats,
         "llama3": llama3_stats, "kv8": kv8_stats, "configs": configs_stats,
+        "mla": mla_stats,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,7 +1,8 @@
 """granite-34b [dense]: 88L d_model=6144 48H (GQA kv=1 = MQA) d_ff=24576
 vocab=49152: llama-arch code model [arXiv:2405.04324; hf]. Port of
-``repro/configs/granite_34b.py`` (the reference's attention chunk sizes
-have no counterpart: the port's prefill attention is one kernel)."""
+``repro/configs/granite_34b.py`` (the smoke config's chunk sizes are the
+reference's; GQA's prefill attention is one kernel and does not read
+them)."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import register_arch
 
@@ -20,6 +21,7 @@ def smoke() -> ModelConfig:
         name="granite-34b-smoke", family="dense",
         num_layers=4, d_model=256, num_heads=4, num_kv_heads=1,
         d_ff=512, vocab_size=512, head_dim=64,
+        q_chunk=16, kv_chunk=16,
     )
 
 

@@ -1,7 +1,8 @@
 """llama3.2-3b [dense]: 28L d_model=3072 24H (GQA kv=8) d_ff=8192
 vocab=128256: the small LLaMA-3 [hf:meta-llama/Llama-3.2; unverified].
-Port of ``repro/configs/llama32_3b.py`` (the reference's attention chunk
-sizes have no counterpart: the port's prefill attention is one kernel)."""
+Port of ``repro/configs/llama32_3b.py`` (the smoke config's chunk sizes
+are the reference's; GQA's prefill attention is one kernel and does not
+read them)."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import register_arch
 
@@ -20,6 +21,7 @@ def smoke() -> ModelConfig:
         name="llama3.2-3b-smoke", family="dense",
         num_layers=4, d_model=256, num_heads=4, num_kv_heads=2,
         d_ff=512, vocab_size=512, head_dim=64,
+        q_chunk=16, kv_chunk=16,
     )
 
 

@@ -1,14 +1,20 @@
 """Carry parameter trees between the reference's layout and the port's
 (no JAX counterpart).
 
-The reference scans its layers over stacked leaves: a dense or MoE
-model's blocks sit under ``blocks/s0/...`` with a leading layer axis
-(``repro/models/transformer.py`` ``param_specs``; a MoE leaf is
-(L, E, ...), its router (L, d, E)); the port keeps one tree per layer in
-``params["blocks"]``, with (E, ...) expert stacks. :func:`from_reference` takes the
-reference tree as numpy arrays — fp or quantized — and unstacks it;
-:func:`to_reference` stacks a port tree back. Values are carried bit for
-bit (``qvalue``, ``scale`` and ``alpha`` included); bf16 arrays (numpy
+The reference lays its layers out as an unrolled prefix ``prefix/<i>``
+and a pattern of P block kinds scanned R times over stacked leaves,
+``blocks/s0 .. s{P-1}`` with a leading repeat axis
+(``repro/models/transformer.py`` ``split_layers``: a dense or MoE model is
+``blocks/s0`` x L; DeepSeek-V2 ``blocks/s0..s{L-1}`` x 1 up to 8 layers,
+its 3-layer smoke config included, and ``prefix/0`` plus ``blocks/s0`` x
+(L - 1) from 9 layers on, as its full 60).
+A MoE leaf there is (R, E, ...), its router (R, d, E). The port keeps one
+tree per layer in ``params["blocks"]``, with (E, ...) expert stacks: port
+layer ``len(prefix) + r * P + j`` is ``blocks/s{j}`` at repeat r.
+:func:`from_reference` takes the reference tree as numpy arrays — fp or
+quantized — and unstacks it; :func:`to_reference` stacks a port tree back
+into the layout the reference's ``split_layers`` gives its layer kinds.
+Values are carried bit for bit (``qvalue``, ``scale`` and ``alpha`` included); bf16 arrays (numpy
 dtype ``bfloat16`` from ml_dtypes) are reinterpreted through their 16-bit
 patterns.
 """
@@ -17,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.transformer import split_layers
 from repro_torch.nn import spec as S
 
 
@@ -35,28 +42,56 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def layer_kinds_of(blocks: list) -> list[str]:
+    """The layer kinds of a port param or spec tree's ``blocks``: "moe"
+    where the MLP has a router, else "self"."""
+    return ["moe" if "router" in b["mlp"] else "self" for b in blocks]
+
+
+def scan_repeats(kinds: list[str]) -> list[int]:
+    """Each layer's repeat index in the reference's layout (0 for a prefix
+    layer): the seed the reference's PTQ gives a stacked linear."""
+    prefix, pattern, R = split_layers(kinds)
+    return [0] * len(prefix) + [r for r in range(R) for _ in pattern]
+
+
 def from_reference(tree: dict, *, device=None) -> dict:
     """Reference dense or MoE param tree (numpy leaves) -> port tree
     (tensors on ``device``, default the GPU)."""
     dev = S.resolve_device(device)
-    if set(tree.get("blocks", {})) != {"s0"} or "prefix" in tree:
-        raise NotImplementedError(
-            "only one scanned block kind (blocks/s0: dense or MoE) is "
-            "ported")
-    stacked = tree["blocks"]["s0"]
-    layers = len(S.leaves(stacked)[0])
-    out = {k: v for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [S.tree_map(lambda a: a[r], stacked)
-                     for r in range(layers)]
+    prefix = tree.get("prefix", {})
+    pattern = tree.get("blocks", {})
+    if (sorted(prefix, key=int) != [str(i) for i in range(len(prefix))]
+            or sorted(pattern) != sorted(f"s{j}"
+                                         for j in range(len(pattern)))):
+        raise ValueError(f"not the reference's layout: prefix "
+                         f"{sorted(prefix)}, blocks {sorted(pattern)}")
+    repeats = {len(S.leaves(b)[0]) for b in pattern.values()}
+    if len(repeats) > 1:
+        raise ValueError(f"blocks/s<j> with different repeats {repeats}")
+    R = repeats.pop() if repeats else 0
+    out = {k: v for k, v in tree.items() if k not in ("blocks", "prefix")}
+    out["blocks"] = [prefix[str(i)] for i in range(len(prefix))] + [
+        S.tree_map(lambda a, r=r: a[r], pattern[f"s{j}"])
+        for r in range(R) for j in range(len(pattern))]
     return S.tree_map(lambda a: _to_tensor(a, dev), out)
 
 
 def to_reference(params: dict) -> dict:
-    """Port tree -> the reference's scanned layout as numpy (bf16 leaves as
-    f32 arrays holding the same values)."""
+    """Port tree -> the reference's layout as numpy (bf16 leaves as f32
+    arrays holding the same values)."""
     out = {k: S.tree_map(_to_numpy, v)
            for k, v in params.items() if k != "blocks"}
-    stack = S.tree_map(lambda *xs: np.stack([_to_numpy(x) for x in xs]),
-                       *params["blocks"])
-    out["blocks"] = {"s0": stack}
+    blocks = params["blocks"]
+    prefix, pattern, R = split_layers(layer_kinds_of(blocks))
+    n, P = len(prefix), len(pattern)
+    if prefix:
+        out["prefix"] = {str(i): S.tree_map(_to_numpy, blocks[i])
+                         for i in range(n)}
+    if R:
+        out["blocks"] = {
+            f"s{j}": S.tree_map(
+                lambda *xs: np.stack([_to_numpy(x) for x in xs]),
+                *[blocks[n + r * P + j] for r in range(R)])
+            for j in range(P)}
     return out

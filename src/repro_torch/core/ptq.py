@@ -20,11 +20,12 @@ holds one tree per layer, so each linear quantizes on its own with the
 rows captured at its own path (``blocks/<i>/attn/q``); an expert stack
 (E, K, N) quantizes expert by expert, each with its own scales and its
 own certified amplifier, and is stacked back. Seeds and calibration
-follow the reference's stacked layout: the linears of block ``l`` use
-seed ``l`` (QuaRot's rotation), expert ``e`` of block ``l`` seed
-``l * E + e``, and expert stacks get no calibration rows (the
-calibration algorithms quantize them RTN, as the reference's >= 4-D
-stacks).
+follow the reference's stacked layout: the linears of a block at repeat
+``r`` of the reference's scanned pattern use seed ``r`` (QuaRot's
+rotation; ``r`` is the layer index where every layer has one kind, 0 for
+a prefix block), expert ``e`` of it seed ``r * E + e``, and expert stacks
+get no calibration rows (the calibration algorithms quantize them RTN,
+as the reference's >= 4-D stacks).
 
 A model larger than the card in fp (Mixtral-8x7B: 93 GB of bf16 weights
 against 80 GB) is built with :func:`quantize_by_layer`: each block's fp
@@ -155,10 +156,21 @@ def _quantize(fp_node, spec_node, path: str, recipe: QuantRecipe,
         return {k: _quantize(fp_node[k], v, f"{path}/{k}" if path else k,
                              recipe, captured, seed, cache)
                 for k, v in spec_node.items()}
-    if isinstance(spec_node, list):  # blocks: block i's linears use seed i
-        return [_quantize(f, v, f"{path}/{i}", recipe, captured, i, {})
+    if isinstance(spec_node, list):  # blocks: block i's seed (see below)
+        seeds = _block_seeds(spec_node)
+        return [_quantize(f, v, f"{path}/{i}", recipe, captured, seeds[i],
+                          {})
                 for i, (f, v) in enumerate(zip(fp_node, spec_node))]
     return fp_node
+
+
+def _block_seeds(block_specs: list) -> list[int]:
+    """Each block's PTQ seed: its repeat index in the reference's layout
+    (``convert.scan_repeats``), which seeds the reference's stacked
+    linears; a prefix block's is 0, as the reference's unstacked linears."""
+    from repro_torch import convert
+
+    return convert.scan_repeats(convert.layer_kinds_of(block_specs))
 
 
 @contextlib.contextmanager
@@ -251,6 +263,7 @@ def quantize_by_layer(api: ModelApi, cfg: ModelConfig, recipe: QuantRecipe,
     before block i + 1's are drawn. No calibration: rotation applies, the
     calibration algorithms quantize RTN."""
     qspecs = api.param_specs(cfg, recipe)
+    seeds = _block_seeds(qspecs["blocks"])
     out: dict = {}
     with _ptq_run():
         for i, fp in _fp_by_layer(api, cfg, seed, device):
@@ -260,7 +273,7 @@ def quantize_by_layer(api: ModelApi, cfg: ModelConfig, recipe: QuantRecipe,
                     "", recipe, {}, 0, {}), blocks=[])
             else:
                 out["blocks"].append(_quantize(
-                    fp, qspecs["blocks"][i], f"blocks/{i}", recipe, {}, i,
-                    {}))
+                    fp, qspecs["blocks"][i], f"blocks/{i}", recipe, {},
+                    seeds[i], {}))
             del fp
     return out

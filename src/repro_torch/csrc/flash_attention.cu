@@ -482,24 +482,34 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), o (B, Sq, Hq, D); all contiguous,
-// one dtype: bf16 (is_bf16 = 1) or f32. D is 64 or 128; Hq % Hkv == 0.
+// one dtype: bf16 (is_bf16 = 1) or f32. D is 32, 64 or 128; Hq % Hkv == 0.
 // window < 0 means no window. Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int is_bf16,
                                       int B, int Sq, int Sk, int Hq, int Hkv,
                                       int D, float scale, int causal,
                                       int window, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || (D != 64 && D != 128)) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || (D != 32 && D != 64 && D != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return D == 128
-        ? launch_tc<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st)
-        : launch_tc<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
+    switch (D) {
+      case 128:
+        return launch_tc<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
+      case 64:
+        return launch_tc<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
+      default:
+        return launch_tc<32>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
+    }
   }
-  return D == 128
-      ? launch<float, 128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st)
-      : launch<float, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
+  switch (D) {
+    case 128:
+      return launch<float, 128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
+    case 64:
+      return launch<float, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
+    default:
+      return launch<float, 32>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
+  }
 }

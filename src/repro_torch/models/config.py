@@ -1,9 +1,8 @@
 """Model configuration. Port of ``repro/models/config.py``, cut to the
-dense GQA and MoE families the port runs; the MLA, VLM, recurrent and
-encoder-decoder fields come with their slices. The MoE fields that belong
-to later slices (shared experts and leading dense layers: DeepSeek-V2;
-the int8 dispatch all-to-all: multi-GPU) raise ``NotImplementedError``
-when set."""
+dense and MoE families the port runs, with GQA or MLA attention; the VLM,
+recurrent and encoder-decoder fields come with their slices. The MoE field
+that belongs to a later slice (the int8 dispatch all-to-all: multi-GPU)
+raises ``NotImplementedError`` when set."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,9 +27,20 @@ class ModelConfig:
     head_dim: int = 0  # 0 -> d_model // num_heads
 
     # -- attention ----------------------------------------------------------
-    attention: Literal["gqa"] = "gqa"
+    attention: Literal["gqa", "mla"] = "gqa"
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
+    # chunk sizes of the chunked attention MLA's prefill runs
+    # (``models.attention.chunked_attention``); GQA's prefill is one kernel
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+
+    # -- MLA (MiniCPM3 / DeepSeek-V2) -----------------------------------------
+    q_lora_rank: int = 0     # 0 -> direct q projection
+    kv_lora_rank: int = 0
+    qk_rope_dim: int = 64
+    qk_nope_dim: int = 128
+    v_head_dim: int = 128
 
     # -- MoE ------------------------------------------------------------------
     num_experts: int = 0
@@ -39,8 +49,8 @@ class ModelConfig:
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
     dispatch_groups: int = 1
-    num_shared_experts: int = 0     # DeepSeek-V2 slice
-    first_dense_layers: int = 0     # DeepSeek-V2 slice
+    num_shared_experts: int = 0     # an always-on MLP of this many experts
+    first_dense_layers: int = 0     # leading dense blocks (DeepSeek-V2: 1)
     moe_int8_dispatch: bool = False  # multi-GPU slice (the all-to-all)
 
     # -- norms / embeddings ---------------------------------------------------
@@ -57,12 +67,10 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
-        for name, slice_ in (("num_shared_experts", "DeepSeek-V2"),
-                             ("first_dense_layers", "DeepSeek-V2"),
-                             ("moe_int8_dispatch", "multi-GPU")):
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"{self.name}: {name} comes with the {slice_} port slice")
+        if self.moe_int8_dispatch:
+            raise NotImplementedError(
+                f"{self.name}: moe_int8_dispatch comes with the multi-GPU "
+                "port slice")
 
     @property
     def activation_dtype(self) -> torch.dtype:

@@ -12,8 +12,11 @@ from .common import Linear, linear
 from .config import ModelConfig
 
 
-def mlp_specs(cfg: ModelConfig, recipe, base: str) -> dict:
-    d, f, dt = cfg.d_model, cfg.d_ff, cfg.activation_dtype
+def mlp_specs(cfg: ModelConfig, recipe, base: str,
+              d_ff: int | None = None) -> dict:
+    """``d_ff`` overrides the config's (DeepSeek-V2's shared experts:
+    ``num_shared_experts * moe_d_ff``)."""
+    d, f, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.activation_dtype
     return {
         "gate": linear(recipe, f"{base}/gate", d, f, dtype=dt),
         "up": linear(recipe, f"{base}/up", d, f, dtype=dt),

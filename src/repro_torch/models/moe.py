@@ -18,6 +18,10 @@ the host), the sort is ``torch.argsort(stable=True)``, and nothing indexes
 with a boolean mask or repeats by a tensor. The routed counts stay device
 tensors, also for the routing sinks below.
 
+Shared experts (DeepSeek-V2) are a plain always-on MLP
+(``models.mlp.MLP``, ``num_shared_experts * moe_d_ff`` wide) over the
+same x as the router, added after the combine as the reference adds it.
+
 Expert parallelism (the reference shards the expert axis and lets GSPMD
 insert the all-to-all) comes with the multi-GPU slice; ``dispatch_groups``
 > 1 keeps the reference's grouped dispatch and its dense fallback (no
@@ -37,6 +41,7 @@ from repro_torch.core import qlinear
 from repro_torch.kernels import ops as kops
 from repro_torch.nn import spec as S
 from .config import ModelConfig
+from .mlp import MLP, mlp_specs
 
 # -- routing sinks ------------------------------------------------------------
 # Observability hook for the serving engine and benchmarks: while any sink
@@ -132,12 +137,16 @@ def moe_specs(cfg: ModelConfig, recipe, base: str) -> dict:
     def spec(name):
         return recipe.spec_for(f"{base}/{name}") if recipe else None
 
-    return {
+    out = {
         "router": S.w((d, E), dtype=torch.float32),
         "gate": qlinear.expert_linear_specs(E, d, f, spec("gate"), dtype=dt),
         "up": qlinear.expert_linear_specs(E, d, f, spec("up"), dtype=dt),
         "down": qlinear.expert_linear_specs(E, f, d, spec("down"), dtype=dt),
     }
+    if cfg.num_shared_experts:
+        out["shared"] = mlp_specs(cfg, recipe, f"{base}/shared",
+                                  d_ff=cfg.num_shared_experts * f)
+    return out
 
 
 def capacity(tokens: int, top_k: int, num_experts: int,
@@ -189,6 +198,8 @@ class MoE(nn.Module):
         for name in ("gate", "up", "down"):
             setattr(self, name,
                     ExpertLinear(recipe, f"{base}/{name}", params[name]))
+        self.shared = (MLP(params["shared"], recipe, f"{base}/shared")
+                       if cfg.num_shared_experts else None)
 
     def forward(self, x: torch.Tensor):
         cfg = self.cfg
@@ -261,13 +272,22 @@ class MoE(nn.Module):
         yb = y.reshape(E, G, C, d).transpose(0, 1).reshape(G * E * C, d)
 
         # --- combine ---------------------------------------------------------
-        # index_add_ may add in any order (atomics on CUDA), but with top_k
-        # <= 2 each token receives at most two terms onto a zero start, and
-        # 0 + a + b == 0 + b + a exactly in IEEE arithmetic: the sum is
-        # order-free (Mixtral's top-2 included).
+        # The reference scatter-adds the (Tk, d) terms in sorted-slot order
+        # onto zeros, rounding to the buffer's dtype after each add. Each
+        # token's terms come in that order (its experts ascending, a dropped
+        # choice a zero term) and are summed one add at a time from zeros:
+        # the same bits on every device, whatever top_k.
         out_vals = torch.where(keep[..., None], yb[slot], torch.zeros(
             (), dtype=yb.dtype, device=dev)) * g_s[..., None].to(yb.dtype)
-        out = torch.zeros((G * T, d), dtype=yb.dtype, device=dev)
-        out.index_add_(0, (grp * T + t_s).reshape(-1),
-                       out_vals.reshape(-1, d))
-        return out.reshape(B, Sq, d).to(x.dtype), aux
+        at = torch.empty_like(order)  # each (token, choice)'s sorted slot
+        at.scatter_(1, order, torch.arange(Tk, device=dev).expand(G, Tk))
+        at = torch.sort(at.reshape(G, T, k), dim=-1).values
+        terms = torch.gather(out_vals, 1, at.reshape(G, Tk, 1).expand(
+            G, Tk, d)).reshape(G, T, k, d)
+        y = torch.zeros((G, T, d), dtype=yb.dtype, device=dev)
+        for j in range(k):
+            y = y + terms[:, :, j]
+        y = y.reshape(B, Sq, d)
+        if self.shared is not None:
+            y = y + self.shared(x)
+        return y.to(x.dtype), aux

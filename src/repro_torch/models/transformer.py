@@ -1,15 +1,16 @@
-"""Decoder-only transformer LM, dense and MoE families. Port of
-``repro/models/transformer.py``.
+"""Decoder-only transformer LM, dense and MoE families, with GQA or MLA
+attention (``cfg.attention``). Port of ``repro/models/transformer.py``.
 
-The reference scans a stacked block over layers; the port keeps one
+The reference lays its layers out as an unrolled prefix plus a pattern
+scanned over stacked leaves (:func:`split_layers`); the port keeps one
 ``nn.Module`` per layer in a ``ModuleList`` (``params["blocks"]`` is a list
-of per-layer trees; ``repro_torch.convert`` unstacks the reference's
-``blocks/s0`` leaves into it). Layer paths for recipe matching are
-``blocks/<i>/attn/q`` and the like. A MoE config's blocks are all ``moe``
-(:func:`layer_kinds`; the leading dense layers of DeepSeek-V2 come with
-its slice): the gated MLP is replaced by ``models.moe.MoE``, and the
-forward's aux output is the sum of the layers' load-balancing losses.
-VLM cross attention and MLA come with their slices.
+of per-layer trees; ``repro_torch.convert`` carries the reference's
+``prefix/<i>`` and ``blocks/s<j>`` leaves into it). Layer paths for recipe
+matching are ``blocks/<i>/attn/q`` and the like. A MoE config's blocks
+are ``moe`` after ``first_dense_layers`` dense ones (:func:`layer_kinds`):
+the gated MLP is replaced by ``models.moe.MoE``, and the forward's aux
+output is the sum of the layers' load-balancing losses. VLM cross
+attention comes with its slice.
 """
 from __future__ import annotations
 
@@ -26,22 +27,46 @@ from .moe import MoE, moe_specs
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.attention != "gqa":
+    if cfg.family not in ("dense", "moe") or cfg.attention not in ("gqa",
+                                                                   "mla"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense and MoE GQA families only")
+            f"{cfg.name}: the port runs the dense and MoE families with GQA "
+            "or MLA attention only")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
-    """"moe" for every layer of a MoE config, else "self" (the dense
-    block)."""
-    return ["moe" if cfg.num_experts else "self"] * cfg.num_layers
+    """"self" (the dense block) or "moe", one per layer: a MoE config's
+    first ``first_dense_layers`` layers are dense, the rest MoE."""
+    L = cfg.num_layers
+    if cfg.num_experts:
+        return ["self"] * cfg.first_dense_layers + \
+               ["moe"] * (L - cfg.first_dense_layers)
+    return ["self"] * L
+
+
+def split_layers(kinds: list[str], max_period: int = 8):
+    """-> (prefix_kinds, pattern_kinds, repeats), the reference's layout:
+    the shortest prefix, then the shortest period, whose pattern repeated
+    gives the rest (the reference scans the pattern over stacked
+    leaves)."""
+    n = len(kinds)
+    for p in range(0, n):
+        rest = kinds[p:]
+        for period in range(1, max_period + 1):
+            if len(rest) % period:
+                continue
+            pat = rest[:period]
+            if pat * (len(rest) // period) == rest:
+                return kinds[:p], pat, len(rest) // period
+    return kinds, [], 0
 
 
 def _block_specs(cfg: ModelConfig, recipe, kind: str, base: str) -> dict:
     d = cfg.d_model
     mlp = moe_specs if kind == "moe" else mlp_specs
+    attn = A.mla_specs if cfg.attention == "mla" else A.gqa_specs
     return {"ln1": rmsnorm_spec(d), "ln2": rmsnorm_spec(d),
-            "attn": A.gqa_specs(cfg, recipe, f"{base}/attn"),
+            "attn": attn(cfg, recipe, f"{base}/attn"),
             "mlp": mlp(cfg, recipe, f"{base}/mlp")}
 
 
@@ -61,7 +86,9 @@ def param_specs(cfg: ModelConfig, recipe=None) -> dict:
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
-    return {"blocks": [A.gqa_cache_specs(cfg, batch, max_seq)
+    specs = A.mla_cache_specs if cfg.attention == "mla" else \
+        A.gqa_cache_specs
+    return {"blocks": [specs(cfg, batch, max_seq)
                        for _ in range(cfg.num_layers)]}
 
 
@@ -74,7 +101,8 @@ class Block(nn.Module):
         super().__init__()
         self.ln1 = RMSNorm(params["ln1"], cfg.norm_eps)
         self.ln2 = RMSNorm(params["ln2"], cfg.norm_eps)
-        self.attn = A.GQAttention(cfg, params["attn"], recipe, f"{base}/attn")
+        attn = A.MLAttention if cfg.attention == "mla" else A.GQAttention
+        self.attn = attn(cfg, params["attn"], recipe, f"{base}/attn")
         self.moe = kind == "moe"
         self.mlp = (MoE(cfg, params["mlp"], recipe, f"{base}/mlp")
                     if self.moe else MLP(params["mlp"], recipe, f"{base}/mlp"))

@@ -48,6 +48,15 @@ and QuaRot against the same functions on the CPU, with the tolerances
 each test states (their f32 products sum in another order on the card),
 and the calibration capture records nothing while a CUDA graph is
 captured.
+
+MLA and DeepSeek-V2's widths: flash attention at heads of 32 (bf16 and
+f32), and the serving CLI's smoke Qwen2-72B (heads of 32) served on the
+card equal to the eager loop; the IS GEMM bit-exact at MiniCPM3's and
+DeepSeek-V2's (K, N) (N = 288 and 576 are no multiple of the 64-column
+tile; K up to 16384); the ragged IS GEMM at 160 experts with row counts
+from a seeded top-6 routing, equal to the dense-grouped entry bit for
+bit; ``_dense_weight`` on the card equal to the CPU's; and the captured
+engine on both smoke MLA archs equal to the eager loop.
 """
 import numpy as np
 import pytest
@@ -316,7 +325,9 @@ FLASH_SHAPES = [  # (B, S, Hq, Hkv, D, window)
     (1, 77, 4, 1, 64, None),
     (1, 128, 32, 8, 128, None),   # Mixtral-8x7B's GQA at the prefill
     (1, 45, 4, 2, 128, 16),       # S no multiple of the query tile, window
-    (3, 300, 2, 1, 64, 100)]      # several key tiles, window across them
+    (3, 300, 2, 1, 64, 100),      # several key tiles, window across them
+    (1, 128, 8, 2, 32, None),     # Qwen2-72B's smoke heads of 32
+    (2, 77, 4, 4, 32, 16)]        # heads of 32, ragged length, window
 
 
 @pytest.mark.cuda
@@ -371,9 +382,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
             torch.ones((2, 1), device=cuda),
             torch.zeros((128, 8), dtype=torch.int8, device=cuda),
             torch.ones((16, 8), device=cuda), group_size=16)
-    q = torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros((1, 8, 2, 48), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="unsupported"):
-        flash_attention(q, q, q)  # head_dim 32 has no instantiation
+        flash_attention(q, q, q)  # head_dim 48 has no instantiation
 
 
 # -- the grouped (MoE) kernels -------------------------------------------------
@@ -1451,5 +1462,143 @@ def test_engine_with_int8_cache_equals_an_eager_greedy_loop(cuda, arch):
     eng, outs = _serve(api, cfg, params, recipe, prompts, sc)
     eng.close()
     assert eng.cache["blocks"][0]["k"].dtype == torch.int8
+    assert eng.decode_traces == eng.prefill_traces == 1
+    assert outs == eager_greedy(api, cfg, eng.model, prompts, sc)
+
+
+# ---------------------------------------------------------------------------
+# MLA: MiniCPM3 and DeepSeek-V2, and flash at heads of 32
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,Hq,Hkv,window", [(1, 128, 8, 2, None),
+                                               (2, 77, 4, 4, 16)])
+def test_flash_kernel_at_head_dim_32(cuda, dtype, B, S, Hq, Hkv, window):
+    """Both paths of the kernel (bf16 on the tensor cores, f32 scalar)
+    instantiated at D = 32, each launched once and held to the bound."""
+    q, k, v = (_normal(i, (B, S, h, 32), 1.0, cuda).to(dtype)
+               for i, h in enumerate((Hq, Hkv, Hkv)))
+    before = _build.LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, window=window)
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    ref = flash_attention_plain(q, k, v, window=window)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= TOLERANCE
+    assert torch.equal(out, flash_attention(q, k, v, window=window))
+
+
+@pytest.mark.cuda
+def test_serve_cli_smoke_qwen2_serves_on_the_card(cuda):
+    """``launch/serve.py --arch qwen2-72b --smoke``'s model (heads of 32,
+    W4A8-IS) served on the card: one capture per step, prefill through
+    the flash kernel, streams equal to the eager loop."""
+    from repro_torch.core.recipe import DEFAULT_RECIPE
+    from repro_torch.launch import serve
+
+    api, cfg, params, _ = serve._load_model("qwen2-72b", True, "cuda",
+                                            DEFAULT_RECIPE)
+    assert cfg.head_dim == 32
+    prompts = _engine_prompts(cfg)
+    sc = ServeConfig(**ENGINE_SC)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    eng, outs = _serve(api, cfg, params, DEFAULT_RECIPE, prompts, sc)
+    eng.close()
+    assert _build.LAUNCHES["flash_attention"] > 0
+    assert eng.decode_traces == eng.prefill_traces == 1
+    assert all(eng.outcome(r) == "ok" for r in range(len(prompts)))
+    assert outs == eager_greedy(api, cfg, eng.model, prompts, sc)
+
+
+# (K, N) of MiniCPM3's and DeepSeek-V2's linears: kv_down (N = 288, 576),
+# q_up, o (K = 16384), k_up / v_up
+MLA_WIDTHS = [(2560, 288), (5120, 576), (1536, 24576), (16384, 5120),
+              (256, 2560), (512, 16384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", MLA_WIDTHS)
+@pytest.mark.parametrize("M", [4, 128])
+def test_is_gemm_bit_exact_at_mla_widths(cuda, M, K, N):
+    """N = 288 is 4.5 column tiles of 64 (the ring's 16-column guards)."""
+    from repro_torch.analysis.certify import resolve_amplifier
+
+    qw = quant.quantize_weight(_normal(K + N, (K, N), K ** -0.5, cuda), 4,
+                               128)
+    xq, sa = quant.quantize_activation(_normal(M, (M, K), 1.0, cuda))
+    cert = resolve_amplifier(qw.scale.cpu().numpy(), alpha=1024,
+                             group_size=128, w_bits=4)
+    assert cert.ok
+    isw = isc.integerize(qw, cert.resolved_alpha)
+    w = packing.pack_int4(qw.qvalue)
+    y = fg_gemm_integer_scale(xq, sa, w, isw.int_scale, group_size=128,
+                              alpha=float(isw.alpha))
+    y_p = fg_gemm_integer_scale_plain(xq, sa, w, isw.int_scale,
+                                      group_size=128, alpha=float(isw.alpha))
+    assert y.shape == (M, N) and torch.equal(y, y_p)
+
+
+def _top6_counts(tokens, E=160, k=6, C=8, seed=0):
+    """Routed rows per expert from a seeded top-6 routing of ``tokens``
+    tokens over E experts, clipped at capacity C."""
+    logits = np.random.default_rng(seed).normal(size=(tokens, E))
+    top = np.argsort(-logits, axis=1)[:, :k]
+    return np.minimum(np.bincount(top.ravel(), minlength=E), C).tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [4, 128])
+@pytest.mark.parametrize("K,N", [(5120, 1536), (1536, 5120)])
+def test_ragged_is_at_160_experts(cuda, tokens, K, N):
+    """DeepSeek-V2's routed experts: 160 of them at capacity 8 (a 4-slot
+    decode routes 24 rows, most experts empty; a 128-token prefill fills
+    many to capacity); bit-exact to the plain version and equal to the
+    dense-grouped entry on the same buffer."""
+    E, C = 160, 8
+    counts = _top6_counts(tokens)
+    x, rc, qv, _, iscale, alpha = _grouped_operands(cuda, E, C, K, N, 128,
+                                                    counts)
+    y = moe_gemm.fg_grouped_gemm_integer_scale_ragged(
+        x, rc, qv, iscale, group_size=128, alpha=alpha)
+    y_p = moe_gemm.fg_grouped_gemm_integer_scale_ragged_plain(
+        x, rc, qv, iscale, group_size=128, alpha=alpha)
+    xq, sa = act_quant_plain(x.reshape(E * C, K))
+    y_d = moe_gemm.fg_grouped_gemm_integer_scale(
+        xq.reshape(E, C, K), sa.reshape(E, C, 1), qv, iscale,
+        group_size=128, alpha=alpha)
+    assert torch.equal(y, y_p) and torch.equal(y, y_d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["is", "fs", "w8-is"])
+def test_dense_weight_on_the_card_equals_the_cpu(cuda, name):
+    """MLA decode's dequantized weight: the scale / alpha division is a
+    tensor division (IEEE on the card too), the product f32, then bf16."""
+    from repro_torch.models.attention import _dense_weight
+
+    spec = QuantSpec(**{"is": {}, "fs": dict(scale_mode="float"),
+                        "w8-is": dict(w_bits=8, amplifier="heuristic+6")}[
+                            name])
+    K, N = 512, 16384
+    params = qlinear.quantize_linear(_normal(3, (K, N), 0.05), spec)
+    got = _dense_weight({k: v.to(cuda) for k, v in params.items()}, spec, K,
+                        torch.bfloat16)
+    assert torch.equal(got.cpu(), _dense_weight(params, spec, K,
+                                                torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v2-236b"])
+def test_mla_engine_streams_equal_an_eager_greedy_loop(cuda, arch):
+    """The captured steps over the latent cache (the absorbed decode and
+    its dequantized k_up / v_up inside the decode graph; DeepSeek-V2's
+    dense first layer and shared experts), W4A8-IS."""
+    api, cfg, params, recipe = _served(arch, "w4a8-is", cuda)
+    prompts = _engine_prompts(cfg)
+    sc = ServeConfig(**ENGINE_SC)
+    eng, outs = _serve(api, cfg, params, recipe, prompts, sc)
+    eng.close()
+    assert sorted(eng.cache["blocks"][0]) == ["c_kv", "k_rope"]
     assert eng.decode_traces == eng.prefill_traces == 1
     assert outs == eager_greedy(api, cfg, eng.model, prompts, sc)
