@@ -220,6 +220,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    is profiled: the share of the MLA decode's f32 einsums, of
    ``_dense_weight`` (k_up and v_up dequantized inside the step) and of
    the quantized GEMMs. TF32 must be off.
+8e. ``[xattn]``: cross attention through the model API, not the engine
+   (the engine passes no memory, as the reference's does not):
+   ``llama-3.2-vision-90b`` at all 100 layers (80 self, 20 gated cross
+   layers; d_model 8192, 64 heads over 8 of 128, d_ff 28672, vocab
+   128256) built block by block, and ``whisper-tiny`` whole (4 encoder
+   + 4 decoder layers, d_model 384, 6 heads of 64), W4A8 g128 IS, seed
+   0, every certificate certified or capped (each capped one printed).
+   The VLM's cross gates, 0 at the reference's init, are drawn uniform in
+   [0.5, 1.5]. One prefill of 4 seeded 128-token prompts with a seeded
+   bf16 memory (4 x 1600 image tokens, 4 x 1500 frames) fills the self
+   and cross caches, then 32 greedy decode steps run eagerly and as one
+   captured CUDA graph replayed (the VLM at per-row positions, Whisper at
+   a 0-d position tensor): the tokens must be equal, the first token the
+   argmax of a train-mode forward, and each prefill's and decode step's
+   launches exactly the counts derived from the sharing
+   (:func:`xattn_launches`: VLM 420 act_quant, 700 IS GEMMs, 100 flash a
+   prefill and 400, 660, 20 a step; Whisper 44, 64, 12 and 24, 32, 4).
+   Then the kernels against the CPU's plain versions at B = 1 through
+   the caches (the VLM's first 2 layers, and its first cross layer fed
+   the card's own hidden state; Whisper whole), timing (tokens/s of the
+   replayed loop, the replayed step, the prefill), peaks, cache MB, and
+   one decode step profiled (the flash and GEMM shares; the cross
+   attention modules timed alone as a replayed graph).
+   Phase 3 runs the new shapes first: flash non-causal at Sq != Sk
+   (``XATTN_FLASH``, beside SDPA), act_quant at K = 28672 and 384 and at
+   the memory's 6400 x 8192 and 6000 x 384 rows, the IS GEMM at the
+   VLM's MLP and Whisper's widths (``XATTN_GEMM_KN``) and at M = 6400 /
+   6000 (``XATTN_BIG_M``, also at forced K splits of 1 and 2).
 9. Print the ``kernels`` JSON line (the eight kernels, launches summed
    over every served path; the five qlint fixtures, launches from their
    run in phase 2b), then the result line
@@ -256,9 +284,11 @@ GEMM_KN = ((4096, 4096), (4096, 11008), (11008, 4096))
 # routed down projection (6400); then MiniCPM3's x / o input (2560), cq
 # (768) and c_kv (256), and DeepSeek-V2's x (5120), cq and the routed
 # down projection (1536), c_kv (512), o input (16384), the dense layer's
-# down projection (12288) and the shared experts' (3072)
+# down projection (12288) and the shared experts' (3072); then
+# Llama-3.2-Vision's down projection (28672) and Whisper-tiny's x (384)
 ACT_QUANT_K = (4096, 11008, 14336, 8192, 29568, 6144, 24576, 6400,
-               2560, 768, 256, 5120, 1536, 512, 16384, 12288, 3072)
+               2560, 768, 256, 5120, 1536, 512, 16384, 12288, 3072, 28672,
+               384)
 # the IS GEMM at Qwen2-72B's linears (K, N): q/o, k/v, gate/up, down; and
 # Granite-34B's: q/o, its single KV head (N = 128), gate/up, down
 CONFIG_GEMM_KN = ((8192, 8192), (8192, 1024), (8192, 29568), (29568, 8192),
@@ -349,6 +379,30 @@ CONFIG_ARCHS = ("qwen2-72b", "granite-34b", "phi3.5-moe-42b-a6.6b")
 # (all 60 are about 127 GB under W4A8; 24 are about 52 GB)
 MLA_ARCHS = ("minicpm3-4b", "deepseek-v2-236b")
 MLA_DEPTH = {"deepseek-v2-236b": 24}
+# phase 8e: cross attention at full width under W4A8 g128 IS, through the
+# model API (prefill with memory, then greedy decode over the caches):
+# Llama-3.2-Vision at all 100 layers (80 self, 20 cross), Whisper-tiny whole
+XATTN_ARCHS = ("llama-3.2-vision-90b", "whisper-tiny")
+XATTN_B, XATTN_PROMPT, XATTN_STEPS, XATTN_MAX_SEQ = 4, 128, 32, 256
+# the reference's init leaves every cross gate at 0, and tanh(0) multiplies
+# each cross layer's output away: the gates are drawn uniform in [0.5, 1.5]
+# from this seed after building
+XATTN_GATE_SEED = 17
+# the VLM's first cross layer, held against the CPU on the card's own input
+XATTN_CROSS_LAYER = 4
+# phase 3 at phase 8e's shapes: the IS GEMM at the VLM's MLP (K, N) and
+# Whisper's (K, N) at M = 1..4 and 128; at the memory's rows (4 x 1600
+# image tokens, 4 x 1500 frames): the VLM's cross k/v at M = 6400 and
+# Whisper's linears at M = 6000 (M, K, N); act_quant at those rows (M, K)
+XATTN_GEMM_KN = ((8192, 28672), (28672, 8192), (384, 384), (384, 1536),
+                 (1536, 384))
+XATTN_BIG_M = ((6400, 8192, 1024), (6000, 384, 384), (6000, 384, 1536),
+               (6000, 1536, 384))
+XATTN_ACT_ROWS = ((6400, 8192), (6000, 384))
+# flash attention, non-causal over a memory (B, Sq, Sk, Hq, Hkv, D): the
+# VLM's cross prefill and decode, Whisper's encoder and its cross decode
+XATTN_FLASH = ((1, 128, 1600, 64, 8, 128), (4, 1, 1600, 64, 8, 128),
+               (1, 1500, 1500, 6, 6, 64), (4, 1, 1500, 6, 6, 64))
 
 
 def log(*a):
@@ -774,6 +828,131 @@ def check_flash(gen, rows):
                          max_abs_diff=e,
                          bound_ms=b, bound_by=by, library_ms=lib,
                          bf16_matmul_ms=None))
+    return err
+
+
+def check_flash_cross(gen, rows):
+    """Flash attention with ``causal=False`` and Sq != Sk at
+    ``XATTN_FLASH`` (Sk = 1500 and 1600 are no multiple of the 64-key
+    tile; Sq = 1 fills one row of a 32-row query tile): bf16 and f32
+    within ``TOLERANCE`` of the plain version, bf16 repeated bit for bit,
+    timed beside the plain version and SDPA with ``is_causal=False``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        TOLERANCE, flash_attention, flash_attention_plain)
+
+    err = 0.0
+    for B, Sq, Sk, Hq, Hkv, D in XATTN_FLASH:
+        shape = [B, Sq, Sk, Hq, Hkv, D]
+        q = torch.randn((B, Sq, Hq, D), generator=gen, device="cuda")
+        k, v = (torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda")
+                for _ in range(2))
+        for dt in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (t.to(dt) for t in (q, k, v))
+            out = flash_attention(qd, kd, vd, causal=False)
+            e = (out.float() - flash_attention_plain(
+                qd, kd, vd, causal=False).float()).abs().max().item()
+            if not e <= TOLERANCE:
+                raise AssertionError(f"flash non-causal {shape} {dt}: max "
+                                     f"abs {e} > {TOLERANCE}")
+            err = max(err, e)
+        if not torch.equal(out, flash_attention(qd, kd, vd, causal=False)):
+            raise AssertionError(f"flash non-causal {shape}: two launches "
+                                 "gave different bits")
+        ms = time_ms(lambda *a: flash_attention(*a, causal=False),
+                     [(qd, kd, vd)])
+        pms = time_ms(lambda *a: flash_attention_plain(*a, causal=False),
+                      [(qd, kd, vd)], iters=3, reps=3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (qd, kd, vd))
+        lib = time_ms(lambda *a: F.scaled_dot_product_attention(
+            *a, is_causal=False, enable_gqa=Hq != Hkv), [(qt, kt, vt)])
+        b, by = bound(2 * B * D * 2 * (Sq * Hq + Sk * Hkv),
+                      (4 * B * Hq * Sq * Sk * D, BF16_FLOPS_PER_S))
+        rows.append(dict(kernel="flash_attention", variant="non-causal",
+                         shape=shape, ms=ms, plain_ms=pms, max_abs_diff=e,
+                         bound_ms=b, bound_by=by, library_ms=lib,
+                         bf16_matmul_ms=None))
+    return err
+
+
+def check_xattn_rows(gen, rows):
+    """act_quant at the memory's rows (``XATTN_ACT_ROWS``) and the IS GEMM
+    at M = 6400 / 6000 (``XATTN_BIG_M``: 100 and 94 row tiles of 64), both
+    bit-exact to their plain versions (the GEMM twice, and once more at
+    each K split its launch plan takes), timed beside the plain version,
+    the bound and, for the GEMM, one bf16 ``torch.matmul``, with the
+    launch plan."""
+    import torch
+    from repro_torch.kernels import w4a8_gemm
+    from repro_torch.kernels.act_quant import act_quant, act_quant_plain
+    from repro_torch.kernels.w4a8_gemm import (fg_gemm_integer_scale,
+                                               fg_gemm_integer_scale_plain)
+
+    err = {"act_quant": 0.0, "w4a8_gemm_is": 0.0}
+    for M, K in XATTN_ACT_ROWS:
+        x = (torch.randn((M, K), generator=gen, device="cuda") * 3
+             ).to(torch.bfloat16)
+        (qk, sk), (qp, sp) = act_quant(x), act_quant_plain(x)
+        if not (torch.equal(qk, qp) and torch.equal(sk, sp)):
+            raise AssertionError(f"act_quant ({M},{K}) not bit-exact")
+        b, by = bound(M * K * 2 + M * K + M * 4, (2 * M * K, F32_FLOPS_PER_S))
+        rows.append(dict(kernel="act_quant", variant="memory rows",
+                         shape=[M, K], ms=time_ms(act_quant, [(x,)]),
+                         plain_ms=time_ms(act_quant_plain, [(x,)]),
+                         bound_ms=b, bound_by=by, library_ms=None,
+                         bf16_matmul_ms=None))
+
+    def kern(xq, sa, q, s, a):
+        return fg_gemm_integer_scale(xq, sa, q, s, group_size=GROUP, alpha=a)
+
+    def plain(xq, sa, q, s, a):
+        return fg_gemm_integer_scale_plain(xq, sa, q, s, group_size=GROUP,
+                                           alpha=a)
+
+    for M, K, N in XATTN_BIG_M:
+        wbytes = K * N // 2 + (K // GROUP) * N * 4
+        copies = min(8, max(1, math.ceil(ROTATE_BYTES / wbytes)))
+        sets = weight_sets(gen, K, N, copies)
+        x = torch.randn((M, K), generator=gen, device="cuda")
+        xq, sa = act_quant_plain(x)
+        args = [(xq, sa, d["packed"], d["int_scale"], d["alpha"])
+                for d in sets]
+        y = kern(*args[0])
+        err["w4a8_gemm_is"] = max(err["w4a8_gemm_is"], _check(
+            "w4a8_gemm_is", [M, K, N], y, plain(*args[0]), "exact"))
+        plan = launch_plan(M, N, K)
+        if not torch.equal(y, kern(*args[0])):
+            raise AssertionError(f"w4a8_gemm_is {[M, K, N]}: two launches "
+                                 "gave different bits")
+        d = sets[0]
+        for splits in (1, 2):  # each split path gives the same bits
+            ys = w4a8_gemm.launch_ring(
+                "w4a8_gemm_is", xq, sa.reshape(M).contiguous(), torch.full(
+                    (1,), d["alpha"], device="cuda"), d["packed"],
+                d["int_scale"], GROUP, 4, w4a8_gemm.launch_plan_on(
+                    xq.device, M, N, K, splits=splits))
+            if not torch.equal(ys, y):
+                raise AssertionError(f"w4a8_gemm_is {[M, K, N]}: {splits} "
+                                     "K splits changed the bits")
+        b, by = bound(M * K + M * 4 + wbytes + M * N * 4,
+                      (2 * M * K * N, INT8_OPS_PER_S))
+        xb = x.to(torch.bfloat16)
+        rows.append(dict(
+            kernel="w4a8_gemm_is", variant="memory rows", shape=[M, K, N],
+            ms=time_ms(kern, args), plain_ms=time_ms(plain, args[:1],
+                                                     iters=3, reps=3),
+            bound_ms=b, bound_by=by, library_ms=None,
+            bf16_matmul_ms=time_ms(lambda a, w: a @ w,
+                                   [(xb, d["wd"]) for d in sets]),
+            copies=copies, plan=plan))
+        r = rows[-1]
+        log(f"[kernel] w4a8_gemm_is at the memory's rows {[M, K, N]}: "
+            f"{r['ms']:.4f} ms, bf16 matmul {r['bf16_matmul_ms']:.4f} ms "
+            f"(IS / bf16 {r['ms'] / r['bf16_matmul_ms']:.3f}), share of "
+            f"bound {b / r['ms']:.3f} ({by}); plan {plan}")
+        del sets, x, xq, sa, xb
+        torch.cuda.empty_cache()
     return err
 
 
@@ -2028,9 +2207,11 @@ def act_quant_rows(api, cfg, model, sc):
     return sorted(seen)
 
 
-def build_by_layer(api, cfg, recipe):
+def build_by_layer(api, cfg, recipe, whole=False):
     """``cfg`` under ``recipe`` built block by block on the card (random
-    weights, seed 0), every overflow certificate certified or capped:
+    weights, seed 0; ``whole``: drawn whole from one generator seeded 0
+    and quantized with ``post_training_quantize``, for a tree without
+    top-level blocks), every overflow certificate certified or capped:
     (params, build s, peak bytes allocated while building, weight bytes,
     the certificates, their summary)."""
     import torch
@@ -2045,7 +2226,13 @@ def build_by_layer(api, cfg, recipe):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with obs.use_registry(obs.Registry()):
-        qp = ptq.quantize_by_layer(api, cfg, recipe, seed=0, device="cuda")
+        if whole:
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            qp = ptq.post_training_quantize(api, cfg, S.materialize(
+                api.param_specs(cfg, None), gen, device="cuda"), recipe)
+        else:
+            qp = ptq.quantize_by_layer(api, cfg, recipe, seed=0,
+                                       device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_peak = torch.cuda.max_memory_allocated()
@@ -2357,6 +2544,437 @@ def mla_phase(sc, prompts, toks, n0, launches_total, smi):
     return stats
 
 
+def xattn_launches(cfg, mode: str) -> dict[str, int]:
+    """act_quant, IS GEMM and flash launches of one forward (mode
+    "prefill" or "decode"), from the sharing of each layer kind. The VLM:
+    a self layer quantizes q/k/v, o, gate/up and down (4) for 7 GEMMs and,
+    in prefill, one causal flash (decode reads the self cache with
+    ``decode_attention``); a cross layer quantizes q, o, gate/up and down,
+    plus the memory once for k/v in prefill (5 / 4), for 7 / 5 GEMMs (no
+    k/v linear in decode) and one non-causal flash. Whisper: an encoder
+    layer (prefill only) quantizes q/k/v, o, up and down (4) for 6 GEMMs
+    and one flash; a decoder layer the self q/k/v and o, the cross q and
+    o, up and down, plus the encoder output once for the cross k/v in
+    prefill (7 / 6), for 10 / 8 GEMMs and 2 / 1 flash (the self one causal
+    in prefill, the cross one in both)."""
+    from repro_torch.models.transformer import layer_kinds
+
+    pre = mode == "prefill"
+    if cfg.family == "vlm":
+        kinds = layer_kinds(cfg)
+        ns, nc = kinds.count("self"), kinds.count("cross")
+        return {"act_quant": 4 * ns + (5 if pre else 4) * nc,
+                "w4a8_gemm_is": 7 * ns + (7 if pre else 5) * nc,
+                "flash_attention": (ns if pre else 0) + nc}
+    ne = cfg.num_encoder_layers if pre else 0
+    nd = cfg.num_layers
+    return {"act_quant": 4 * ne + (7 if pre else 6) * nd,
+            "w4a8_gemm_is": 6 * ne + (10 if pre else 8) * nd,
+            "flash_attention": ne + (2 if pre else 1) * nd}
+
+
+def check_xattn_launches(tag, launches, want, times=1):
+    """Every kernel's launches equal ``want`` x ``times`` (others 0)."""
+    full = {k: want.get(k, 0) * times for k in launches}
+    if dict(launches) != full:
+        raise AssertionError(f"{tag}: launches {dict(launches)}, expected "
+                             f"{full}")
+
+
+def set_cross_gates(qp) -> list[float]:
+    """Draw every cross layer's gate_attn and gate_mlp uniform in [0.5,
+    1.5] from ``XATTN_GATE_SEED`` (f32 on the card), in place."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(XATTN_GATE_SEED)
+    drawn = []
+    for blk in qp.get("blocks", []):
+        if "gate_attn" in blk:
+            for g in ("gate_attn", "gate_mlp"):
+                drawn.append(float(rng.uniform(0.5, 1.5)))
+                blk[g] = torch.tensor(drawn[-1], dtype=torch.float32,
+                                      device=blk[g].device)
+    return drawn
+
+
+def _xattn_pos(cfg, p: int):
+    """A decode position on the card: per row for the VLM, one 0-d
+    tensor for Whisper (its reference takes a scalar only)."""
+    import torch
+
+    if cfg.family == "vlm":
+        return torch.full((XATTN_B,), p, dtype=torch.int64, device="cuda")
+    return torch.tensor(p, dtype=torch.int64, device="cuda")
+
+
+def xattn_cache_mb(cfg, cache) -> tuple[float, float]:
+    """(self, cross) cache MB."""
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.nn import spec as S
+
+    def mb(tree):
+        return sum(t.numel() * t.element_size() for t in S.leaves(tree)) / 1e6
+
+    if cfg.family == "vlm":
+        kinds = layer_kinds(cfg)
+        return (mb([c for c, k in zip(cache["blocks"], kinds) if k != "cross"]),
+                mb([c for c, k in zip(cache["blocks"], kinds) if k == "cross"]))
+    return (mb([b["self"] for b in cache["blocks"]]),
+            mb([b["cross"] for b in cache["blocks"]]))
+
+
+def xattn_eager_loop(model, cfg, cache, first, steps, hook=None):
+    """Greedy tokens (B, steps + 1) of an eager loop of ``steps`` decode
+    steps over the cache from the prefill's ``first`` tokens."""
+    import torch
+
+    toks, tok = [first], first[:, None]
+    with torch.inference_mode():
+        for s in range(steps):
+            logits = model(tok, mode="decode", cache=cache,
+                           pos=_xattn_pos(cfg, XATTN_PROMPT + s))[0]
+            if hook is not None and s == 0:
+                hook.remove()
+            tok = logits[:, 0].argmax(-1)[:, None]
+            toks.append(tok[:, 0])
+    return torch.stack(toks, 1)
+
+
+def xattn_graph_loop(model, cfg, cache, first, steps):
+    """The same loop with the decode step (and its argmax) captured once
+    as a CUDA graph on static token and position buffers, replayed
+    ``steps`` times: (tokens, host seconds of the loop, device ms of the
+    loop between CUDA events). The step is warmed up eagerly once on a
+    side stream first: it writes the first step's k/v at its position,
+    which the first replay writes again with the same values."""
+    import torch
+
+    with torch.inference_mode():
+        tok = first[:, None].clone()
+        pos = _xattn_pos(cfg, XATTN_PROMPT)
+
+        def step():
+            return model(tok, mode="decode", cache=cache,
+                         pos=pos)[0][:, 0].argmax(-1)
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            nxt = step()
+        toks = [first]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(steps):
+            graph.replay()
+            toks.append(nxt.clone())
+            tok.copy_(nxt[:, None])
+            pos.add_(1)
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t0
+    del graph
+    return torch.stack(toks, 1), wall, start.elapsed_time(end)
+
+
+def xattn_plain_check(api, cfg, qp, recipe, model, toks, mem, hidden, sc):
+    """Kernels on the card against plain versions on the CPU, B = 1, a
+    prefill then one decode step through the caches; each relative to the
+    largest value it is held against (``PLAIN_LOGIT_REL_TOL``). The VLM:
+    its first 2 (self) layers (:func:`plain_check`), and its first cross
+    layer alone, fed the card's own input hidden states of row 0 and the
+    same memory, compared on the layer's update (output minus input).
+    Whisper whole: the encoder output and the logits. Returns ({name:
+    rel}, CPU seconds)."""
+    import torch
+    from repro_torch.models.transformer import Block
+    from repro_torch.nn import spec as S
+
+    rels, t_cpu = {}, 0.0
+    if cfg.family == "vlm":
+        rels["layers 0-1"], t_cpu = plain_check(
+            api, cfg, qp, recipe, toks[:1], XATTN_PROMPT, PLAIN_CHECK_LAYERS,
+            sc)
+        i = XATTN_CROSS_LAYER
+        x_pre, x_dec = hidden
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            p = qp["blocks"][i] if dev == "cuda" else S.tree_map(
+                lambda t: t.cpu(), qp["blocks"][i])
+            blk = Block(cfg, p, recipe, "cross", f"blocks/{i}")
+            cache = S.materialize(api.cache_specs(cfg, 1, sc.max_seq)[
+                "blocks"][i], device=dev)
+            with torch.inference_mode():
+                y_pre = blk(x_pre.to(dev), mode="prefill", cache=cache,
+                            pos=0, memory=mem[:1].to(dev))[0]
+                y_dec = blk(x_dec.to(dev), mode="decode", cache=cache,
+                            pos=None)[0]
+            outs[dev] = ((y_pre - x_pre.to(dev)).float().cpu(),
+                         (y_dec - x_dec.to(dev)).float().cpu())
+            if dev == "cpu":
+                t_cpu += time.perf_counter() - t0
+        rels[f"cross layer {i}"] = max(
+            ((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(outs["cuda"], outs["cpu"]))
+    else:
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            p = qp if dev == "cuda" else S.tree_map(lambda t: t.cpu(), qp)
+            m = api.build(cfg, p, recipe)
+            cache = S.materialize(api.cache_specs(cfg, 1, sc.max_seq),
+                                  device=dev)
+            t, f = toks[:1].to(dev), mem[:1].to(dev)
+            with torch.inference_mode():
+                enc = m.encode(f)
+                pre = m(t, mode="prefill", cache=cache, pos=0, memory=f)[0]
+                dec = m(pre[:, -1].argmax(-1)[:, None].to(dev),
+                        mode="decode", cache=cache,
+                        pos=torch.tensor(XATTN_PROMPT, device=dev))[0]
+            outs[dev] = [x.float().cpu() for x in (enc, pre, dec)]
+            if dev == "cpu":
+                t_cpu += time.perf_counter() - t0
+        # the decode step's input token is the card's argmax on both
+        for name, a, b in zip(("encoder output", "prefill logits",
+                               "decode logits"), outs["cuda"], outs["cpu"]):
+            rels[name] = ((a - b).abs().max() / b.abs().max()).item()
+    bad = {k: v for k, v in rels.items() if not v <= PLAIN_LOGIT_REL_TOL}
+    if bad:
+        raise AssertionError(f"{cfg.name}: kernels vs plain versions {bad}")
+    log(f"[check] {cfg.name}: kernels on the card vs plain versions on the "
+        f"CPU, B = 1, a prefill then one decode step ({t_cpu:.1f} s on the "
+        f"CPU): rel " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+        + f" (<= {PLAIN_LOGIT_REL_TOL})")
+    return rels, t_cpu
+
+
+def profile_xattn_step(model, cfg, cache, first, top=8):
+    """One eager decode step under ``torch.profiler``: its device ms, the
+    flash kernel's (in decode only cross attention launches it) and the
+    quantized GEMMs'; the ``top`` device kernels; and every cross
+    attention module of the step (q_norm, q and its quantization, flash
+    over the cross cache, o and its quantization) timed alone as a
+    replayed graph. The profiler does not charge the kernels launched
+    through ctypes to an enclosing ``record_function`` range, so the
+    modules are timed on their own."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pos = _xattn_pos(cfg, XATTN_PROMPT + XATTN_STEPS)
+    tok = first[:, None]
+    with torch.inference_mode():
+        model(tok, mode="decode", cache=cache, pos=pos)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(tok, mode="decode", cache=cache, pos=pos)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device kernels")
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    gemm = sum(e.self_device_time_total for e in kernels
+               if any(k in e.key for k in GEMM_KERNELS)) / 1e3
+    flash = sum(e.self_device_time_total for e in kernels
+                if "flash" in e.key) / 1e3
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    if cfg.family == "vlm":
+        mods = [(b.attn, c) for b, c in zip(model.blocks, cache["blocks"])
+                if b.cross]
+    else:
+        mods = [(b.cross_attn, c["cross"])
+                for b, c in zip(model.blocks, cache["blocks"])]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((XATTN_B, 1, cfg.d_model), generator=gen,
+                    device="cuda").to(cfg.activation_dtype)
+    with torch.inference_mode():
+        alone = time_ms(lambda: [m(x, cache=c, mode="decode")
+                                 for m, c in mods], [()], iters=10)
+    return dict(device_ms=total, gemm_ms=gemm, flash_ms=flash,
+                xattn_ms=alone, xattn_layers=len(mods),
+                launches=sum(e.count for e in kernels),
+                top=[dict(name=e.key[:120], count=e.count,
+                          ms=e.self_device_time_total / 1e3)
+                     for e in ranked])
+
+
+def xattn_phase(launches_total, smi):
+    """Phase 8e, ``[xattn]``: each of ``XATTN_ARCHS`` at full width under
+    W4A8 g128 IS (the VLM built block by block at all 100 layers,
+    Whisper-tiny whole), every certificate certified or capped (each
+    capped one printed), the VLM's cross gates drawn nonzero, then run
+    through the model API: one prefill of 4 seeded 128-token prompts with
+    a seeded memory (normal x 0.1, bf16: 4 x 1600 image tokens, 4 x 1500
+    frames) into the caches, and 32 greedy decode steps over them, eager
+    and replayed as a CUDA graph. Checks: the graph's tokens equal the
+    eager loop's; the first token is the argmax of a train-mode forward's
+    last logits; the prefill's and each decode step's launches are
+    exactly :func:`xattn_launches`'s (no other kernel); the kernels on
+    the card against the plain versions on the CPU
+    (:func:`xattn_plain_check`). Logs tokens/s of the replayed loop,
+    the replayed step and eager prefill ms, weights, peaks, the caches'
+    MB, and one profiled decode step's shares. Each model is freed
+    before the next is built."""
+    import numpy as np
+    import torch
+    from repro_torch.core.recipe import DEFAULT_RECIPE
+    from repro_torch.kernels import _build
+    from repro_torch.models.registry import get_arch, get_model
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.nn import spec as S
+    from repro_torch.serving.engine import ServeConfig
+
+    recipe = DEFAULT_RECIPE
+    sc = ServeConfig(max_slots=1, prefill_len=XATTN_PROMPT,
+                     max_seq=XATTN_MAX_SEQ)
+    stats: dict[str, dict] = {}
+    for arch in XATTN_ARCHS:
+        cfg = get_arch(arch)
+        api = get_model(cfg)
+        vlm = cfg.family == "vlm"
+        qp, build_s, build_peak, qbytes, certs, summ = build_by_layer(
+            api, cfg, recipe, whole=not vlm)
+        gates = set_cross_gates(qp)
+        Sm = cfg.num_image_tokens or cfg.encoder_seq
+        kinds = layer_kinds(cfg) if vlm else []
+        log(f"[xattn] {cfg.name}: "
+            + (f"{cfg.num_layers} layers ({kinds.count('self')} self, "
+               f"{kinds.count('cross')} cross), " if vlm else f"{cfg.num_encoder_layers} encoder + "
+               f"{cfg.num_layers} decoder layers, ")
+            + f"d_model {cfg.d_model}, {cfg.num_heads} query heads over "
+            f"{cfg.num_kv_heads} KV heads of {cfg.head_dim}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}, memory {Sm} x "
+            f"{cfg.d_model}; {recipe.name} built "
+            f"{'block by block' if vlm else 'whole'} in {build_s:.1f} s; "
+            f"weights on the card {qbytes / 1e9:.2f} GB; peak allocated "
+            f"while building {build_peak / 1e9:.2f} GB; certificates "
+            f"{summ['certified']} certified / {summ['capped-alpha']} capped "
+            f"/ {summ['fallback']} fallback, worst accumulator "
+            f"{summ['worst_frac']:.4f} of 2^31"
+            + (f"; cross gates drawn in [{min(gates):.3f}, "
+               f"{max(gates):.3f}]" if gates else "") + f"; {smi}")
+        for c in certs:
+            if c.verdict == "capped-alpha":
+                log(f"[xattn]   {c}")
+        toks = torch.tensor(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (XATTN_B, XATTN_PROMPT)), device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        mem = (torch.randn((XATTN_B, Sm, cfg.d_model), generator=gen,
+                           device="cuda") * 0.1).to(torch.bfloat16)
+        model = api.build(cfg, qp, recipe)
+        cache = S.materialize(api.cache_specs(cfg, XATTN_B, XATTN_MAX_SEQ),
+                              device="cuda")
+        self_mb, cross_mb = xattn_cache_mb(cfg, cache)
+        hidden = []
+        hook = None
+        if vlm:  # the cross layer's inputs, row 0: prefill, first decode
+            hook = model.blocks[XATTN_CROSS_LAYER].register_forward_pre_hook(
+                lambda m, a: hidden.append(a[0][:1].detach().clone()))
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            logits = model(toks, mode="prefill", cache=cache, pos=0,
+                           memory=mem)[0]
+            torch.cuda.synchronize()
+            pre_launches = dict(_build.LAUNCHES)
+            first = logits[:, -1].argmax(-1)
+        check_xattn_launches(f"xattn {arch} prefill", pre_launches,
+                             xattn_launches(cfg, "prefill"))
+        _build.reset_launches()
+        eager = xattn_eager_loop(model, cfg, cache, first, XATTN_STEPS,
+                                 hook)
+        torch.cuda.synchronize()
+        dec_launches = dict(_build.LAUNCHES)
+        check_xattn_launches(f"xattn {arch} eager decode", dec_launches,
+                             xattn_launches(cfg, "decode"), XATTN_STEPS)
+        _build.reset_launches()
+        graph_toks, wall, loop_ms = xattn_graph_loop(model, cfg, cache,
+                                                     first, XATTN_STEPS)
+        check_xattn_launches(f"xattn {arch} warm-up + capture",
+                             _build.LAUNCHES, xattn_launches(cfg, "decode"),
+                             2)
+        for k in _build.KERNELS:
+            launches_total[k] += (pre_launches[k] + dec_launches[k]
+                                  + _build.LAUNCHES[k]
+                                  + xattn_launches(cfg, "decode").get(k, 0)
+                                  * XATTN_STEPS)
+        if not torch.equal(graph_toks, eager):
+            raise AssertionError(f"xattn {arch}: the replayed graph's greedy "
+                                 "tokens differ from the eager loop's")
+        with torch.inference_mode():
+            train = model(toks, mode="train", memory=mem)[0][:, -1]
+        if not torch.equal(train.argmax(-1), first):
+            raise AssertionError(f"xattn {arch}: the first token is not the "
+                                 "argmax of a train-mode forward")
+        del train
+        pos_t = _xattn_pos(cfg, XATTN_PROMPT + XATTN_STEPS)
+        eager_step, step_ms = time_eager_and_graph(
+            lambda: model(first[:, None], mode="decode", cache=cache,
+                          pos=pos_t)[0], reps=5)
+        with torch.inference_mode():
+            prefill_ms = time_eager_ms(
+                lambda: model(toks, mode="prefill", cache=cache, pos=0,
+                              memory=mem), (), iters=3)
+        peak = torch.cuda.max_memory_allocated()
+        rels, cpu_s = xattn_plain_check(api, cfg, qp, recipe, model, toks,
+                                        mem, hidden, sc)
+        prof = profile_xattn_step(model, cfg, cache, first)
+        sha = hashlib.sha256(str(eager.tolist()).encode()).hexdigest()[:16]
+        st = dict(
+            layers=cfg.num_layers, build_s=build_s,
+            build_peak_bytes=build_peak, weight_bytes=qbytes,
+            certificates=summ, capped=[str(x) for x in certs
+                                       if x.verdict == "capped-alpha"],
+            gates=gates, prefill_launches=pre_launches,
+            decode_launches=xattn_launches(cfg, "decode"),
+            tokens_per_s=XATTN_B * XATTN_STEPS / wall,
+            loop_s=wall, loop_device_ms=loop_ms,
+            step_ms=step_ms, eager_step_ms=eager_step,
+            prefill_ms=prefill_ms, serving_peak_bytes=peak,
+            self_cache_mb=self_mb, cross_cache_mb=cross_mb, plain=rels,
+            plain_cpu_s=cpu_s, profile=prof, tokens_sha=sha)
+        log(f"[tokens] xattn {arch}: sha256 {sha}")
+        log(f"[xattn] {arch}: {XATTN_B} x {XATTN_STEPS} greedy tokens, "
+            f"replayed graph == eager loop; {st['tokens_per_s']:.1f} tokens/s"
+            f" of the replayed loop ({wall * 1e3:.1f} ms host, "
+            f"{loop_ms:.2f} ms device); decode step replayed {step_ms:.3f} ms"
+            f" (eager {eager_step:.3f}); prefill {prefill_ms:.2f} ms; weights "
+            f"{qbytes / 1e9:.2f} GB; peak allocated building "
+            f"{build_peak / 1e9:.2f} GB / running {peak / 1e9:.2f} GB; caches "
+            f"self {self_mb:.1f} MB, cross {cross_mb:.1f} MB; "
+            f"launches a prefill {json.dumps(pre_launches)}, a decode step "
+            f"{json.dumps(xattn_launches(cfg, 'decode'))}; {smi}")
+        dev = prof["device_ms"]
+        log(f"[profile] xattn {arch}: one {XATTN_B}-row decode step "
+            f"{dev:.3f} ms of device kernels in {prof['launches']} launches: "
+            f"its {prof['xattn_layers']} cross attention modules alone as "
+            f"a replayed graph {prof['xattn_ms']:.3f} ms "
+            f"({prof['xattn_ms'] / dev:.3f}; flash in the step "
+            f"{prof['flash_ms']:.3f} ms), quantized GEMMs "
+            f"{prof['gemm_ms']:.3f} ms "
+            f"({prof['gemm_ms'] / dev:.3f}); top {len(prof['top'])}:")
+        for p in prof["top"]:
+            log(f"[profile]   {p['ms']:.3f} ms  x{p['count']}  {p['name']}")
+        stats[arch] = st
+        del model, cache, qp, mem, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return stats
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2411,7 +3029,12 @@ def main() -> int:
             "flash_attention": check_flash(gen, rows)}
     errs["w4a8_gemm_is"] = max(errs["w4a8_gemm_is"],
                                check_config_gemms(gen, rows),
-                               check_config_gemms(gen, rows, MLA_GEMM_KN))
+                               check_config_gemms(gen, rows, MLA_GEMM_KN),
+                               check_config_gemms(gen, rows, XATTN_GEMM_KN))
+    errs["flash_attention"] = max(errs["flash_attention"],
+                                  check_flash_cross(gen, rows))
+    for k, v in check_xattn_rows(gen, rows).items():
+        errs[k] = max(errs[k], v)
     for k, v in check_grouped(gen, rows).items():
         errs[k] = max(errs.get(k, 0.0), v)
 
@@ -2617,6 +3240,9 @@ def main() -> int:
     # -- 8d. MiniCPM3-4B and DeepSeek-V2 (MLA) at full width ---------------------
     mla_stats = mla_phase(sc, prompts, toks, n0, launches_total, smi)
 
+    # -- 8e. Llama-3.2-Vision and Whisper-tiny (cross attention) -------------
+    xattn_stats = xattn_phase(launches_total, smi)
+
     missing = sorted(k for k in _build.KERNELS if launches_total[k] <= 0)
     if missing:
         raise AssertionError(f"kernels never launched on a served path: "
@@ -2684,7 +3310,7 @@ def main() -> int:
                   "mixtral_plain_cpu_s": mcpu_s},
         "mixtral": mixtral_stats, "calib": calib_stats,
         "llama3": llama3_stats, "kv8": kv8_stats, "configs": configs_stats,
-        "mla": mla_stats,
+        "mla": mla_stats, "xattn": xattn_stats,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,4 +1,5 @@
 """Architecture configs. Importing this package registers every ported
 arch with the model registry (``repro_torch.models.registry.get_arch``)."""
 from . import (deepseek_v2, granite_34b, llama32_3b,  # noqa: F401
-               minicpm3_4b, mixtral_8x7b, paper_llama, phi35_moe, qwen2_72b)
+               llama32_vision_90b, minicpm3_4b, mixtral_8x7b, paper_llama,
+               phi35_moe, qwen2_72b, whisper_tiny)

@@ -10,7 +10,11 @@ its 3-layer smoke config included, and ``prefix/0`` plus ``blocks/s0`` x
 (L - 1) from 9 layers on, as its full 60).
 A MoE leaf there is (R, E, ...), its router (R, d, E). The port keeps one
 tree per layer in ``params["blocks"]``, with (E, ...) expert stacks: port
-layer ``len(prefix) + r * P + j`` is ``blocks/s{j}`` at repeat r.
+layer ``len(prefix) + r * P + j`` is ``blocks/s{j}`` at repeat r. A VLM
+is ``blocks/s0..s4`` x 20 (four self layers, then a cross one). The
+encoder-decoder (Whisper) keeps ``enc/blocks`` and ``dec/blocks``, each
+stacked with period 1, beside ``enc/final_ln`` and ``dec/{embed, pos,
+final_ln}``; the port holds each as a list of per-layer trees.
 :func:`from_reference` takes the reference tree as numpy arrays — fp or
 quantized — and unstacks it; :func:`to_reference` stacks a port tree back
 into the layout the reference's ``split_layers`` gives its layer kinds.
@@ -43,9 +47,11 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def layer_kinds_of(blocks: list) -> list[str]:
-    """The layer kinds of a port param or spec tree's ``blocks``: "moe"
-    where the MLP has a router, else "self"."""
-    return ["moe" if "router" in b["mlp"] else "self" for b in blocks]
+    """The layer kinds of a port param or spec tree's ``blocks``: "cross"
+    where the block has a gate, "moe" where its MLP has a router, else
+    "self"."""
+    return ["cross" if "gate_attn" in b else
+            "moe" if "router" in b["mlp"] else "self" for b in blocks]
 
 
 def scan_repeats(kinds: list[str]) -> list[int]:
@@ -55,10 +61,20 @@ def scan_repeats(kinds: list[str]) -> list[int]:
     return [0] * len(prefix) + [r for r in range(R) for _ in pattern]
 
 
+def _unstack(stacked) -> list:
+    """Leaves with a leading layer axis -> one tree per layer."""
+    return [S.tree_map(lambda a, i=i: a[i], stacked)
+            for i in range(len(S.leaves(stacked)[0]))]
+
+
 def from_reference(tree: dict, *, device=None) -> dict:
-    """Reference dense or MoE param tree (numpy leaves) -> port tree
-    (tensors on ``device``, default the GPU)."""
+    """Reference param tree (numpy leaves) -> port tree (tensors on
+    ``device``, default the GPU)."""
     dev = S.resolve_device(device)
+    if "enc" in tree:  # encoder-decoder: both stacks with period 1
+        out = {part: dict(sub, blocks=_unstack(sub["blocks"]))
+               for part, sub in tree.items()}
+        return S.tree_map(lambda a: _to_tensor(a, dev), out)
     prefix = tree.get("prefix", {})
     pattern = tree.get("blocks", {})
     if (sorted(prefix, key=int) != [str(i) for i in range(len(prefix))]
@@ -71,15 +87,24 @@ def from_reference(tree: dict, *, device=None) -> dict:
         raise ValueError(f"blocks/s<j> with different repeats {repeats}")
     R = repeats.pop() if repeats else 0
     out = {k: v for k, v in tree.items() if k not in ("blocks", "prefix")}
+    stacks = [_unstack(pattern[f"s{j}"]) for j in range(len(pattern))]
     out["blocks"] = [prefix[str(i)] for i in range(len(prefix))] + [
-        S.tree_map(lambda a, r=r: a[r], pattern[f"s{j}"])
-        for r in range(R) for j in range(len(pattern))]
+        stacks[j][r] for r in range(R) for j in range(len(pattern))]
     return S.tree_map(lambda a: _to_tensor(a, dev), out)
+
+
+def _stack(blocks: list):
+    return S.tree_map(lambda *xs: np.stack([_to_numpy(x) for x in xs]),
+                      *blocks)
 
 
 def to_reference(params: dict) -> dict:
     """Port tree -> the reference's layout as numpy (bf16 leaves as f32
     arrays holding the same values)."""
+    if "enc" in params:
+        return {part: {k: _stack(v) if k == "blocks" else
+                       S.tree_map(_to_numpy, v) for k, v in sub.items()}
+                for part, sub in params.items()}
     out = {k: S.tree_map(_to_numpy, v)
            for k, v in params.items() if k != "blocks"}
     blocks = params["blocks"]
@@ -90,8 +115,6 @@ def to_reference(params: dict) -> dict:
                          for i in range(n)}
     if R:
         out["blocks"] = {
-            f"s{j}": S.tree_map(
-                lambda *xs: np.stack([_to_numpy(x) for x in xs]),
-                *[blocks[n + r * P + j] for r in range(R)])
+            f"s{j}": _stack([blocks[n + r * P + j] for r in range(R)])
             for j in range(P)}
     return out

@@ -62,16 +62,21 @@ from .recipe import QuantRecipe, QuantSpec
 
 def collect_calibration(api: ModelApi, cfg: ModelConfig, fp_params: Any,
                         batches: list[dict]) -> dict[str, list[torch.Tensor]]:
-    """Run ``batches`` (``{"tokens": (B, S)}``) through the fp model on
-    its weights' device and capture every linear's input rows:
-    ``{path: [one (rows, K) f32 record per batch]}``."""
+    """Run ``batches`` (``{"tokens": (B, S)}``, with ``"image_embeds"`` or
+    ``"frames"`` passed as the model's ``memory``, as the reference's)
+    through the fp model on its weights' device and capture every
+    linear's input rows: ``{path: [one (rows, K) f32 record per
+    batch]}``."""
     model = api.build(cfg, fp_params)
-    dev = fp_params["embed"].device
+    dev = next(iter(model.buffers())).device
     MC.start_capture()
     try:
         with torch.inference_mode():
             for b in batches:
-                model(torch.as_tensor(b["tokens"], device=dev), mode="train")
+                mem = b.get("image_embeds", b.get("frames"))
+                model(torch.as_tensor(b["tokens"], device=dev), mode="train",
+                      memory=None if mem is None else torch.as_tensor(
+                          mem, device=dev))
     finally:
         captured = MC.end_capture()
     return captured
@@ -228,12 +233,21 @@ def post_training_quantize(api: ModelApi, cfg: ModelConfig, fp_params: Any,
         return _quantize(fp_params, qspec_tree, "", recipe, captured, 0, {})
 
 
+def _require_blocks(cfg: ModelConfig, specs: dict) -> None:
+    if "blocks" not in specs:
+        raise ValueError(
+            f"{cfg.name}: its params have no top-level 'blocks' to build one "
+            "at a time (an encoder-decoder); draw it whole with "
+            "nn.spec.materialize and quantize it with post_training_quantize")
+
+
 def _fp_by_layer(api: ModelApi, cfg: ModelConfig, seed: int, device):
     """Yield (None, the non-block fp params) and then (i, block i's fp
     params), each drawn on ``device`` from its own generator: ``seed`` for
     the non-block params, ``seed + 1 + i`` for block i."""
     dev = S.resolve_device(device)
     specs = api.param_specs(cfg, None)
+    _require_blocks(cfg, specs)
 
     def gen(s: int) -> torch.Generator:
         return torch.Generator(device=dev).manual_seed(s)
@@ -263,6 +277,7 @@ def quantize_by_layer(api: ModelApi, cfg: ModelConfig, recipe: QuantRecipe,
     before block i + 1's are drawn. No calibration: rotation applies, the
     calibration algorithms quantize RTN."""
     qspecs = api.param_specs(cfg, recipe)
+    _require_blocks(cfg, qspecs)
     seeds = _block_seeds(qspecs["blocks"])
     out: dict = {}
     with _ptq_run():

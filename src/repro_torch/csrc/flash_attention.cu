@@ -1,4 +1,7 @@
-// Causal flash-attention forward with an optional sliding window and GQA.
+// Flash-attention forward, causal (with an optional sliding window) or not,
+// with GQA. Non-causal launches (cross attention over a memory, Sq != Sk,
+// Sq = 1 in decode) visit every key tile; the last one is masked by
+// k_pos < Sk where Sk is no multiple of the tile.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_tpu, the
 //   Pallas TPU kernel (body _kernel).

@@ -1,9 +1,11 @@
-"""Causal flash-attention forward (optional window, GQA): the wrapper
-around ``csrc/flash_attention.cu`` and its plain PyTorch version.
+"""Flash-attention forward, causal (optional window) or not, with GQA: the
+wrapper around ``csrc/flash_attention.cu`` and its plain PyTorch version.
 
 Port of ``repro/kernels/flash_attention.py::flash_attention_tpu``, with the
 same layout: q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D); query head r reads kv
-head r // G; f32 softmax; output in q's dtype. The kernel's online softmax
+head r // G; f32 softmax; output in q's dtype. Causal attention starts at
+position 0 (prefill); ``causal=False`` attends every query to all Sk keys,
+with Sq != Sk (cross attention over a memory, Sq = 1 in decode). The kernel's online softmax
 visits keys in 64-key tiles and the plain version takes one softmax over
 all keys; for bf16 inputs the kernel feeds the probabilities to the P V
 product on the tensor cores as two bf16 parts (hi and the rest), which

@@ -66,7 +66,8 @@ from repro_torch.core import ptq
 from repro_torch.core.recipe import QuantRecipe, QuantSpec
 from repro_torch.data.pipeline import (DataConfig, SyntheticPipeline,
                                        calib_batches)
-from repro_torch.serving.engine import Engine, ServeConfig
+from repro_torch.serving.engine import (MEMORY_FAMILIES, Engine,
+                                        ServeConfig, memory_refusal)
 
 
 def _load_model(arch: str, smoke: bool, device: str, recipe):
@@ -78,6 +79,8 @@ def _load_model(arch: str, smoke: bool, device: str, recipe):
     from repro_torch.models.registry import get_arch, get_model
 
     cfg = bench_lm() if arch == "bench-lm" else get_arch(arch, smoke=smoke)
+    if cfg.family in MEMORY_FAMILIES:  # before building anything
+        raise SystemExit(memory_refusal(cfg))
     api = get_model(cfg)
     if recipe is None:
         params = ptq.materialize_by_layer(api, cfg, device=device)

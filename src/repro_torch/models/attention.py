@@ -1,5 +1,5 @@
-"""GQA and MLA attention with RoPE and a KV cache. Port of
-``repro/models/attention.py`` (cross attention comes with a later slice).
+"""GQA, MLA and cross attention, with RoPE and a KV cache. Port of
+``repro/models/attention.py``.
 
 GQA: prefill/train attention runs :func:`flash_attention`, the wrapper in
 ``kernels/flash_attention.py``: the Hopper kernel on CUDA tensors, its
@@ -21,6 +21,11 @@ With ``kv_cache_dtype="int8"`` the cache holds int8 codes and f32 scales
 per token and head (:func:`quantize_kv`), written on every store and
 multiplied back on every decode read. Prefill attends over its fresh
 k/v, not over the cache, as the reference does.
+
+Cross attention (:class:`CrossAttention`: the VLM's image layers) reads
+a ``memory`` of (B, Sm, d) embeddings: prefill computes k/v from it and
+writes them to a cross cache that decode only reads. Its attention is
+non-causal over all Sm keys, the flash kernel with ``causal=False``.
 
 The KV cache is updated in place (the reference returns a new cache):
 it is the largest serving tensor after the weights, and each write is
@@ -430,3 +435,78 @@ class MLAttention(nn.Module):
 
         y = self.o(out.reshape(B, Sq, H * vd))
         return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (the VLM's image layers; Whisper's decoder has its own in
+# models/encdec.py)
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_specs(cfg: ModelConfig, recipe, base: str) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
+    dt = cfg.activation_dtype
+    return {
+        "q": linear(recipe, f"{base}/q", d, Hq * hd, dtype=dt),
+        "k": linear(recipe, f"{base}/k", d, Hkv * hd, dtype=dt),
+        "v": linear(recipe, f"{base}/v", d, Hkv * hd, dtype=dt),
+        "o": linear(recipe, f"{base}/o", Hq * hd, d, dtype=dt),
+        "q_norm": rmsnorm_spec(d),
+    }
+
+
+def cross_attn_cache_specs(cfg: ModelConfig, batch: int,
+                           mem_len: int) -> dict:
+    """k/v of the memory, (B, Sm, Hkv, D), always in the activation dtype:
+    the reference ignores ``kv_cache_dtype`` here too."""
+    shape = (batch, mem_len, cfg.num_kv_heads, cfg.head_dim)
+    dt = cfg.activation_dtype
+    return {"k": S.zeros(shape, dtype=dt), "v": S.zeros(shape, dtype=dt)}
+
+
+def attend_memory(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Non-causal attention of q over every key, in ``dtype``. The kernel
+    takes one dtype: q, k and v go to the wider of q's and k's (f32 memory
+    gives f32 k/v, as the reference's linears return their input's dtype;
+    k/v are never cast down)."""
+    dt = torch.promote_types(q.dtype, k.dtype)
+    out = flash_attention(q.to(dt), k.to(dt), v.to(dt), causal=False)
+    return out.to(dtype)
+
+
+class CrossAttention(nn.Module):
+    """``forward(x, memory=, cache=, mode=) -> (y, cache)``. q reads
+    ``q_norm(x)`` (x is already the block's ``ln1`` output: both norms
+    apply, as in the reference). Prefill / train: k and v from ``memory``
+    (quantized once for both), written over the cross cache in place, cast
+    to its dtype. Decode: k and v are the cache cast to x's dtype, and no
+    k/v linear runs."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, recipe, base: str):
+        super().__init__()
+        self.cfg = cfg
+        self.q_norm = RMSNorm(params["q_norm"], cfg.norm_eps)
+        for name in ("q", "k", "v", "o"):
+            setattr(self, name, Linear(recipe, f"{base}/{name}",
+                                       params[name]))
+
+    def forward(self, x: torch.Tensor, *, memory=None,
+                cache: dict | None = None, mode: str = "train"):
+        cfg = self.cfg
+        B, Sq, _ = x.shape
+        hd, Hq, Hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+        q = self.q(self.q_norm(x)).reshape(B, Sq, Hq, hd)
+        if mode == "decode":
+            k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+        else:
+            Sm = memory.shape[1]
+            mq = kops.quantize_for(memory, (self.k, self.v))
+            k = self.k(memory, mq).reshape(B, Sm, Hkv, hd)
+            v = self.v(memory, mq).reshape(B, Sm, Hkv, hd)
+            if cache is not None:
+                cache["k"].copy_(k)
+                cache["v"].copy_(v)
+        out = attend_memory(q, k, v, x.dtype)
+        return self.o(out.reshape(B, Sq, Hq * hd)), cache

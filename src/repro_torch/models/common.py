@@ -90,3 +90,31 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rmsnorm({"g": self.g}, x, self.eps)
+
+
+def layernorm_spec(d: int) -> dict:
+    return {"g": S.ones((d,)), "b": S.zeros((d,))}
+
+
+def layernorm(params: dict, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """The reference's ``layernorm`` op for op: f32 mean and biased
+    variance (as ``jnp.var``), ``rsqrt(var + eps)``, ``g`` and ``b``
+    applied in f32, then cast to x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    d = xf - mu
+    var = torch.mean(d * d, dim=-1, keepdim=True)
+    y = d * torch.rsqrt(var + eps)
+    return (y * params["g"].float() + params["b"].float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, params: dict, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("g", params["g"])
+        self.register_buffer("b", params["b"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm({"g": self.g, "b": self.b}, x, self.eps)

@@ -1,8 +1,10 @@
 """Model configuration. Port of ``repro/models/config.py``, cut to the
-dense and MoE families the port runs, with GQA or MLA attention; the VLM,
-recurrent and encoder-decoder fields come with their slices. The MoE field
-that belongs to a later slice (the int8 dispatch all-to-all: multi-GPU)
-raises ``NotImplementedError`` when set."""
+families the port runs: dense and MoE with GQA or MLA attention, the VLM
+(cross-attention layers every ``cross_attn_every``-th layer) and the
+encoder-decoder ("audio", Whisper). The recurrent families' fields come
+with their slice. The MoE field that belongs to a later slice (the int8
+dispatch all-to-all: multi-GPU) raises ``NotImplementedError`` when
+set."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +19,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: Literal["dense", "moe"]
+    family: Literal["dense", "moe", "vlm", "audio"]
     num_layers: int
     d_model: int
     num_heads: int
@@ -52,6 +54,16 @@ class ModelConfig:
     num_shared_experts: int = 0     # an always-on MLP of this many experts
     first_dense_layers: int = 0     # leading dense blocks (DeepSeek-V2: 1)
     moe_int8_dispatch: bool = False  # multi-GPU slice (the all-to-all)
+
+    # -- VLM (Llama-3.2-Vision) -------------------------------------------------
+    cross_attn_every: int = 0       # every k-th layer is cross-attention
+    num_image_tokens: int = 0
+
+    # -- encoder-decoder (Whisper) ----------------------------------------------
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    encoder_seq: int = 1500         # frame embeddings the encoder takes
+    max_positions: int = 32768      # the decoder's learned-position table
 
     # -- norms / embeddings ---------------------------------------------------
     norm_eps: float = 1e-5

@@ -5,7 +5,8 @@ Every implementation exposes
     param_specs(cfg, recipe) -> ParamSpec tree
     cache_specs(cfg, batch, max_seq) -> ParamSpec tree (decode state)
     build(cfg, params, recipe) -> nn.Module, called as
-        module(tokens, mode=, cache=, pos=) -> (logits f32, cache, aux)
+        module(tokens, mode=, cache=, pos=, memory=)
+            -> (logits f32, cache, aux)
 """
 from __future__ import annotations
 
@@ -24,10 +25,14 @@ class ModelApi:
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
+        mod = importlib.import_module("repro_torch.models.transformer")
+    elif cfg.family == "audio":
+        mod = importlib.import_module("repro_torch.models.encdec")
+    else:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense and moe only)")
-    mod = importlib.import_module("repro_torch.models.transformer")
+            f"family {cfg.family!r} is not ported yet (dense, moe, vlm and "
+            "audio only)")
     return ModelApi(mod.param_specs, mod.cache_specs, mod.build)
 
 

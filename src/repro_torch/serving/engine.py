@@ -158,6 +158,17 @@ class ServeConfig:
     slow_tick_factor: float = 3.0  # watchdog straggler multiple of median
 
 
+#: families whose model reads a ``memory`` the engine does not pass
+MEMORY_FAMILIES = ("vlm", "audio")
+
+
+def memory_refusal(cfg: ModelConfig) -> str:
+    return (f"{cfg.name}: the {cfg.family} family reads image or frame "
+            "embeddings (memory=) that the engine does not pass, as the "
+            "reference's does not; run it through the model API "
+            "(prefill with memory=, then decode over the cache)")
+
+
 @dataclasses.dataclass
 class _Slot:
     request_id: int = -1
@@ -174,6 +185,8 @@ class Engine:
     def __init__(self, api: ModelApi, cfg: ModelConfig, params: Any,
                  serve_cfg: ServeConfig, recipe=None, *,
                  fallback_params: Any = None, fallback_recipe=None):
+        if cfg.family in MEMORY_FAMILIES:
+            raise NotImplementedError(memory_refusal(cfg))
         self.engine_id = f"eng{next(Engine._ids)}"
         self.api = api
         self.cfg = cfg

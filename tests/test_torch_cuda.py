@@ -57,6 +57,14 @@ tile; K up to 16384); the ragged IS GEMM at 160 experts with row counts
 from a seeded top-6 routing, equal to the dense-grouped entry bit for
 bit; ``_dense_weight`` on the card equal to the CPU's; and the captured
 engine on both smoke MLA archs equal to the eager loop.
+
+Cross attention (Llama-3.2-Vision's cross layers, Whisper): flash
+attention non-causal with Sq != Sk (Sq = 1, Sk = 1500 and 1600, bf16 and
+f32); a quantized linear with a bias at the memory's 6000 / 6400 rows
+equal to the CPU bit for bit; act_quant at those rows; both smoke models
+on the card against the CPU (a prefill with memory, then a decode step;
+5e-2 of the largest logit); and their decode replayed as a CUDA graph
+equal to the eager loop.
 """
 import numpy as np
 import pytest
@@ -1602,3 +1610,194 @@ def test_mla_engine_streams_equal_an_eager_greedy_loop(cuda, arch):
     assert sorted(eng.cache["blocks"][0]) == ["c_kv", "k_rope"]
     assert eng.decode_traces == eng.prefill_traces == 1
     assert outs == eager_greedy(api, cfg, eng.model, prompts, sc)
+
+
+# -- cross attention: Llama-3.2-Vision's cross layers, Whisper ----------------
+
+XATTN_FLASH = [  # (B, Sq, Sk, Hq, Hkv, D)
+    (1, 128, 1600, 64, 8, 128),  # the VLM's cross prefill
+    (4, 1, 1600, 64, 8, 128),    # its cross decode
+    (1, 1500, 1500, 6, 6, 64),   # Whisper's encoder
+    (4, 1, 1500, 6, 6, 64),      # its cross decode
+    (2, 10, 24, 4, 4, 32),       # Whisper's smoke cross prefill
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", XATTN_FLASH)
+def test_flash_kernel_non_causal_sq_ne_sk(cuda, dtype, B, Sq, Sk, Hq, Hkv,
+                                          D):
+    """``causal=False`` with Sq != Sk: every key tile visited, the last
+    one ragged (1500 and 1600 are no multiple of 64), Sq = 1 one row of a
+    query tile; bf16 repeated bit for bit."""
+    q = _normal(Sq + 1, (B, Sq, Hq, D), 1.0, cuda).to(dtype)
+    k = _normal(Sk + 2, (B, Sk, Hkv, D), 1.0, cuda).to(dtype)
+    v = _normal(Sk + 3, (B, Sk, Hkv, D), 1.0, cuda).to(dtype)
+    out = flash_attention(q, k, v, causal=False)
+    ref = flash_attention_plain(q, k, v, causal=False)
+    assert (out.float() - ref.float()).abs().max().item() <= TOLERANCE
+    assert torch.equal(out, flash_attention(q, k, v, causal=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(6400, 8192, 1024), (6000, 384, 384),
+                                   (6000, 384, 1536), (6000, 1536, 384)])
+def test_is_linear_at_thousands_of_rows_equals_the_cpu(cuda, M, K, N):
+    """The memory's rows (4 x 1600 image tokens, 4 x 1500 frames) through
+    a quantized linear with a bias (Whisper's q/v/o): act_quant, the IS
+    GEMM (100 and 94 row tiles of 64) and the bias add on the card equal
+    the CPU's plain versions bit for bit; the GEMM equals its plain
+    version on the card too."""
+    from repro_torch.core.recipe import QuantSpec as Spec
+
+    spec = Spec()
+    params = qlinear.quantize_linear(_normal(K, (K, N), K ** -0.5), spec,
+                                     bias=_normal(N, (N,), 0.1))
+    x = _normal(M, (M, K), 1.0).to(torch.bfloat16)
+    got = qlinear.linear_apply({k: v.to(cuda) for k, v in params.items()},
+                               x.to(cuda), spec)
+    assert torch.equal(got.cpu(), qlinear.linear_apply(params, x, spec))
+    xq, sa = act_quant(x.to(cuda))
+    alpha = float(params["alpha"])
+    y = fg_gemm_integer_scale(xq, sa, params["qvalue"].to(cuda),
+                              params["scale"].to(cuda), group_size=128,
+                              alpha=alpha)
+    assert torch.equal(y, fg_gemm_integer_scale_plain(
+        xq, sa, params["qvalue"].to(cuda), params["scale"].to(cuda),
+        group_size=128, alpha=alpha))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", [(6400, 8192), (6000, 384), (4, 28672)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_act_quant_bit_exact_at_the_memorys_rows(cuda, M, K, dtype):
+    x = _normal(M + K, (M, K), 3.0, cuda).to(dtype)
+    q, s = act_quant(x)
+    q_p, s_p = act_quant_plain(x)
+    assert torch.equal(q, q_p) and torch.equal(s, s_p)
+
+
+_XATTN = {}
+
+
+def _xattn_model(arch, device):
+    """The smoke ``arch`` under W4A8-IS, built on the CPU from seed 0 (a
+    VLM block by block, Whisper whole), its cross gates drawn nonzero:
+    (api, cfg, params on ``device``)."""
+    if arch not in _XATTN:
+        from repro_torch.core import ptq
+        from repro_torch.core.recipe import DEFAULT_RECIPE
+        from repro_torch.models.registry import get_arch, get_model
+        from repro_torch.nn import spec as S
+
+        cfg = get_arch(arch, smoke=True)
+        api = get_model(cfg)
+        if cfg.family == "vlm":
+            qp = ptq.quantize_by_layer(api, cfg, DEFAULT_RECIPE, device="cpu")
+        else:
+            qp = ptq.post_training_quantize(api, cfg, S.materialize(
+                api.param_specs(cfg), torch.Generator().manual_seed(0),
+                device="cpu"), DEFAULT_RECIPE)
+        rng = np.random.default_rng(17)
+        for blk in qp.get("blocks", []):
+            if "gate_attn" in blk:
+                for g in ("gate_attn", "gate_mlp"):
+                    blk[g] = torch.tensor(rng.uniform(0.5, 1.5),
+                                          dtype=torch.float32)
+        _XATTN[arch] = (api, cfg, qp)
+    api, cfg, qp = _XATTN[arch]
+    from repro_torch.nn import spec as S
+    return api, cfg, S.tree_map(lambda t: t.to(device), qp)
+
+
+def _xattn_inputs(cfg, B, P, device):
+    Sm = cfg.num_image_tokens or cfg.encoder_seq
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, P))).to(device)
+    mem = (_normal(4, (B, Sm, cfg.d_model), 0.1)).to(torch.bfloat16)
+    return toks, mem.to(device)
+
+
+def _xattn_pos(cfg, B, p, device):
+    if cfg.family == "vlm":
+        return torch.full((B,), p, dtype=torch.int64, device=device)
+    return torch.tensor(p, dtype=torch.int64, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-tiny"])
+def test_xattn_smoke_model_on_the_card_matches_the_cpu(cuda, arch):
+    """The smoke VLM (its cross layer 4 gated open) and the smoke Whisper
+    whole under W4A8-IS: a prefill with memory, then a decode step over
+    the caches, the card's logits within 5e-2 of the largest CPU logit
+    (an activation code can move by one where flash and the plain softmax
+    differ by a bf16 ulp)."""
+    from repro_torch.nn import spec as S
+    from repro_torch.core.recipe import DEFAULT_RECIPE
+
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        api, cfg, qp = _xattn_model(arch, dev)
+        model = api.build(cfg, qp, DEFAULT_RECIPE)
+        cache = S.materialize(api.cache_specs(cfg, 2, 32), device=dev)
+        toks, mem = _xattn_inputs(cfg, 2, 12, dev)
+        with torch.inference_mode():
+            pre = model(toks, mode="prefill", cache=cache, pos=0,
+                        memory=mem)[0]
+            dec = model(toks[:, :1], mode="decode", cache=cache,
+                        pos=_xattn_pos(cfg, 2, 12, dev))[0]
+        outs.append((pre.cpu(), dec.cpu()))
+    for a, b in zip(*outs):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-tiny"])
+def test_xattn_graph_replayed_decode_equals_the_eager_loop(cuda, arch):
+    """Greedy decode over the caches after a prefill with memory: the
+    decode step captured once as a CUDA graph (static token and position
+    buffers; Whisper's position a 0-d tensor) and replayed gives the eager
+    loop's tokens, and launches no kernel on a replay outside the graph."""
+    from repro_torch.nn import spec as S
+    from repro_torch.core.recipe import DEFAULT_RECIPE
+
+    api, cfg, qp = _xattn_model(arch, cuda)
+    model = api.build(cfg, qp, DEFAULT_RECIPE)
+    B, P, steps = 2, 12, 6
+    runs = []
+    for graph in (False, True):
+        cache = S.materialize(api.cache_specs(cfg, B, 32), device=cuda)
+        toks, mem = _xattn_inputs(cfg, B, P, cuda)
+        with torch.inference_mode():
+            first = model(toks, mode="prefill", cache=cache, pos=0,
+                          memory=mem)[0][:, -1].argmax(-1)
+            tok, pos = first[:, None].clone(), _xattn_pos(cfg, B, P, cuda)
+
+            def step():
+                return model(tok, mode="decode", cache=cache,
+                             pos=pos)[0][:, 0].argmax(-1)
+
+            seq = [first]
+            if graph:
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    step()
+                torch.cuda.current_stream().wait_stream(side)
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g):
+                    nxt = step()
+                before = dict(_build.LAUNCHES)
+            for _ in range(steps):
+                if graph:
+                    g.replay()
+                else:
+                    nxt = step()
+                seq.append(nxt.clone())
+                tok.copy_(nxt[:, None])
+                pos.add_(1)
+            if graph:
+                assert dict(_build.LAUNCHES) == before
+        runs.append(torch.stack(seq, 1).cpu())
+    assert torch.equal(runs[0], runs[1])
