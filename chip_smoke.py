@@ -248,6 +248,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the memory's 6400 x 8192 and 6000 x 384 rows, the IS GEMM at the
    VLM's MLP and Whisper's widths (``XATTN_GEMM_KN``) and at M = 6400 /
    6000 (``XATTN_BIG_M``, also at forced K splits of 1 and 2).
+8f. ``[recurrent]``: the recurrent families at full width and depth,
+   W4A8 g128 IS built block by block (seed 0), every certificate
+   certified or capped. ``xlstm-1.3b`` (48 layers: 42 mLSTM, 6 sLSTM)
+   served through the engine with phase 5's prompts and ``ServeConfig``
+   and phase 8's checks: outcomes, one capture per step, exactly the IS
+   kernels and the graphs' counts, each graph's launches the derived
+   ones (:func:`recurrent_launches`: act_quant 4 an mLSTM and 3 an sLSTM
+   layer, no flash), the argmax, the streams equal to the eager greedy
+   loop that prefills the same padded prompts from a zero state (the
+   reference engine's semantics), the first 2 layers against the CPU
+   through the state; how many streams equal a loop over the unpadded
+   prompts is printed, not held; the state's MB. ``recurrentgemma-9b``
+   (38 layers: 26 RG-LRU, 12 local attention at head dim 256, window
+   2048) through the model API (the engine refuses it: its decode takes
+   one scalar position): a prefill of 4 seeded 128-token prompts, 32
+   greedy steps at a 0-d position eager and as a replayed CUDA graph
+   (``serving.graphs.Step``, which restores the state its warm-up
+   advanced): equal tokens, the first token the argmax of a train-mode
+   forward, launches exactly the derived counts (152 act_quant, 240 IS
+   GEMMs, 12 flash a prefill; 152, 240, 0 a step); one 2,300-token
+   prompt past the window prefilled and decoded 4 steps against a
+   train-mode forward over the same tokens (5e-2 of the largest logit);
+   its first 3 layers (2 RG-LRU, the first local attention) against the
+   CPU. One decode step of each is profiled (``[profile] recurrent``:
+   the shares of the quantized GEMMs, the mLSTM cell, the sLSTM step,
+   the RG-LRU gates and scan, local-attention decode and the f32 logit
+   head). Phase 3 runs their widths first: flash at 16 query heads over
+   one of 256 (1 x 128, and 1 x 4096 with the window of 2048; bf16 and
+   f32), act_quant at K = 2048 and 2816, the IS GEMM at
+   ``RECURRENT_GEMM_KN``.
 9. Print the ``kernels`` JSON line (the eight kernels, launches summed
    over every served path; the five qlint fixtures, launches from their
    run in phase 2b), then the result line
@@ -286,9 +316,11 @@ GEMM_KN = ((4096, 4096), (4096, 11008), (11008, 4096))
 # down projection (1536), c_kv (512), o input (16384), the dense layer's
 # down projection (12288) and the shared experts' (3072); then
 # Llama-3.2-Vision's down projection (28672) and Whisper-tiny's x (384)
+# then xLSTM-1.3B's x (2048) and sLSTM ff_down input (2816; its
+# RecurrentGemma-9B widths 4096 and 12288 are above)
 ACT_QUANT_K = (4096, 11008, 14336, 8192, 29568, 6144, 24576, 6400,
                2560, 768, 256, 5120, 1536, 512, 16384, 12288, 3072, 28672,
-               384)
+               384, 2048, 2816)
 # the IS GEMM at Qwen2-72B's linears (K, N): q/o, k/v, gate/up, down; and
 # Granite-34B's: q/o, its single KV head (N = 128), gate/up, down
 CONFIG_GEMM_KN = ((8192, 8192), (8192, 1024), (8192, 29568), (29568, 8192),
@@ -403,6 +435,26 @@ XATTN_ACT_ROWS = ((6400, 8192), (6000, 384))
 # VLM's cross prefill and decode, Whisper's encoder and its cross decode
 XATTN_FLASH = ((1, 128, 1600, 64, 8, 128), (4, 1, 1600, 64, 8, 128),
                (1, 1500, 1500, 6, 6, 64), (4, 1, 1500, 6, 6, 64))
+# phase 8f: the recurrent families at full width and depth under W4A8 g128
+# IS: xLSTM-1.3B served through the engine (phase 5's prompts and
+# ServeConfig), RecurrentGemma-9B through the model API (the engine
+# refuses it: its decode takes one scalar position): a prefill of
+# RG_B seeded RG_PROMPT-token prompts, then RG_STEPS greedy decode steps
+# at a 0-d position, eager and as a replayed CUDA graph; then one prompt
+# of RG_LONG tokens, past the window of 2048, and RG_LONG_STEPS decode
+# steps held to a train-mode forward over the same tokens
+RECURRENT_SERVED, RECURRENT_API = "xlstm-1.3b", "recurrentgemma-9b"
+RG_B, RG_PROMPT, RG_STEPS, RG_MAX_SEQ = 4, 128, 32, 256
+RG_LONG, RG_LONG_STEPS = 2300, 4
+# RecurrentGemma's first layers held against the CPU: its two RG-LRU
+# layers and its first local attention
+RG_PLAIN_CHECK_LAYERS = 3
+# phase 3 at phase 8f's widths: the IS GEMM at RecurrentGemma-9B's (K, N)
+# (gate / up, down, the single KV head of 256; q, o, gate_proj, x_proj
+# and out_proj are GEMM_KN's 4096 -> 4096) and xLSTM-1.3B's (up and wx,
+# down, the sLSTM's ff_gate / ff_up and ff_down: K = 2816 is 22 groups)
+RECURRENT_GEMM_KN = ((4096, 12288), (12288, 4096), (4096, 256),
+                     (2048, 8192), (4096, 2048), (2048, 2816), (2816, 2048))
 
 
 def log(*a):
@@ -778,14 +830,18 @@ def check_flash(gen, rows):
 
     err = 0.0
     # (B, Sq, Hq, Hkv, D, window): the prefill shape, then GQA + window +
-    # a ragged length
+    # a ragged length; RecurrentGemma's heads of 256 at its prefill and at
+    # 4096 tokens with its window of 2048 (there the bf16 kernel reloads
+    # Q's fragments per key tile)
     for B, S, Hq, Hkv, D, win in ((1, 128, 32, 32, 128, None),
                                   (1, 128, 32, 8, 128, None),  # Mixtral GQA
                                   (2, 200, 8, 2, 128, 64),
                                   (1, 77, 4, 1, 64, None),
                                   (1, 128, 64, 8, 128, None),  # Qwen2-72B
                                   (1, 128, 48, 1, 128, None),  # Granite
-                                  (1, 128, 8, 2, 32, None)):  # heads of 32
+                                  (1, 128, 8, 2, 32, None),  # heads of 32
+                                  (1, 128, 16, 1, 256, None),
+                                  (1, 4096, 16, 1, 256, 2048)):
         shape = (B, S, Hq, Hkv, D, win)
         q, k, v = (torch.randn((B, S, h, D), generator=gen, device="cuda"
                                ).to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
@@ -799,17 +855,18 @@ def check_flash(gen, rows):
         if not torch.equal(ok_, flash_attention(q, k, v, window=win)):
             raise AssertionError(f"flash {shape}: two launches gave "
                                  "different bits")
-        if S == 128 and (Hq == Hkv or D == 32):  # the f32 kernel
+        if (S == 128 and (Hq == Hkv or D == 32)) or D == 256:  # f32 kernel
             qf, kf, vf = (t.float() for t in (q, k, v))
-            ef = (flash_attention(qf, kf, vf)
-                  - flash_attention_plain(qf, kf, vf)).abs().max().item()
+            ef = (flash_attention(qf, kf, vf, window=win)
+                  - flash_attention_plain(qf, kf, vf, window=win)
+                  ).abs().max().item()
             if not ef <= TOLERANCE:
                 raise AssertionError(f"flash f32 {shape}: max abs {ef}")
             log(f"[kernel] flash_attention f32 {list(shape)}: max abs diff "
                 f"vs plain {ef:.2e}")
         ms = time_ms(lambda *a: flash_attention(*a, window=win), [(q, k, v)])
         pms = time_ms(lambda *a: flash_attention_plain(*a, window=win),
-                      [(q, k, v)])
+                      [(q, k, v)], iters=30 if S <= 512 else 3)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         mask = torch.ones((S, S), dtype=torch.bool, device="cuda").tril()
         if win is not None:
@@ -1875,17 +1932,18 @@ def check_qlint(smi: str):
 
 
 def serve_checked(tag, name, api, cfg, qparams, recipe, sc, prompts, toks,
-                  n0, launches_total, *, per_layer, eager):
+                  n0, launches_total, *, per_layer, eager, want=None,
+                  must=KERNELS_OF["w4a8-is"]):
     """Phase 5's serve and checks for one recipe of a later phase: every
-    outcome ok, exactly the W4A8 IS kernels launched and exactly the
-    graphs' counts, the first token the argmax of the logits, the first
-    layers on the card against the CPU's plain versions, the engine's
-    streams against the eager greedy loop (``eager``), and ``per_layer``
-    act_quant a layer in one decode tick. Returns (stats, the tick's
-    quantized GEMM calls per scheme)."""
+    outcome ok, exactly the kernels ``must`` (the W4A8 IS ones) launched
+    and exactly the graphs' counts, the first token the argmax of the
+    logits, the first layers on the card against the CPU's plain
+    versions, the engine's streams against the eager greedy loop
+    (``eager``), and ``per_layer`` act_quant a layer (or ``want``, the
+    (dense, routed) pair) in one decode tick. Returns (stats, engine)."""
     eng, outs, launches, reg, wall, peak = serve_recipe(
         api, cfg, qparams, recipe, sc, prompts)
-    check_launches(f"{tag} {name}", launches, KERNELS_OF["w4a8-is"])
+    check_launches(f"{tag} {name}", launches, must)
     steps = check_steps(f"{tag} {name}", eng, reg, launches)
     for k, n in launches.items():
         launches_total[k] += n
@@ -1902,8 +1960,8 @@ def serve_checked(tag, name, api, cfg, qparams, recipe, sc, prompts, toks,
               tick_launches=check_tick_launches(
                   tag, name, cfg, *tick_launches(api, cfg, eng.model, sc,
                                                  schemes),
-                  per_layer=per_layer),
-              tick_gemm_calls=schemes)
+                  per_layer=per_layer, want=want),
+              tick_gemm_calls=schemes, outs=outs)
     return st, eng
 
 
@@ -2975,6 +3033,458 @@ def xattn_phase(launches_total, smi):
     return stats
 
 
+def recurrent_launches(cfg, mode: str) -> dict[str, int]:
+    """act_quant, IS GEMM and flash launches of one forward ("prefill" or
+    "decode"), from the sharing of each layer kind. xLSTM: an mLSTM layer
+    quantizes its input (up), xc once for q / k, xm (v) and h (down): 4,
+    for 5 GEMMs; an sLSTM layer its input (wx), x once for ff_gate /
+    ff_up, and ff_down's: 3, for 4 GEMMs; no flash. RecurrentGemma: an
+    RG-LRU layer its input once for gate_proj / x_proj, out_proj's and the
+    GeGLU's two: 4, for 6 GEMMs; a local attention layer q / k / v once,
+    o and the GeGLU's two: 4, for 7 GEMMs and, in prefill only, one flash
+    (decode attends over the ring in plain PyTorch)."""
+    from repro_torch.models import griffin, xlstm
+
+    kinds = (xlstm if cfg.family == "ssm" else griffin).layer_kinds(cfg)
+    aq = {"mlstm": 4, "slstm": 3, "rec": 4, "attn": 4}
+    gemm = {"mlstm": 5, "slstm": 4, "rec": 6, "attn": 7}
+    out = {"act_quant": sum(aq[k] for k in kinds),
+           "w4a8_gemm_is": sum(gemm[k] for k in kinds)}
+    if mode == "prefill" and "attn" in kinds:
+        out["flash_attention"] = kinds.count("attn")
+    return out
+
+
+def unpadded_streams(api, cfg, model, prompts, n):
+    """Greedy streams of ``n`` tokens from an eager batch-1 loop over each
+    prompt unpadded (the exact recurrence over the prompt alone, where the
+    engine's prefill also reads its pad tokens, as the reference's)."""
+    import torch
+    from repro_torch.nn import spec as S
+
+    outs = []
+    with torch.inference_mode():
+        for p in prompts:
+            cache = S.materialize(api.cache_specs(cfg, 1, 1), device="cuda")
+            logits = model(torch.tensor([p], device="cuda"), mode="prefill",
+                           cache=cache)[0]
+            seq = [int(logits[0, -1].argmax())]
+            for _ in range(n - 1):
+                logits = model(torch.tensor([[seq[-1]]], device="cuda"),
+                               mode="decode", cache=cache)[0]
+                seq.append(int(logits[0, -1].argmax()))
+            outs.append(seq)
+    return outs
+
+
+def profile_recurrent_step(model, step, top=8):
+    """One eager decode step (``step()``) under ``torch.profiler``, with a
+    profiler range around each call of the recurrences (xLSTM's
+    ``_mlstm_cell`` on C and ``_slstm_scan``; RecurrentGemma's ``_rglru``:
+    the f32 ``wa`` / ``wi`` products, the gates and the scan), of Griffin's
+    ``_ring_attention`` (local-attention decode over the ring) and of the
+    model's ``logits`` (the final norm and the f32 head): the step's
+    device ms, each range's, the quantized GEMMs' (by kernel name; the
+    profiler charges no ctypes launch to a range) and the ``top`` device
+    kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import griffin, xlstm
+
+    patched = [(xlstm, "_mlstm_cell"), (xlstm, "_slstm_scan"),
+               (griffin, "_rglru"), (griffin, "_ring_attention"),
+               (type(model), "logits")]
+    real = {(o, n): getattr(o, n) for o, n in patched}
+
+    def annotated(fn, tag):
+        def wrapped(*a, **k):
+            with record_function(tag):
+                return fn(*a, **k)
+        return wrapped
+
+    for (o, n), fn in real.items():
+        setattr(o, n, annotated(fn, f"recurrent.{n}"))
+    try:
+        with torch.inference_mode():
+            step()  # warm
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                step()
+                torch.cuda.synchronize()
+    finally:
+        for (o, n), fn in real.items():
+            setattr(o, n, fn)
+    avg = prof.key_averages()
+    kernels = [e for e in avg if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not e.key.startswith("recurrent.")]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device kernels")
+
+    def range_ms(name):
+        return sum(e.device_time_total for e in avg
+                   if e.key == f"recurrent.{name}"
+                   and e.device_type == DeviceType.CPU) / 1e3
+
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    gemm = sum(e.self_device_time_total for e in kernels
+               if any(k in e.key for k in GEMM_KERNELS)) / 1e3
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    return dict(device_ms=total, gemm_ms=gemm,
+                ranges={n: range_ms(n) for _, n in patched},
+                launches=sum(e.count for e in kernels),
+                top=[dict(name=e.key[:120], count=e.count,
+                          ms=e.self_device_time_total / 1e3)
+                     for e in ranked])
+
+
+def log_recurrent_profile(name, prof, what):
+    dev = prof["device_ms"]
+    parts = [f"quantized GEMMs {prof['gemm_ms']:.3f} ms "
+             f"({prof['gemm_ms'] / dev:.3f})"]
+    for key, label in what:
+        ms = prof["ranges"][key]
+        parts.append(f"{label} {ms:.3f} ms ({ms / dev:.3f})")
+    log(f"[profile] recurrent {name}: one decode step {dev:.3f} ms of device "
+        f"kernels in {prof['launches']} launches: " + "; ".join(parts)
+        + f"; top {len(prof['top'])}:")
+    for p in prof["top"]:
+        log(f"[profile]   {p['ms']:.3f} ms  x{p['count']}  {p['name']}")
+
+
+def rg_plain_check(api, cfg, qp, recipe, toks):
+    """RecurrentGemma's first ``RG_PLAIN_CHECK_LAYERS`` layers (its two
+    RG-LRU layers and first local attention) on the card against the
+    same layers on the CPU, B = 1: a prefill of ``toks`` into the state,
+    then one decode step at a 0-d position; (rel to the largest logit,
+    CPU seconds)."""
+    import torch
+    from repro_torch.nn import spec as S
+
+    L = RG_PLAIN_CHECK_LAYERS
+    cut = dict(qp, blocks=qp["blocks"][:L])
+    c2 = dataclasses.replace(cfg, num_layers=L)
+    outs, t_cpu = {}, 0.0
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        p = cut if dev == "cuda" else S.tree_map(lambda t: t.cpu(), cut)
+        model = api.build(c2, p, recipe)
+        cache = S.materialize(api.cache_specs(c2, 1, RG_MAX_SEQ), device=dev)
+        t = toks.to(dev)
+        with torch.inference_mode():
+            pre = model(t, mode="prefill", cache=cache, pos=0)[0][0, -1]
+            dec = model(t[:, :1], mode="decode", cache=cache,
+                        pos=torch.tensor(t.shape[1], device=dev))[0][0, 0]
+        outs[dev] = (pre.float().cpu(), dec.float().cpu())
+        if dev == "cpu":
+            t_cpu = time.perf_counter() - t0
+    rel = max(((a - b).abs().max() / b.abs().max()).item()
+              for a, b in zip(outs["cuda"], outs["cpu"]))
+    if not rel <= PLAIN_LOGIT_REL_TOL:
+        raise AssertionError(f"{cfg.name}: kernels vs plain versions, first "
+                             f"{L} layers: logits rel {rel}")
+    log(f"[check] {cfg.name}: first {L} layers (2 RG-LRU, 1 local "
+        f"attention) through the state, a prefill then one decode step, "
+        f"kernels on the card vs plain versions on the CPU ({t_cpu:.1f} s): "
+        f"logits rel {rel:.2e} (<= {PLAIN_LOGIT_REL_TOL})")
+    return rel, t_cpu
+
+
+def rg_greedy(model, cache, first, steps, graph):
+    """Greedy tokens (B, steps + 1) of ``steps`` decode steps from the
+    prefill's ``first`` tokens at a 0-d position on the card, eager or as
+    a ``serving.graphs.Step`` (a warm-up whose advance of the state is
+    undone, one capture, then replays): (tokens, host s, device ms of the
+    loop)."""
+    import torch
+    from repro_torch.nn import spec as S
+    from repro_torch.serving.graphs import Step
+
+    with torch.inference_mode():
+        tok = first[:, None].clone()
+        pos = torch.tensor(RG_PROMPT, dtype=torch.int64, device="cuda")
+
+        def step():
+            return model(tok, mode="decode", cache=cache,
+                         pos=pos)[0][:, 0].argmax(-1)
+
+        run = step
+        if graph:
+            run = Step(step, torch.device("cuda"), state=S.leaves(cache))
+            nxt = run()  # warm-up, capture, the first replay
+            toks = [first, nxt.clone()]
+            tok.copy_(nxt[:, None])
+            pos.add_(1)
+        else:
+            toks = [first]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(steps - (len(toks) - 1)):
+            nxt = run()
+            toks.append(nxt.clone())
+            tok.copy_(nxt[:, None])
+            pos.add_(1)
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t0
+    return torch.stack(toks, 1), wall, start.elapsed_time(end)
+
+
+def recurrent_phase(sc, prompts, toks, n0, launches_total, smi):
+    """Phase 8f, ``[recurrent]``: xLSTM-1.3B (48 layers: 42 mLSTM, 6
+    sLSTM) served through the engine with phase 5's prompts and
+    ``ServeConfig`` and phase 8's checks (outcomes, one capture per step,
+    exactly the IS kernels and the graphs' counts, each graph's launches
+    the derived ones, the argmax, the streams equal to the eager greedy
+    loop that prefills the same padded prompts from a zero state, the
+    first 2 layers against the CPU's plain versions through the state,
+    act_quant 4 an mLSTM and 3 an sLSTM layer); the number of streams
+    equal to a loop over the unpadded prompts is printed, not held. Then
+    RecurrentGemma-9B (38 layers: 26 RG-LRU, 12 local attention) through
+    the model API: a prefill of ``RG_B`` seeded prompts, ``RG_STEPS``
+    greedy steps at a 0-d position eager and as a replayed graph (equal),
+    the first token the argmax of a train-mode forward, launches exactly
+    :func:`recurrent_launches`'; one ``RG_LONG``-token prompt past the
+    window, its prefill and ``RG_LONG_STEPS`` decode steps held to a
+    train-mode forward over the same tokens within 5e-2 of the largest
+    logit; its first layers against the CPU. Both W4A8 g128 IS built block
+    by block (seed 0), every certificate certified or capped; one decode
+    step of each profiled (``[profile] recurrent``)."""
+    return {RECURRENT_SERVED: recurrent_served(sc, prompts, toks, n0,
+                                               launches_total, smi),
+            RECURRENT_API: recurrent_model_api(launches_total, smi)}
+
+
+def recurrent_served(sc, prompts, toks, n0, launches_total, smi):
+    """Phase 8f's xLSTM-1.3B, served through the engine (see
+    :func:`recurrent_phase`)."""
+    import torch
+    from repro_torch.core.recipe import DEFAULT_RECIPE
+    from repro_torch.models import xlstm
+    from repro_torch.models.registry import get_arch, get_model
+
+    recipe = DEFAULT_RECIPE
+    cfg = get_arch(RECURRENT_SERVED)
+    api = get_model(cfg)
+    qp, build_s, build_peak, qbytes, certs, summ = build_by_layer(
+        api, cfg, recipe)
+    kinds = xlstm.layer_kinds(cfg)
+    state_mb = cache_bytes(api, cfg, sc) / 1e6
+    state1_mb = cache_bytes(api, cfg, dataclasses.replace(
+        sc, max_slots=1)) / 1e6
+    log(f"[recurrent] {cfg.name}: {cfg.num_layers} layers "
+        f"({kinds.count('mlstm')} mLSTM, {kinds.count('slstm')} sLSTM), "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads, vocab "
+        f"{cfg.vocab_size}; {recipe.name} built block by block in "
+        f"{build_s:.1f} s; weights on the card {qbytes / 1e9:.2f} GB; peak "
+        f"allocated while building {build_peak / 1e9:.2f} GB; certificates "
+        f"{summ['certified']} certified / {summ['capped-alpha']} capped / "
+        f"{summ['fallback']} fallback, worst accumulator "
+        f"{summ['worst_frac']:.4f} of 2^31; state {state_mb:.1f} MB at "
+        f"{sc.max_slots} slots + {state1_mb:.1f} MB the batch-1 prefill "
+        f"cache; {smi}")
+    for c in certs:
+        if c.verdict == "capped-alpha":
+            log(f"[recurrent]   {c}")
+    want = recurrent_launches(cfg, "decode")
+    torch.cuda.reset_peak_memory_stats()
+    st, eng = serve_checked(
+        "recurrent", cfg.name, api, cfg, qp, recipe, sc, prompts, toks, n0,
+        launches_total, per_layer=None, eager=True,
+        want=(want["act_quant"], 0), must={"act_quant", "w4a8_gemm_is"})
+    for step, mode in ((eng._decode_step, "decode"),
+                       (eng._prefill_step, "prefill")):
+        if step.launches != recurrent_launches(cfg, mode):
+            raise AssertionError(f"recurrent {cfg.name} {mode} graph: "
+                                 f"launches {step.launches}, expected "
+                                 f"{recurrent_launches(cfg, mode)}")
+    t0 = time.perf_counter()
+    unpadded = unpadded_streams(api, cfg, eng.model, prompts,
+                                sc.max_new_tokens)
+    same = sum(a == b for a, b in zip(unpadded, st["outs"]))
+    log(f"[recurrent] {cfg.name}: {same} of {len(prompts)} streams equal a "
+        f"loop over the unpadded prompt (the engine prefills the padded "
+        f"prompt from a zero state, as the reference's; not a gate; "
+        f"{time.perf_counter() - t0:.1f} s); graphs' launches a prefill / "
+        f"a tick {json.dumps(eng._prefill_step.launches)} / "
+        f"{json.dumps(eng._decode_step.launches)}")
+    cache, dtoks, dpos = _decode_inputs(api, cfg, sc)
+    prof = profile_recurrent_step(eng.model, lambda: eng.model(
+        dtoks, mode="decode", cache=cache, pos=dpos))
+    del cache
+    log_recurrent_profile(cfg.name, prof, (
+        ("_mlstm_cell", "mLSTM cell on C"), ("_slstm_scan", "sLSTM step"),
+        ("logits", "f32 logit head")))
+    st.update(build_s=build_s, build_peak_bytes=build_peak,
+              weight_bytes=qbytes, certificates=summ,
+              state_mb=state_mb, state1_mb=state1_mb,
+              unpadded_equal=same, profile=prof,
+              serving_peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"[recurrent] {cfg.name}: tick {st['decode_tick_s'] * 1e3:.2f} ms "
+        f"(device timer {st['decode_device_s'] * 1e3:.2f} ms, idle share "
+        f"{st['idle_share']:.3f}); prefill {st['prefill_s'] * 1e3:.2f} ms; "
+        f"mean TTFT {st['ttft_mean_s'] * 1e3:.1f} ms; {st['tokens_per_s']:.1f}"
+        f" tokens/s; peak allocated serving "
+        f"{st['serving_peak_bytes'] / 1e9:.2f} GB; {smi}")
+    del eng, qp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return st
+
+
+def recurrent_model_api(launches_total, smi):
+    """Phase 8f's RecurrentGemma-9B through the model API (see
+    :func:`recurrent_phase`)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.recipe import DEFAULT_RECIPE
+    from repro_torch.kernels import _build
+    from repro_torch.models import griffin
+    from repro_torch.models.registry import get_arch, get_model
+    from repro_torch.nn import spec as S
+
+    recipe = DEFAULT_RECIPE
+    cfg = get_arch(RECURRENT_API)
+    api = get_model(cfg)
+    qp, build_s, build_peak, qbytes, certs, summ = build_by_layer(
+        api, cfg, recipe)
+    kinds = griffin.layer_kinds(cfg)
+    log(f"[recurrent] {cfg.name}: {cfg.num_layers} layers "
+        f"({kinds.count('rec')} RG-LRU, {kinds.count('attn')} local "
+        f"attention, window {cfg.window}), d_model {cfg.d_model}, "
+        f"{cfg.num_heads} query heads over {cfg.num_kv_heads} KV head of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{recipe.name} built block by block in {build_s:.1f} s; weights on "
+        f"the card {qbytes / 1e9:.2f} GB; peak allocated while building "
+        f"{build_peak / 1e9:.2f} GB; certificates {summ['certified']} "
+        f"certified / {summ['capped-alpha']} capped / {summ['fallback']} "
+        f"fallback, worst accumulator {summ['worst_frac']:.4f} of 2^31; "
+        f"{smi}")
+    for c in certs:
+        if c.verdict == "capped-alpha":
+            log(f"[recurrent]   {c}")
+    model = api.build(cfg, qp, recipe)
+    rtoks = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (RG_B, RG_PROMPT)), device="cuda")
+    cache = S.materialize(api.cache_specs(cfg, RG_B, RG_MAX_SEQ),
+                          device="cuda")
+    state_mb = sum(t.numel() * t.element_size()
+                   for t in S.leaves(cache)) / 1e6
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        logits = model(rtoks, mode="prefill", cache=cache, pos=0)[0]
+        torch.cuda.synchronize()
+        pre_launches = dict(_build.LAUNCHES)
+        first = logits[:, -1].argmax(-1)
+    check_xattn_launches(f"recurrent {cfg.name} prefill", pre_launches,
+                         recurrent_launches(cfg, "prefill"))
+    saved = [t.clone() for t in S.leaves(cache)]
+    _build.reset_launches()
+    eager, _, eager_ms = rg_greedy(model, cache, first, RG_STEPS, False)
+    torch.cuda.synchronize()
+    dec_launches = dict(_build.LAUNCHES)
+    check_xattn_launches(f"recurrent {cfg.name} eager decode", dec_launches,
+                         recurrent_launches(cfg, "decode"), RG_STEPS)
+    for t, s in zip(S.leaves(cache), saved):
+        t.copy_(s)
+    del saved
+    _build.reset_launches()
+    graph_toks, wall, loop_ms = rg_greedy(model, cache, first, RG_STEPS, True)
+    torch.cuda.synchronize()
+    check_xattn_launches(f"recurrent {cfg.name} warm-up + {RG_STEPS} replays",
+                         _build.LAUNCHES, recurrent_launches(cfg, "decode"),
+                         RG_STEPS + 1)
+    for k in _build.KERNELS:
+        launches_total[k] += (pre_launches[k] + dec_launches[k]
+                              + _build.LAUNCHES[k])
+    if not torch.equal(graph_toks, eager):
+        raise AssertionError(f"recurrent {cfg.name}: the replayed graph's "
+                             "greedy tokens differ from the eager loop's")
+    with torch.inference_mode():
+        train = model(rtoks, mode="train")[0][:, -1]
+    if not torch.equal(train.argmax(-1), first):
+        raise AssertionError(f"recurrent {cfg.name}: the first token is not "
+                             "the argmax of a train-mode forward")
+    del train, logits
+    # one prompt past the window: the ring wraps and the kernel's window
+    # masks keys; its decode steps against a train-mode forward
+    long = torch.tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, RG_LONG + RG_LONG_STEPS)), device="cuda")
+    with torch.inference_mode():
+        c1 = S.materialize(api.cache_specs(cfg, 1, RG_MAX_SEQ),
+                           device="cuda")
+        got = [model(long[:, :RG_LONG], mode="prefill", cache=c1,
+                     pos=0)[0][0, -1]]
+        for s_ in range(RG_LONG_STEPS):
+            got.append(model(long[:, RG_LONG + s_:RG_LONG + s_ + 1],
+                             mode="decode", cache=c1, pos=torch.tensor(
+                                 RG_LONG + s_, device="cuda"))[0][0, 0])
+        ref = model(long, mode="train")[0][0, RG_LONG - 1:]
+    long_rel = max(((g - r).abs().max() / r.abs().max()).item()
+                   for g, r in zip(got, ref))
+    if not long_rel <= PLAIN_LOGIT_REL_TOL:
+        raise AssertionError(f"recurrent {cfg.name}: a {RG_LONG}-token "
+                             f"prefill and {RG_LONG_STEPS} decode steps vs a "
+                             f"train-mode forward: rel {long_rel}")
+    log(f"[check] {cfg.name}: a {RG_LONG}-token prompt (window "
+        f"{cfg.window}: the ring wraps) prefilled, then {RG_LONG_STEPS} "
+        f"decode steps, against a train-mode forward over the "
+        f"{RG_LONG + RG_LONG_STEPS} tokens: logits rel {long_rel:.2e} "
+        f"(<= {PLAIN_LOGIT_REL_TOL})")
+    del c1, got, ref
+    torch.cuda.empty_cache()
+    pos_t = torch.tensor(RG_PROMPT + RG_STEPS, device="cuda")
+    eager_step, step_ms = time_eager_and_graph(
+        lambda: model(first[:, None], mode="decode", cache=cache,
+                      pos=pos_t)[0], reps=5)
+    with torch.inference_mode():
+        prefill_ms = time_eager_ms(
+            lambda: model(rtoks, mode="prefill", cache=cache, pos=0), (),
+            iters=3)
+    peak = torch.cuda.max_memory_allocated()
+    rel, cpu_s = rg_plain_check(api, cfg, qp, recipe, rtoks[:1])
+    prof = profile_recurrent_step(model, lambda: model(
+        first[:, None], mode="decode", cache=cache, pos=pos_t))
+    log_recurrent_profile(cfg.name, prof, (
+        ("_rglru", "RG-LRU gates and scan"),
+        ("_ring_attention", "local-attention decode"),
+        ("logits", "f32 logit head")))
+    sha = hashlib.sha256(str(eager.tolist()).encode()).hexdigest()[:16]
+    st = dict(layers=cfg.num_layers, build_s=build_s,
+              build_peak_bytes=build_peak, weight_bytes=qbytes,
+              certificates=summ, prefill_launches=pre_launches,
+              decode_launches=recurrent_launches(cfg, "decode"),
+              tokens_per_s=RG_B * (RG_STEPS - 1) / wall, loop_s=wall,
+              loop_device_ms=loop_ms, eager_loop_device_ms=eager_ms,
+              step_ms=step_ms, eager_step_ms=eager_step,
+              prefill_ms=prefill_ms, serving_peak_bytes=peak,
+              state_mb=state_mb, long_rel=long_rel, plain=rel,
+              plain_cpu_s=cpu_s, profile=prof, tokens_sha=sha)
+    log(f"[tokens] recurrent {cfg.name}: sha256 {sha}")
+    log(f"[recurrent] {cfg.name}: {RG_B} x {RG_STEPS} greedy tokens, "
+        f"replayed graph == eager loop; {st['tokens_per_s']:.1f} tokens/s "
+        f"of the replayed loop ({wall * 1e3:.1f} ms host, {loop_ms:.2f} ms "
+        f"device); decode step replayed {step_ms:.3f} ms (eager "
+        f"{eager_step:.3f}); prefill {prefill_ms:.2f} ms; weights "
+        f"{qbytes / 1e9:.2f} GB; peak allocated building "
+        f"{build_peak / 1e9:.2f} GB / running {peak / 1e9:.2f} GB; state "
+        f"{state_mb:.1f} MB at {RG_B} rows; launches a prefill "
+        f"{json.dumps(pre_launches)}, a decode step "
+        f"{json.dumps(recurrent_launches(cfg, 'decode'))}; {smi}")
+    del model, cache, qp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return st
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3033,6 +3543,8 @@ def main() -> int:
                                check_config_gemms(gen, rows, XATTN_GEMM_KN))
     errs["flash_attention"] = max(errs["flash_attention"],
                                   check_flash_cross(gen, rows))
+    errs["w4a8_gemm_is"] = max(errs["w4a8_gemm_is"], check_config_gemms(
+        gen, rows, RECURRENT_GEMM_KN))
     for k, v in check_xattn_rows(gen, rows).items():
         errs[k] = max(errs[k], v)
     for k, v in check_grouped(gen, rows).items():
@@ -3243,6 +3755,10 @@ def main() -> int:
     # -- 8e. Llama-3.2-Vision and Whisper-tiny (cross attention) -------------
     xattn_stats = xattn_phase(launches_total, smi)
 
+    # -- 8f. xLSTM-1.3B and RecurrentGemma-9B (the recurrent families) -------
+    recurrent_stats = recurrent_phase(sc, prompts, toks, n0, launches_total,
+                                      smi)
+
     missing = sorted(k for k in _build.KERNELS if launches_total[k] <= 0)
     if missing:
         raise AssertionError(f"kernels never launched on a served path: "
@@ -3311,6 +3827,7 @@ def main() -> int:
         "mixtral": mixtral_stats, "calib": calib_stats,
         "llama3": llama3_stats, "kv8": kv8_stats, "configs": configs_stats,
         "mla": mla_stats, "xattn": xattn_stats,
+        "recurrent": recurrent_stats,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

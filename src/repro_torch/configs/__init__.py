@@ -2,4 +2,5 @@
 arch with the model registry (``repro_torch.models.registry.get_arch``)."""
 from . import (deepseek_v2, granite_34b, llama32_3b,  # noqa: F401
                llama32_vision_90b, minicpm3_4b, mixtral_8x7b, paper_llama,
-               phi35_moe, qwen2_72b, whisper_tiny)
+               phi35_moe, qwen2_72b, recurrentgemma_9b, whisper_tiny,
+               xlstm_1b3)

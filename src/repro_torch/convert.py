@@ -14,10 +14,18 @@ layer ``len(prefix) + r * P + j`` is ``blocks/s{j}`` at repeat r. A VLM
 is ``blocks/s0..s4`` x 20 (four self layers, then a cross one). The
 encoder-decoder (Whisper) keeps ``enc/blocks`` and ``dec/blocks``, each
 stacked with period 1, beside ``enc/final_ln`` and ``dec/{embed, pos,
-final_ln}``; the port holds each as a list of per-layer trees.
+final_ln}``; the port holds each as a list of per-layer trees. The
+recurrent families take their layouts from their own ``_split``
+(:func:`reference_split`): xLSTM's is ``split_layers`` (xlstm-1.3b
+``blocks/s0..s7`` x 6); Griffin's puts the first ``num_layers % 3``
+layers in the prefix and scans whole (rec, rec, attn) patterns after it
+(recurrentgemma-9b ``prefix/0..1`` + ``blocks/s0..s2`` x 12, its 5-layer
+smoke config ``prefix/0..1`` + ``blocks/s0..s2`` x 1, where
+``split_layers`` alone would give ``blocks/s0..s4`` x 1).
 :func:`from_reference` takes the reference tree as numpy arrays — fp or
 quantized — and unstacks it; :func:`to_reference` stacks a port tree back
-into the layout the reference's ``split_layers`` gives its layer kinds.
+into the reference's layout for its layer kinds (a Griffin tree needs its
+config).
 Values are carried bit for bit (``qvalue``, ``scale`` and ``alpha`` included); bf16 arrays (numpy
 dtype ``bfloat16`` from ml_dtypes) are reinterpreted through their 16-bit
 patterns.
@@ -46,18 +54,50 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _kind(b: dict) -> str:
+    if "gate_attn" in b:
+        return "cross"
+    if "wx" in b:
+        return "slstm"
+    if "if_gate" in b:
+        return "mlstm"
+    if "mix" in b:
+        return "rec" if "lru" in b["mix"] else "attn"
+    return "moe" if "router" in b["mlp"] else "self"
+
+
 def layer_kinds_of(blocks: list) -> list[str]:
     """The layer kinds of a port param or spec tree's ``blocks``: "cross"
-    where the block has a gate, "moe" where its MLP has a router, else
-    "self"."""
-    return ["cross" if "gate_attn" in b else
-            "moe" if "router" in b["mlp"] else "self" for b in blocks]
+    where the block has a gate, "moe" where its MLP has a router, "self"
+    for another transformer block; "mlstm" / "slstm" (xLSTM) and "rec" /
+    "attn" (Griffin's RG-LRU and local attention), as the reference's
+    ``layer_kinds`` name them."""
+    return [_kind(b) for b in blocks]
 
 
-def scan_repeats(kinds: list[str]) -> list[int]:
+def reference_split(kinds: list[str], cfg=None):
+    """(prefix kinds, pattern kinds, repeats) of the reference's layout for
+    these layer kinds: Griffin's own split for a hybrid ``cfg`` (which a
+    Griffin tree needs), else ``split_layers`` (xLSTM's ``_split`` is
+    ``split_layers`` too)."""
+    griffin = {"rec", "attn"} & set(kinds)
+    if cfg is not None and cfg.family == "hybrid":
+        from repro_torch.models import griffin as G
+
+        if kinds != G.layer_kinds(cfg):
+            raise ValueError(f"{cfg.name}: layer kinds {kinds} are not the "
+                             "config's")
+        return G.split(cfg)
+    if griffin:
+        raise ValueError("Griffin's layout depends on its block pattern: "
+                         "pass its config")
+    return split_layers(kinds)
+
+
+def scan_repeats(kinds: list[str], cfg=None) -> list[int]:
     """Each layer's repeat index in the reference's layout (0 for a prefix
     layer): the seed the reference's PTQ gives a stacked linear."""
-    prefix, pattern, R = split_layers(kinds)
+    prefix, pattern, R = reference_split(kinds, cfg)
     return [0] * len(prefix) + [r for r in range(R) for _ in pattern]
 
 
@@ -98,9 +138,10 @@ def _stack(blocks: list):
                       *blocks)
 
 
-def to_reference(params: dict) -> dict:
+def to_reference(params: dict, cfg=None) -> dict:
     """Port tree -> the reference's layout as numpy (bf16 leaves as f32
-    arrays holding the same values)."""
+    arrays holding the same values). ``cfg``: the model's config, which
+    a Griffin tree needs (:func:`reference_split`)."""
     if "enc" in params:
         return {part: {k: _stack(v) if k == "blocks" else
                        S.tree_map(_to_numpy, v) for k, v in sub.items()}
@@ -108,7 +149,7 @@ def to_reference(params: dict) -> dict:
     out = {k: S.tree_map(_to_numpy, v)
            for k, v in params.items() if k != "blocks"}
     blocks = params["blocks"]
-    prefix, pattern, R = split_layers(layer_kinds_of(blocks))
+    prefix, pattern, R = reference_split(layer_kinds_of(blocks), cfg)
     n, P = len(prefix), len(pattern)
     if prefix:
         out["prefix"] = {str(i): S.tree_map(_to_numpy, blocks[i])

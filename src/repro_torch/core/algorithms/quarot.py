@@ -38,5 +38,15 @@ def quarot_quantize(
     gs = group_size if group_size > 0 else K
     if rot is None:
         rot = random_orthogonal(K, seed, w.device)
-    codes, scales = _rtn(rot.T @ w, bits, gs)
+    codes, scales = _rtn(_rotate(rot, w), bits, gs)
     return codes, scales, rot
+
+
+def _rotate(rot: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """rot.T @ w in f32. On the CPU it is numpy's product, the reference's:
+    PyTorch's CPU matmul (MKL) and numpy's (OpenBLAS) sum in other orders
+    at some K (384 among them), which moves codes at rounding ties. On the
+    card, the device's matmul."""
+    if w.device.type == "cpu":
+        return torch.from_numpy(rot.detach().numpy().T @ w.detach().numpy())
+    return rot.T @ w

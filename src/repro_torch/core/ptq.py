@@ -137,11 +137,12 @@ def quantize_one(w: torch.Tensor, x: torch.Tensor | None, spec: QuantSpec,
 
 
 def _quantize(fp_node, spec_node, path: str, recipe: QuantRecipe,
-              captured: dict, seed: int, cache: dict):
+              captured: dict, seed: int, cache: dict, cfg=None):
     """Walk ``spec_node`` with ``fp_node``; quantize every node declared as
     a quantized linear (2-D with its captured rows and ``seed``, or an
     expert stack without rows, expert e with ``seed * E + e``), its
-    certificates labelled with its path."""
+    certificates labelled with its path. ``cfg`` gives a list of blocks
+    its seeds (:func:`_block_seeds`)."""
     if isinstance(spec_node, dict) and "qvalue" in spec_node:
         from repro_torch.analysis import certify
 
@@ -159,23 +160,24 @@ def _quantize(fp_node, spec_node, path: str, recipe: QuantRecipe,
             return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
     if isinstance(spec_node, dict):
         return {k: _quantize(fp_node[k], v, f"{path}/{k}" if path else k,
-                             recipe, captured, seed, cache)
+                             recipe, captured, seed, cache, cfg)
                 for k, v in spec_node.items()}
     if isinstance(spec_node, list):  # blocks: block i's seed (see below)
-        seeds = _block_seeds(spec_node)
+        seeds = _block_seeds(spec_node, cfg)
         return [_quantize(f, v, f"{path}/{i}", recipe, captured, seeds[i],
                           {})
                 for i, (f, v) in enumerate(zip(fp_node, spec_node))]
     return fp_node
 
 
-def _block_seeds(block_specs: list) -> list[int]:
+def _block_seeds(block_specs: list, cfg: ModelConfig | None) -> list[int]:
     """Each block's PTQ seed: its repeat index in the reference's layout
-    (``convert.scan_repeats``), which seeds the reference's stacked
-    linears; a prefix block's is 0, as the reference's unstacked linears."""
+    for ``cfg`` (``convert.scan_repeats``: Griffin's own split for a
+    hybrid config), which seeds the reference's stacked linears; a prefix
+    block's is 0, as the reference's unstacked linears."""
     from repro_torch import convert
 
-    return convert.scan_repeats(convert.layer_kinds_of(block_specs))
+    return convert.scan_repeats(convert.layer_kinds_of(block_specs), cfg)
 
 
 @contextlib.contextmanager
@@ -230,7 +232,8 @@ def post_training_quantize(api: ModelApi, cfg: ModelConfig, fp_params: Any,
     if needs_calib and calib_batches:
         captured = collect_calibration(api, cfg, fp_params, calib_batches)
     with _ptq_run():
-        return _quantize(fp_params, qspec_tree, "", recipe, captured, 0, {})
+        return _quantize(fp_params, qspec_tree, "", recipe, captured, 0, {},
+                         cfg)
 
 
 def _require_blocks(cfg: ModelConfig, specs: dict) -> None:
@@ -278,7 +281,7 @@ def quantize_by_layer(api: ModelApi, cfg: ModelConfig, recipe: QuantRecipe,
     calibration algorithms quantize RTN."""
     qspecs = api.param_specs(cfg, recipe)
     _require_blocks(cfg, qspecs)
-    seeds = _block_seeds(qspecs["blocks"])
+    seeds = _block_seeds(qspecs["blocks"], cfg)
     out: dict = {}
     with _ptq_run():
         for i, fp in _fp_by_layer(api, cfg, seed, device):

@@ -26,8 +26,14 @@
 //   bf16 alone moved outputs of magnitude 2 to 4 by a bf16 ulp (0.0156),
 //   near the 2e-2 bound, and one of magnitude 4 to 8 would cross it. Query
 //   tiles run latest first, as the causal ones do the most work.
+//   At head_dim 256 (RecurrentGemma's local attention) the Q fragments
+//   would take 64 registers a thread beside the 128 of the output
+//   accumulator: there they are reloaded from shared memory by ldmatrix
+//   for each key tile instead of kept in registers (Q stays in shared
+//   memory for the whole block anyway; 152,064 B of it at D = 256).
 // f32 inputs keep the first design: scalar f32 FMAs from shared memory,
-//   one block per (batch * query head, 64-row query tile).
+//   one block per (batch * query head, 64-row query tile) (213,504 B of
+//   shared memory at D = 256).
 // Both keep the TPU kernel's semantics: masked scores are NEG_INF = -1e30
 //   (not -inf), padded keys are masked by k_pos < sk, query head r reads kv
 //   head r / G, key tiles wholly past the causal diagonal or before the
@@ -320,7 +326,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   const float sl2 = scale * LOG2E;  // scores in the log2 domain
   const int qr0 = q0 + warp * 16 + g, qr1 = qr0 + 8;  // this thread's rows
-  uint32_t qf[D / 16][4];
+  // Q's fragments in registers up to D = 128; reloaded per key tile above
+  constexpr bool kQInRegs = D <= 128;
+  uint32_t qf[kQInRegs ? D / 16 : 1][4];
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
   float acc[D / 8][4];
 #pragma unroll
@@ -336,9 +344,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     cp_commit();
     cp_wait<1>();
     __syncthreads();  // this key tile (and Q) landed for every thread
-    if (kt == kt_begin) {
+    if (kQInRegs && kt == kt_begin) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < (kQInRegs ? D / 16 : 0); ++kk) {
         ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * ST + kk * 16 +
                             (lane >> 4) * 8);
       }
@@ -355,13 +363,18 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      if constexpr (!kQInRegs) {
+        ldsm_x4(qf[0], Qs + (warp * 16 + (lane & 15)) * ST + kk * 16 +
+                           (lane >> 4) * 8);
+      }
+      const uint32_t(&qa)[4] = qf[kQInRegs ? kk : 0];
 #pragma unroll
       for (int j2 = 0; j2 < TK / 16; ++j2) {
         uint32_t bk[4];  // keys 16 j2 .. +7 and +8 .. +15
         ldsm_x4(bk, Kt + (j2 * 16 + (lane >> 4) * 8 + (lane & 7)) * ST +
                         kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * j2], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * j2 + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(s[2 * j2], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * j2 + 1], qa, bk[2], bk[3]);
       }
     }
 
@@ -485,20 +498,24 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), o (B, Sq, Hq, D); all contiguous,
-// one dtype: bf16 (is_bf16 = 1) or f32. D is 32, 64 or 128; Hq % Hkv == 0.
+// one dtype: bf16 (is_bf16 = 1) or f32. D is 32, 64, 128 or 256;
+// Hq % Hkv == 0.
 // window < 0 means no window. Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int is_bf16,
                                       int B, int Sq, int Sk, int Hq, int Hkv,
                                       int D, float scale, int causal,
                                       int window, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || (D != 32 && D != 64 && D != 128)) {
+  if (Hkv <= 0 || Hq % Hkv != 0 ||
+      (D != 32 && D != 64 && D != 128 && D != 256)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     switch (D) {
+      case 256:
+        return launch_tc<256>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
       case 128:
         return launch_tc<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
       case 64:
@@ -508,6 +525,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     }
   }
   switch (D) {
+    case 256:
+      return launch<float, 256>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
     case 128:
       return launch<float, 128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
     case 64:

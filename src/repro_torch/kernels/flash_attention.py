@@ -22,7 +22,7 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)  # head_dims the kernel is instantiated for
+HEAD_DIMS = (32, 64, 128, 256)  # head_dims the kernel is instantiated for
 #: max |kernel - plain| for bf16 outputs (one bf16 ulp at |x|~2 is 1.6e-2)
 TOLERANCE = 2e-2
 

@@ -9,6 +9,13 @@ continuous-batching engine over a stream of requests. Port of
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch mixtral-8x7b --smoke                # MoE, plain versions
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch xlstm-1.3b --smoke                  # recurrent, plain versions
+
+The engine refuses the VLM and Whisper (they read a ``memory`` it does not
+pass) and RecurrentGemma (its decode takes one scalar position, the
+engine's one per slot), as the reference's cannot serve them either; the
+CLI exits with the reason before building anything.
 
 The recipe flags (``--scale-mode``, ``--w-bits``, ``--a-bits``,
 ``--group``, ``--amplifier``, ``--algo``, ``--fp``) choose among the
@@ -66,8 +73,7 @@ from repro_torch.core import ptq
 from repro_torch.core.recipe import QuantRecipe, QuantSpec
 from repro_torch.data.pipeline import (DataConfig, SyntheticPipeline,
                                        calib_batches)
-from repro_torch.serving.engine import (MEMORY_FAMILIES, Engine,
-                                        ServeConfig, memory_refusal)
+from repro_torch.serving.engine import Engine, ServeConfig, refusal
 
 
 def _load_model(arch: str, smoke: bool, device: str, recipe):
@@ -79,8 +85,9 @@ def _load_model(arch: str, smoke: bool, device: str, recipe):
     from repro_torch.models.registry import get_arch, get_model
 
     cfg = bench_lm() if arch == "bench-lm" else get_arch(arch, smoke=smoke)
-    if cfg.family in MEMORY_FAMILIES:  # before building anything
-        raise SystemExit(memory_refusal(cfg))
+    why = refusal(cfg)
+    if why is not None:  # before building anything
+        raise SystemExit(why)
     api = get_model(cfg)
     if recipe is None:
         params = ptq.materialize_by_layer(api, cfg, device=device)

@@ -1,10 +1,9 @@
-"""Model configuration. Port of ``repro/models/config.py``, cut to the
-families the port runs: dense and MoE with GQA or MLA attention, the VLM
-(cross-attention layers every ``cross_attn_every``-th layer) and the
-encoder-decoder ("audio", Whisper). The recurrent families' fields come
-with their slice. The MoE field that belongs to a later slice (the int8
-dispatch all-to-all: multi-GPU) raises ``NotImplementedError`` when
-set."""
+"""Model configuration. Port of ``repro/models/config.py``: dense and MoE
+with GQA or MLA attention, the VLM (cross-attention layers every
+``cross_attn_every``-th layer), the encoder-decoder ("audio", Whisper),
+xLSTM ("ssm") and RecurrentGemma / Griffin ("hybrid"). The MoE field
+that belongs to a later slice (the int8 dispatch all-to-all: multi-GPU)
+raises ``NotImplementedError`` when set."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,7 +18,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: Literal["dense", "moe", "vlm", "audio"]
+    family: Literal["dense", "moe", "vlm", "ssm", "hybrid", "audio"]
     num_layers: int
     d_model: int
     num_heads: int
@@ -58,6 +57,18 @@ class ModelConfig:
     # -- VLM (Llama-3.2-Vision) -------------------------------------------------
     cross_attn_every: int = 0       # every k-th layer is cross-attention
     num_image_tokens: int = 0
+
+    # -- hybrid (RecurrentGemma / Griffin) ------------------------------------
+    block_pattern: tuple[str, ...] = ()  # e.g. ("rec", "rec", "attn")
+    window: int = 2048                   # local-attention window
+    conv_width: int = 4
+    lru_c: float = 8.0
+
+    # -- xLSTM ----------------------------------------------------------------
+    slstm_every: int = 8            # every k-th block is sLSTM (7:1 ratio)
+    mlstm_proj_factor: float = 2.0
+    chunk_size: int = 256           # mLSTM chunkwise-parallel chunk
+    mlstm_impl: str = "scan"        # "scan" (exact recurrence) | "chunked"
 
     # -- encoder-decoder (Whisper) ----------------------------------------------
     is_encoder_decoder: bool = False

@@ -27,12 +27,14 @@ class ModelApi:
 def get_model(cfg: ModelConfig) -> ModelApi:
     if cfg.family in ("dense", "moe", "vlm"):
         mod = importlib.import_module("repro_torch.models.transformer")
+    elif cfg.family == "ssm":
+        mod = importlib.import_module("repro_torch.models.xlstm")
+    elif cfg.family == "hybrid":
+        mod = importlib.import_module("repro_torch.models.griffin")
     elif cfg.family == "audio":
         mod = importlib.import_module("repro_torch.models.encdec")
     else:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, moe, vlm and "
-            "audio only)")
+        raise ValueError(f"unknown family {cfg.family}")
     return ModelApi(mod.param_specs, mod.cache_specs, mod.build)
 
 

@@ -73,7 +73,11 @@ which raises on a double retire, so ``sum(engine_request_outcomes_total)
   place (``models/attention.py``), where the reference commits a new
   cache only on success. A retried decode writes the same K/V at the same
   positions, so a retry is idempotent (and so is the warm-up call before
-  a capture).
+  a capture). A recurrent state (xLSTM) is advanced, not overwritten: the
+  decode step's warm-up restores it (``graphs.Step(state=)``), and a
+  decode that raises part of the way through its layers leaves them
+  advanced (the reference's would be discarded); a failure injected
+  before the step, as ``serving.chaos`` injects it, leaves it whole.
 * **Tick watchdog**: a ``distributed.fault.Heartbeat`` on the registry
   clock times every decode tick; stragglers (> ``slow_tick_factor`` x the
   rolling median) bump ``engine_slow_ticks_total`` and emit a
@@ -81,6 +85,19 @@ which raises on a double retire, so ``sum(engine_request_outcomes_total)
 
 Fault injection for all of the above lives in ``repro_torch.serving.chaos``
 (through :meth:`Engine.add_decode_wrapper`).
+
+Recurrent models
+----------------
+The xLSTM ("ssm") serves with the reference's semantics: each prefill
+starts from a zero state (the step zeroes its batch-1 cache before the
+model reads it) and runs over the prompt padded with token 0 to
+``prefill_len``, so the state that decode starts from has read the pad
+tokens too; the first token is taken at the prompt's true end. Decode
+does not read the positions. Griffin ("hybrid") is refused: the engine
+decodes every slot at its own position, as the reference's does, and
+Griffin's ring-buffer write takes one scalar position (the reference's
+engine fails there at its first decode). So are the families that read a
+``memory`` the engine does not pass (:func:`refusal`).
 
 MoE routing
 -----------
@@ -160,13 +177,25 @@ class ServeConfig:
 
 #: families whose model reads a ``memory`` the engine does not pass
 MEMORY_FAMILIES = ("vlm", "audio")
+#: families whose decode takes one scalar position, not one per slot
+SCALAR_POSITION_FAMILIES = ("hybrid",)
 
 
-def memory_refusal(cfg: ModelConfig) -> str:
-    return (f"{cfg.name}: the {cfg.family} family reads image or frame "
-            "embeddings (memory=) that the engine does not pass, as the "
-            "reference's does not; run it through the model API "
-            "(prefill with memory=, then decode over the cache)")
+def refusal(cfg: ModelConfig) -> str | None:
+    """Why the engine cannot serve ``cfg`` (None: it can)."""
+    if cfg.family in MEMORY_FAMILIES:
+        return (f"{cfg.name}: the {cfg.family} family reads image or frame "
+                "embeddings (memory=) that the engine does not pass, as "
+                "the reference's does not; run it through the model API "
+                "(prefill with memory=, then decode over the cache)")
+    if cfg.family in SCALAR_POSITION_FAMILIES:
+        return (f"{cfg.name}: the {cfg.family} family (Griffin) decodes at "
+                "one scalar position, since its ring-buffer KV write takes "
+                "one slot, and the engine decodes each slot at its own "
+                "position, as the reference's does (which fails there); run "
+                "it through the model API (prefill, then decode at a "
+                "scalar pos)")
+    return None
 
 
 @dataclasses.dataclass
@@ -185,8 +214,9 @@ class Engine:
     def __init__(self, api: ModelApi, cfg: ModelConfig, params: Any,
                  serve_cfg: ServeConfig, recipe=None, *,
                  fallback_params: Any = None, fallback_recipe=None):
-        if cfg.family in MEMORY_FAMILIES:
-            raise NotImplementedError(memory_refusal(cfg))
+        why = refusal(cfg)
+        if why is not None:
+            raise NotImplementedError(why)
         self.engine_id = f"eng{next(Engine._ids)}"
         self.api = api
         self.cfg = cfg
@@ -285,8 +315,13 @@ class Engine:
         # batch-1 cache's first prefill_len positions, so the rest stay
         # zero and the splice clears the slot's rows past the prompt: no
         # stale value (a quarantined request's NaN) reaches the masked
-        # terms of decode_attention.
+        # terms of decode_attention. The batch-1 cache is zeroed first:
+        # a recurrent state is read by the prefill, which starts from
+        # zeros, as the reference's (a KV cache's zeros change nothing).
         def prefill_fn():
+            for one in cache1["blocks"]:
+                for t in one.values():
+                    t.zero_()
             logits = model(tokens1, mode="train", cache=cache1, pos=0)[0]
             for big, one in zip(cache["blocks"], cache1["blocks"]):
                 for k, t in big.items():
@@ -308,10 +343,12 @@ class Engine:
         def decode_fn():
             return model(tokens, mode="decode", cache=cache, pos=pos)[0][:, 0]
 
+        # a recurrent cache is advanced by every call, the warm-up's too
         self._decode_step = graphs.Step(
             decode_fn, self.device, pool=pool,
             on_establish=lambda: self._note_trace("decode"),
-            on_replay=self._on_replayed_routing)
+            on_replay=self._on_replayed_routing,
+            state=S.leaves(cache) if self.cfg.family == "ssm" else ())
         self._decode_base = obs.device_timer(
             self._decode_step, "engine_phase_device_seconds",
             help="device time (synchronize-bracketed) per engine phase",

@@ -28,6 +28,10 @@ What a replay keeps true:
   once per trace.
 * The returned output is the graph's static output buffer, overwritten
   by the next replay: the caller consumes it first.
+* ``state``: tensors that ``fn`` reads and advances in place (a recurrent
+  cache, where a second call is not a repeat of the first) are cloned
+  before the warm-up and copied back after it, so the first call moves
+  them one step, as every later one does.
 
 A call that raises drops the step's graph. The next call establishes the
 step again, and ``on_establish`` counts each establishment.
@@ -46,10 +50,11 @@ class Step:
     CUDA device and replayed after, eager on the CPU (module docstring)."""
 
     def __init__(self, fn, device: torch.device, *, pool=None,
-                 on_establish=None, on_replay=None):
+                 on_establish=None, on_replay=None, state=()):
         self.fn = fn
         self.device = device
         self.pool = pool
+        self.state = list(state)
         self._on_establish = on_establish or (lambda: None)
         self._on_replay = on_replay or (lambda records: None)
         self.release()
@@ -91,12 +96,16 @@ class Step:
 
     def _capture(self) -> None:
         here = torch.cuda.current_stream(self.device)
+        saved = [t.clone() for t in self.state]
         with obs.use_registry(obs.Registry()), moe.hold_routing():
             side = torch.cuda.Stream(self.device)
             side.wait_stream(here)
             with torch.cuda.stream(side):
                 self.fn()
             here.wait_stream(side)
+        for t, s in zip(self.state, saved):
+            t.copy_(s)
+        del saved
         before = dict(_build.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         try:

@@ -65,6 +65,15 @@ equal to the CPU bit for bit; act_quant at those rows; both smoke models
 on the card against the CPU (a prefill with memory, then a decode step;
 5e-2 of the largest logit); and their decode replayed as a CUDA graph
 equal to the eager loop.
+
+The recurrent families (xLSTM, RecurrentGemma): flash attention at head
+dim 256 (bf16 and f32, causal with and without a window) within
+``TOLERANCE``; the IS GEMM and act_quant bit-exact at their widths; both
+smoke models on the card against the CPU (a prefill, then a decode step;
+5e-2 of the largest logit); their decode replayed as a CUDA graph
+(``serving.graphs.Step`` restoring the state its warm-up advanced) equal
+to the eager loop; and the xLSTM engine, one slot reused, equal to the
+eager greedy loop.
 """
 import numpy as np
 import pytest
@@ -1801,3 +1810,161 @@ def test_xattn_graph_replayed_decode_equals_the_eager_loop(cuda, arch):
                 assert dict(_build.LAUNCHES) == before
         runs.append(torch.stack(seq, 1).cpu())
     assert torch.equal(runs[0], runs[1])
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families
+# ---------------------------------------------------------------------------
+
+RECURRENT_FLASH = [  # (B, S, Hq, Hkv, window): RecurrentGemma's heads of 256
+    (1, 128, 16, 1, None), (1, 300, 16, 1, 64), (2, 77, 4, 1, 16),
+    (1, 200, 4, 2, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,Hq,Hkv,window", RECURRENT_FLASH)
+def test_flash_kernel_at_head_dim_256(cuda, dtype, B, S, Hq, Hkv, window):
+    """bf16 reloads Q's fragments from shared memory for each key tile
+    (they stay in registers up to 128); f32 takes the scalar kernel."""
+    q, k, v = (_normal(i, (B, S, h, 256), 1.0, cuda).to(dtype)
+               for i, h in enumerate((Hq, Hkv, Hkv)))
+    before = _build.LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, window=window)
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    ref = flash_attention_plain(q, k, v, window=window)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= TOLERANCE
+    assert torch.equal(out, flash_attention(q, k, v, window=window))
+
+
+# (K, N) of the recurrent families' linears: RecurrentGemma's
+# gate_proj / x_proj / out_proj / q / o, gate / up, down, single-head k / v;
+# xLSTM's up and wx, down, the sLSTM's ff_gate / ff_up and ff_down
+RECURRENT_WIDTHS = [(4096, 4096), (4096, 12288), (12288, 4096), (4096, 256),
+                    (2048, 8192), (4096, 2048), (2048, 2816), (2816, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", RECURRENT_WIDTHS)
+@pytest.mark.parametrize("M", [4, 128])
+def test_is_gemm_bit_exact_at_recurrent_widths(cuda, M, K, N):
+    """K = 2816 is 22 groups of 128: the launch plan's K split must divide
+    them."""
+    test_is_gemm_bit_exact_at_new_widths(cuda, M, K, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [2048, 2816, 4096, 12288])
+@pytest.mark.parametrize("M", [4, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_act_quant_bit_exact_at_recurrent_widths(cuda, M, K, dtype):
+    x = _normal(K, (M, K), 3.0, cuda).to(dtype)
+    q, s = act_quant(x)
+    q_p, s_p = act_quant_plain(x)
+    assert torch.equal(q, q_p) and torch.equal(s, s_p)
+
+
+_RECURRENT = {}
+
+
+def _recurrent_model(arch, device):
+    """The smoke ``arch`` under W4A8-IS, built block by block on the CPU
+    from seed 0: (api, cfg, params on ``device``)."""
+    if arch not in _RECURRENT:
+        from repro_torch.core import ptq
+        from repro_torch.core.recipe import DEFAULT_RECIPE
+        from repro_torch.models.registry import get_arch, get_model
+
+        cfg = get_arch(arch, smoke=True)
+        api = get_model(cfg)
+        _RECURRENT[arch] = (api, cfg, ptq.quantize_by_layer(
+            api, cfg, DEFAULT_RECIPE, device="cpu"))
+    api, cfg, qp = _RECURRENT[arch]
+    return api, cfg, S.tree_map(lambda t: t.to(device), qp)
+
+
+def _recurrent_tokens(cfg, B, P, device):
+    return torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, P))).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "recurrentgemma-9b"])
+def test_recurrent_smoke_model_on_the_card_matches_the_cpu(cuda, arch):
+    """A prefill of 40 tokens (past Griffin's window of 16) into the
+    state, then two decode steps at a 0-d position: the card's logits
+    within 5e-2 of the largest CPU logit."""
+    from repro_torch.core.recipe import DEFAULT_RECIPE
+
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        api, cfg, qp = _recurrent_model(arch, dev)
+        model = api.build(cfg, qp, DEFAULT_RECIPE)
+        cache = S.materialize(api.cache_specs(cfg, 2, 64), device=dev)
+        toks = _recurrent_tokens(cfg, 2, 40, dev)
+        with torch.inference_mode():
+            got = [model(toks, mode="prefill", cache=cache, pos=0)[0]]
+            for p in (40, 41):
+                got.append(model(toks[:, p - 40:p - 39], mode="decode",
+                                 cache=cache,
+                                 pos=torch.tensor(p, device=dev))[0])
+        outs.append([g.cpu() for g in got])
+    for a, b in zip(*outs):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "recurrentgemma-9b"])
+def test_recurrent_graph_replayed_decode_equals_the_eager_loop(cuda, arch):
+    """Greedy decode after a prefill: the decode step as a
+    ``serving.graphs.Step`` (a warm-up whose advance of the state is
+    undone, one capture, then replays) gives the eager loop's tokens."""
+    from repro_torch.core.recipe import DEFAULT_RECIPE
+    from repro_torch.serving.graphs import Step
+
+    api, cfg, qp = _recurrent_model(arch, cuda)
+    model = api.build(cfg, qp, DEFAULT_RECIPE)
+    B, P, steps = 2, 20, 8
+    runs = []
+    for graph in (False, True):
+        cache = S.materialize(api.cache_specs(cfg, B, 64), device=cuda)
+        toks = _recurrent_tokens(cfg, B, P, cuda)
+        with torch.inference_mode():
+            first = model(toks, mode="prefill", cache=cache,
+                          pos=0)[0][:, -1].argmax(-1)
+            tok = first[:, None].clone()
+            pos = torch.tensor(P, device=cuda)
+
+            def step():
+                return model(tok, mode="decode", cache=cache,
+                             pos=pos)[0][:, 0].argmax(-1)
+
+            run = Step(step, cuda, state=S.leaves(cache)) if graph else step
+            seq = [first]
+            for _ in range(steps):
+                nxt = run()
+                seq.append(nxt.clone())
+                tok.copy_(nxt[:, None])
+                pos.add_(1)
+            if graph:
+                assert run.captured
+        runs.append(torch.stack(seq, 1).cpu())
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_xlstm_engine_reusing_one_slot_equals_the_eager_loop(cuda):
+    """One slot reused by prompts shorter than ``prefill_len``: each
+    prefill starts from a zero state inside the captured step, and the
+    decode graph's warm-up leaves the state where it found it."""
+    from repro_torch.core.recipe import DEFAULT_RECIPE
+
+    api, cfg, qp = _recurrent_model("xlstm-1.3b", cuda)
+    prompts = _engine_prompts(cfg, n=3)
+    sc = ServeConfig(max_slots=1, max_seq=64, prefill_len=16,
+                     max_new_tokens=6)
+    eng, outs = _serve(api, cfg, qp, DEFAULT_RECIPE, prompts, sc)
+    assert eng.decode_traces == eng.prefill_traces == 1
+    assert outs == eager_greedy(api, cfg, eng.model, prompts, sc)
+

@@ -263,7 +263,10 @@ def test_port_imports_and_runs_without_jax_or_repro():
         " 'repro_torch.distributed.fault', 'repro_torch.data.pipeline',"
         " 'repro_torch.kernels.w4a8_gemm_fscale',"
         " 'repro_torch.kernels.w4a16_gemm', 'repro_torch.kernels.moe_gemm',"
-        " 'repro_torch.models.moe', 'repro_torch.configs.mixtral_8x7b'}"
+        " 'repro_torch.models.moe', 'repro_torch.configs.mixtral_8x7b',"
+        " 'repro_torch.models.xlstm', 'repro_torch.models.griffin',"
+        " 'repro_torch.configs.xlstm_1b3',"
+        " 'repro_torch.configs.recurrentgemma_9b'}"
         " <= set(mods), mods",
         "from repro_torch.models.config import ModelConfig",
         "from repro_torch.models.registry import get_model",
