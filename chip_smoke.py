@@ -278,9 +278,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    one of 256 (1 x 128, and 1 x 4096 with the window of 2048; bf16 and
    f32), act_quant at K = 2048 and 2816, the IS GEMM at
    ``RECURRENT_GEMM_KN``.
-9. Print the ``kernels`` JSON line (the eight kernels, launches summed
-   over every served path; the five qlint fixtures, launches from their
-   run in phase 2b), then the result line
+8g. ``[train]``: training (:func:`train_phase`). ``llama3.2-3b`` at
+   full width and all 28 layers, bf16, remat on, the reference's AdamW
+   defaults, 6 steps of 4 x 1024 synthetic tokens through
+   ``launch.train.train_loop``: per-step ms by CUDA events (the first
+   apart), tokens/s, peak memory, losses and grad norms (finite), the
+   host's batch time apart; launches exactly 2 flash forwards (remat
+   recomputes) and 1 flash backward a layer and step; ``grad_accum=2``
+   against 1 on one batch; one step profiled (flash forward, flash
+   backward, GEMMs, the f32 logit head, AdamW, the rest). Its first 2
+   layers at full width on the card against the CPU (loss 1e-2, each
+   leaf's gradient 5e-2). The restart drill on ``bench-lm-30m`` (f32):
+   resumed params equal the uninterrupted run's (rtol 1e-5 / atol 1e-6;
+   bit-equality printed), the loss at most 0.8 of its first step, the
+   eval loss under fp, W4A8 IS and FS printed. Phase 3 runs the flash
+   backward kernel first (``FLASH_BWD``: llama3.2-3b's step, the bench
+   LM's heads of 64 in f32, a window, non-causal Sq != Sk) against its
+   plain version (``BWD_REL_TOLERANCE``), bit-repeatable, timed beside
+   the plain version and SDPA's backward.
+9. Print the ``kernels`` JSON line (the nine kernels, launches summed
+   over every served and training path; the five qlint fixtures,
+   launches from their run in phase 2b), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Per-shape and per-recipe numbers also go to ``build/chip_smoke.json``.
@@ -455,6 +473,27 @@ RG_PLAIN_CHECK_LAYERS = 3
 # down, the sLSTM's ff_gate / ff_up and ff_down: K = 2816 is 22 groups)
 RECURRENT_GEMM_KN = ((4096, 12288), (12288, 4096), (4096, 256),
                      (2048, 8192), (4096, 2048), (2048, 2816), (2816, 2048))
+# phase 3, the flash-attention backward kernel (B, Sq, Sk, Hq, Hkv, D,
+# causal, window, dtype): phase 8g's llama3.2-3b step, the bench LM's heads
+# of 64 in f32, a window across key tiles, non-causal with Sq != Sk
+FLASH_BWD = ((4, 1024, 1024, 24, 8, 128, True, None, "bfloat16"),
+             (8, 256, 256, 8, 8, 64, True, None, "float32"),
+             (2, 1024, 1024, 8, 2, 128, True, 256, "bfloat16"),
+             (2, 256, 1024, 8, 2, 64, False, None, "bfloat16"))
+# phase 8g: training. llama3.2-3b at full width and depth, bf16, remat on,
+# the reference's AdamWConfig defaults, TRAIN_STEPS steps of TRAIN_B x
+# TRAIN_S synthetic tokens through launch.train.train_loop; then its first
+# TRAIN_CPU_LAYERS layers at full width against the CPU on TRAIN_CPU_B x
+# TRAIN_CPU_S tokens; then the restart drill on bench-lm-30m (f32)
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_B, TRAIN_S = "llama3.2-3b", 6, 4, 1024
+TRAIN_CPU_LAYERS, TRAIN_CPU_B, TRAIN_CPU_S = 2, 2, 128
+TRAIN_CPU_LOSS_REL, TRAIN_CPU_GRAD_REL = 1e-2, 5e-2
+# grad_accum=2 against grad_accum=1 on one batch (lr 0, so both read the
+# same params): the same mean over the same tokens, bf16 products over
+# other row counts (loss); bf16 gradients summed in f32 (grad norm)
+TRAIN_ACCUM_LOSS_REL, TRAIN_ACCUM_NORM_REL = 1e-3, 1e-2
+DRILL_STEPS, DRILL_CKPT_EVERY, DRILL_FAIL_AT = 40, 10, 25
+DRILL_LOSS_RATIO = 0.8
 
 
 def log(*a):
@@ -930,6 +969,83 @@ def check_flash_cross(gen, rows):
                          shape=shape, ms=ms, plain_ms=pms, max_abs_diff=e,
                          bound_ms=b, bound_by=by, library_ms=lib,
                          bf16_matmul_ms=None))
+    return err
+
+
+def check_flash_bwd(gen, rows):
+    """The flash-attention backward kernel at ``FLASH_BWD``: dq, dk and dv
+    within ``BWD_REL_TOLERANCE`` x max |plain| of its plain version on the
+    same inputs and the forward kernel's lse, the same bits from a second
+    call, timed as a replayed graph beside the plain version and beside
+    SDPA's backward (eager, between CUDA events: autograd's backward of a
+    forward made outside a capture cannot be captured) as the library
+    call. Bound: the five products of the backward (S, dP, dV, dK, dQ)
+    over the unmasked pairs at the dense peak of the inputs' type, or
+    the bytes (q, k, v, o, dO, lse read; dq, dk, dv written). Returns the
+    max abs diff."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        BWD_REL_TOLERANCE, _mask, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_fwd)
+
+    err = 0.0
+    for B, Sq, Sk, Hq, Hkv, D, causal, win, dtype in FLASH_BWD:
+        dt = getattr(torch, dtype)
+        shape = [B, Sq, Hq, D]
+        q = torch.randn((B, Sq, Hq, D), generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda"
+                            ).to(dt) for _ in range(2))
+        do = torch.randn((B, Sq, Hq, D), generator=gen, device="cuda").to(dt)
+        kw = dict(causal=causal, window=win)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        e = 0.0
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            ge = (g.float() - w.float()).abs().max().item()
+            limit = BWD_REL_TOLERANCE[dt] * w.float().abs().max().item()
+            if not ge <= limit:
+                raise AssertionError(f"flash bwd {shape} {dt} {name}: max "
+                                     f"abs {ge} > {limit}")
+            e = max(e, ge)
+        again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash bwd {shape}: two launches gave "
+                                 "different bits")
+        err = max(err, e)
+        args = [(q, k, v, o, lse, do)]
+        ms = time_ms(lambda *a: flash_attention_bwd(*a, **kw), args, iters=10)
+        pms = time_ms(lambda *a: flash_attention_bwd_plain(*a, **kw), args,
+                      iters=3, reps=3)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        mask = _mask(Sq, Sk, causal, win, "cuda")
+        masking = (dict(is_causal=causal) if win is None
+                   else dict(attn_mask=mask))
+        out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=Hq != Hkv,
+                                             **masking)
+        dot = do.transpose(1, 2)
+        lib = time_eager_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), (), iters=10)
+        del out
+        pairs = int(mask.sum())
+        el = q.element_size()
+        # q, o and dO read and dq written; k and v read and dk and dv
+        # written; the f32 lse read
+        b, by = bound(el * 4 * B * (Sq * Hq + Sk * Hkv) * D
+                      + 4 * B * Hq * Sq,
+                      (10 * B * Hq * pairs * D,
+                       BF16_FLOPS_PER_S if dt == torch.bfloat16
+                       else F32_FLOPS_PER_S))
+        variant = ("" if causal else "non-causal ") + (
+            "" if Hq == Hkv else f"gqa kv{Hkv} ") + (
+            "" if win is None else f"window {win} ") + dtype
+        rows.append(dict(kernel="flash_attention_bwd", variant=variant,
+                         shape=shape, sk=Sk, ms=ms, plain_ms=pms,
+                         max_abs_diff=e, bound_ms=b, bound_by=by,
+                         library_ms=lib, bf16_matmul_ms=None))
     return err
 
 
@@ -3485,6 +3601,380 @@ def recurrent_model_api(launches_total, smi):
     return st
 
 
+def _loss_and_grads(api, cfg, params, batch):
+    """The train loss and every leaf's gradient (``training.train_step``'s
+    loss; the leaves require grad only for this call)."""
+    import torch
+    from repro_torch.nn import spec as S
+    from repro_torch.training import train_step as T
+
+    leaves = S.leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss, _ = T.make_loss_fn(api, cfg)(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def profile_train_step(step, params, opt, batch, vocab, top=8):
+    """One train step under ``torch.profiler`` (with input shapes and a
+    range around ``optimizer.apply_updates``): device ms in the flash
+    forward and backward kernels (by name), the GEMMs (the self device
+    time of ``aten::mm`` / ``addmm`` / ``bmm``), of them the f32 logit
+    head's (a dimension of ``vocab``), AdamW (the range) and the rest."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.training import optimizer as O
+
+    real = O.apply_updates
+
+    def traced(*a, **k):
+        with record_function("train.adamw"):
+            return real(*a, **k)
+
+    O.apply_updates = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            step(params, opt, batch)
+            torch.cuda.synchronize()
+    finally:
+        O.apply_updates = real
+    avg = prof.key_averages(group_by_input_shape=True)
+    kernels = [e for e in avg if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device kernels")
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def kern(*names):
+        return sum(e.self_device_time_total for e in kernels
+                   if any(n in e.key for n in names)) / 1e3
+
+    gemm = head = 0.0
+    for e in avg:
+        if e.device_type == DeviceType.CPU and e.key in (
+                "aten::mm", "aten::addmm", "aten::bmm"):
+            ms = e.self_device_time_total / 1e3
+            dims = {d for shp in (e.input_shapes or []) for d in (shp or [])}
+            if vocab in dims:
+                head += ms
+            else:
+                gemm += ms
+    adamw = sum(e.device_time_total for e in avg
+                if e.key == "train.adamw"
+                and e.device_type == DeviceType.CPU) / 1e3
+    split = dict(flash_fwd=kern("flash_fwd_kernel", "flash_tc_kernel"),
+                 flash_bwd=kern("flash_bwd_"), gemm=gemm, logit_head=head,
+                 adamw=adamw)
+    split["rest"] = total - sum(split.values())
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    return dict(device_ms=total, split=split,
+                launches=sum(e.count for e in kernels),
+                top=[dict(name=e.key[:120], count=e.count,
+                          ms=e.self_device_time_total / 1e3)
+                     for e in ranked])
+
+
+def train_phase(launches_total, smi):
+    """Phase 8g, ``[train]``: (a) ``TRAIN_ARCH`` (llama3.2-3b: 28 layers,
+    d_model 3072, 24 query heads over 8 of 128, d_ff 8192, vocab 128256)
+    at full width and depth, bf16, remat on, the reference's
+    ``AdamWConfig`` defaults, ``TRAIN_STEPS`` steps of ``TRAIN_B`` x
+    ``TRAIN_S`` synthetic tokens through ``launch.train.train_loop`` (no
+    checkpoint): per-step device ms by CUDA events around each step (the
+    first apart), tokens/s, peak memory, the resident params and AdamW
+    state, each loss and grad norm (all finite), the host's batch time
+    apart, launches exactly 2 flash forwards (the forward and remat's
+    recompute) and 1 backward a layer and step and nothing else; one step
+    with ``grad_accum=2`` against ``grad_accum=1`` on one batch at lr 0
+    (loss and grad norm within ``TRAIN_ACCUM_*``); one step profiled
+    (``profile_train_step``). (b) Its first ``TRAIN_CPU_LAYERS`` layers at
+    full width: the loss and every leaf's gradient on the card against
+    the CPU's plain versions (``TRAIN_CPU_*`` bounds). (c) The restart
+    drill on ``bench-lm-30m`` (f32), as the reference's
+    ``test_restart_drill``: an uninterrupted run of ``DRILL_STEPS``, a run
+    with checkpoints every ``DRILL_CKPT_EVERY`` steps that fails at step
+    ``DRILL_FAIL_AT``, and the restart, which must resume at the last
+    checkpoint and end within rtol 1e-5 / atol 1e-6 of the uninterrupted
+    run's params (whether they are bit-equal is printed); the loss must
+    fall to ``DRILL_LOSS_RATIO`` of its first step; the trained model's
+    eval loss under fp, W4A8 g128 IS and FS is printed (not a gate)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.configs.paper_llama import bench_lm
+    from repro_torch.core import ptq
+    from repro_torch.core.recipe import DEFAULT_RECIPE, FLOAT_SCALE_RECIPE
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import get_arch, get_model
+    from repro_torch.nn import spec as S
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as T
+
+    t_phase = time.perf_counter()
+    stats: dict = {}
+
+    # -- (a) llama3.2-3b at full width and depth ------------------------------
+    cfg = get_arch(TRAIN_ARCH)
+    if not cfg.remat or cfg.dtype != "bfloat16":
+        raise AssertionError(f"{cfg.name}: expected bf16 with remat")
+    api = get_model(cfg)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                    batch_size=TRAIN_B)
+    timed, data_s = [], []
+    real_make, real_pipe = (launch_train.make_train_step,
+                            launch_train.SyntheticPipeline)
+
+    def make_timed(*a, **k):
+        step = real_make(*a, **k)
+
+        def timed_step(params, opt, batch):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = step(params, opt, batch)
+            ev[1].record()
+            timed.append((ev, out[2]))
+            return out
+        return timed_step
+
+    class TimedPipeline(real_pipe):
+        def global_batch(self, step):
+            t0 = time.perf_counter()
+            out = super().global_batch(step)
+            data_s.append(time.perf_counter() - t0)
+            return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    launch_train.make_train_step = make_timed
+    launch_train.SyntheticPipeline = TimedPipeline
+    t0 = time.perf_counter()
+    try:
+        params, opt, hist = launch_train.train_loop(
+            cfg, dc, O.AdamWConfig(), steps=TRAIN_STEPS, seed=0, log_every=1,
+            log_fn=log, device="cuda")
+    finally:
+        launch_train.make_train_step = real_make
+        launch_train.SyntheticPipeline = real_pipe
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    check_xattn_launches(f"train {cfg.name}", _build.LAUNCHES,
+                         {"flash_attention": 2 * L,
+                          "flash_attention_bwd": L}, TRAIN_STEPS)
+    for k, n in _build.LAUNCHES.items():
+        launches_total[k] += n
+    step_ms = [ev[0].elapsed_time(ev[1]) for ev, _ in timed]
+    gnorms = [float(m["grad_norm"]) for _, m in timed]
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"train {cfg.name}: losses {losses}, grad "
+                             f"norms {gnorms}")
+    steady = sum(step_ms[1:]) / len(step_ms[1:])
+    resident = sum(t.numel() * t.element_size()
+                   for t in S.leaves(params) + S.leaves(opt))
+    tokens = TRAIN_B * TRAIN_S
+    # the loop's own rate after its first step: host clock, the batch's
+    # sampling included (the heartbeat's dt)
+    loop_tps = tokens * (len(hist) - 1) / sum(h["dt"] for h in hist[1:])
+    a = dict(layers=L, step_ms=step_ms, first_step_ms=step_ms[0],
+             steady_step_ms=steady, tokens_per_s=tokens / (steady / 1e3),
+             loop_tokens_per_s=loop_tps,
+             data_s=data_s, peak_bytes=peak, resident_bytes=resident,
+             losses=losses, grad_norms=gnorms, wall_s=wall,
+             launches=dict(_build.LAUNCHES))
+    log(f"[train] {cfg.name}: {L} layers at full width, bf16, remat, "
+        f"{TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} tokens: step ms "
+        f"(CUDA events) first {step_ms[0]:.1f}, then "
+        + ", ".join(f"{x:.1f}" for x in step_ms[1:])
+        + f" (mean {steady:.1f}); {a['tokens_per_s']:.0f} tokens/s of the "
+        f"device's steps, {loop_tps:.0f} tokens/s of the loop; host "
+        f"batch s " + ", ".join(f"{x:.3f}" for x in data_s)
+        + f"; peak allocated {peak / 1e9:.2f} GB, params + AdamW state "
+        f"{resident / 1e9:.2f} GB; losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{x:.4f}" for x in gnorms)
+        + f"; launches {json.dumps(a['launches'])}; {smi}")
+
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             SyntheticPipeline(dc).global_batch(TRAIN_STEPS).items()}
+    still = O.AdamWConfig(lr=0.0)  # both steps read the same params
+    accum = {}
+    for ga in (1, 2):
+        _, _, m = T.make_train_step(api, cfg, still, grad_accum=ga)(
+            params, opt, batch)
+        accum[ga] = (float(m["loss"]), float(m["grad_norm"]))
+    dl = abs(accum[2][0] - accum[1][0]) / abs(accum[1][0])
+    dn = abs(accum[2][1] - accum[1][1]) / abs(accum[1][1])
+    log(f"[train] grad_accum 2 vs 1 on one batch: loss {accum[2][0]:.6f} vs "
+        f"{accum[1][0]:.6f} ({dl:.2e} relative, bound "
+        f"{TRAIN_ACCUM_LOSS_REL}), grad norm {accum[2][1]:.6f} vs "
+        f"{accum[1][1]:.6f} ({dn:.2e}, bound {TRAIN_ACCUM_NORM_REL})")
+    if not (dl <= TRAIN_ACCUM_LOSS_REL and dn <= TRAIN_ACCUM_NORM_REL):
+        raise AssertionError(f"train grad_accum: {accum}")
+    a.update(accum_loss=accum, accum_loss_rel=dl, accum_norm_rel=dn)
+
+    step = T.make_train_step(api, cfg, still)
+    step(params, opt, batch)  # builds the model
+    prof = profile_train_step(step, params, opt, batch, cfg.vocab_size)
+    sp, dev = prof["split"], prof["device_ms"]
+    log(f"[profile] train {cfg.name}: one step {dev:.1f} ms of device "
+        f"kernels in {prof['launches']} launches: "
+        + "; ".join(f"{k} {v:.1f} ms ({v / dev:.3f})" for k, v in sp.items())
+        + f"; top {len(prof['top'])}:")
+    for p in prof["top"]:
+        log(f"[profile]   {p['ms']:.3f} ms  x{p['count']}  {p['name']}")
+    a["profile"] = prof
+    stats[cfg.name] = a
+    del params, opt, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) the first layers at full width against the CPU -------------------
+    cfg2 = dataclasses.replace(cfg, num_layers=TRAIN_CPU_LAYERS)
+    api2 = get_model(cfg2)
+    p_card = ptq.materialize_by_layer(api2, cfg2, seed=0, device="cuda")
+    p_cpu = S.tree_map(lambda t: t.cpu(), p_card)
+    b2 = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_CPU_S,
+                                      batch_size=TRAIN_CPU_B)).global_batch(0)
+    _build.reset_launches()
+    l_card, g_card = _loss_and_grads(api2, cfg2, p_card, {
+        k: torch.from_numpy(v).to("cuda") for k, v in b2.items()})
+    torch.cuda.synchronize()
+    if _build.LAUNCHES["flash_attention_bwd"] != TRAIN_CPU_LAYERS:
+        raise AssertionError(f"train cpu check: {dict(_build.LAUNCHES)}")
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = _loss_and_grads(api2, cfg2, p_cpu, {
+        k: torch.from_numpy(v) for k, v in b2.items()})
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    grad_rel = {}
+    for (path, _), gk, gp in zip(_paths(p_cpu), g_card, g_cpu, strict=True):
+        gk, gp = gk.float().cpu(), gp.float()
+        grad_rel[path] = ((gk - gp).norm() / gp.norm().clamp_min(1e-30)
+                          ).item()
+    worst = max(grad_rel, key=grad_rel.get)
+    log(f"[train] {cfg.name} first {TRAIN_CPU_LAYERS} layers at full width, "
+        f"{TRAIN_CPU_B} x {TRAIN_CPU_S} tokens, card vs CPU plain versions: "
+        f"loss {l_card:.6f} vs {l_cpu:.6f} ({loss_rel:.2e} relative, bound "
+        f"{TRAIN_CPU_LOSS_REL}); worst leaf |dg|/|g| {grad_rel[worst]:.2e} "
+        f"({worst}; bound {TRAIN_CPU_GRAD_REL}); CPU {cpu_s:.1f} s")
+    if not (loss_rel <= TRAIN_CPU_LOSS_REL
+            and grad_rel[worst] <= TRAIN_CPU_GRAD_REL):
+        raise AssertionError(f"train cpu check: loss {loss_rel}, grads "
+                             f"{grad_rel}")
+    stats["cpu_check"] = dict(layers=TRAIN_CPU_LAYERS, loss_rel=loss_rel,
+                              grad_rel=grad_rel, cpu_s=cpu_s)
+    del p_card, p_cpu, g_card, g_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) the restart drill on bench-lm-30m --------------------------------
+    bcfg = bench_lm()
+    bapi = get_model(bcfg)
+    bdc = DataConfig(vocab_size=bcfg.vocab_size, seq_len=128, batch_size=8)
+    boc = O.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=DRILL_STEPS)
+    ck = ROOT / "build" / "train_drill"
+    shutil.rmtree(ck, ignore_errors=True)
+    _build.reset_launches()
+    quiet = dict(log_every=10, log_fn=log, device="cuda")
+    t0 = time.perf_counter()
+    p_ref, _, h_ref = launch_train.train_loop(bcfg, bdc, boc,
+                                              steps=DRILL_STEPS, **quiet)
+    failed = False
+    try:
+        launch_train.train_loop(bcfg, bdc, boc, steps=DRILL_STEPS,
+                                ckpt_dir=str(ck), ckpt_every=DRILL_CKPT_EVERY,
+                                fail_at_step=DRILL_FAIL_AT, **quiet)
+    except RuntimeError as e:  # the drill's injected failure, nothing else
+        if "injected" not in str(e):
+            raise
+        failed = True
+    if not failed:
+        raise AssertionError("restart drill: no failure was injected")
+    p_res, _, h_res = launch_train.train_loop(
+        bcfg, bdc, boc, steps=DRILL_STEPS, ckpt_dir=str(ck),
+        ckpt_every=DRILL_CKPT_EVERY, **quiet)
+    torch.cuda.synchronize()
+    drill_s = time.perf_counter() - t0
+    resumed = DRILL_FAIL_AT // DRILL_CKPT_EVERY * DRILL_CKPT_EVERY
+    ran = DRILL_STEPS + DRILL_FAIL_AT + (DRILL_STEPS - resumed)
+    check_xattn_launches("train drill", _build.LAUNCHES,
+                         {"flash_attention": bcfg.num_layers,
+                          "flash_attention_bwd": bcfg.num_layers}, ran)
+    for k, n in _build.LAUNCHES.items():
+        launches_total[k] += n
+    shutil.rmtree(ck, ignore_errors=True)
+    if h_res[0]["step"] != resumed:
+        raise AssertionError(f"restart drill resumed at {h_res[0]['step']}, "
+                             f"not {resumed}")
+    pairs = list(zip(S.leaves(p_ref), S.leaves(p_res)))
+    bit_equal = all(torch.equal(x, y) for x, y in pairs)
+    close = all(torch.allclose(y, x, rtol=1e-5, atol=1e-6) for x, y in pairs)
+    worst_drill = max((x - y).abs().max().item() for x, y in pairs)
+    ratio = h_ref[-1]["loss"] / h_ref[0]["loss"]
+    log(f"[train] restart drill {bcfg.name} (f32, {DRILL_STEPS} steps of 8 x "
+        f"128 tokens): failed at step {DRILL_FAIL_AT}, resumed at {resumed}; "
+        f"final params bit-equal {bit_equal}, max abs diff "
+        f"{worst_drill:.3e} (gate rtol 1e-5 / atol 1e-6); loss "
+        f"{h_ref[0]['loss']:.4f} -> {h_ref[-1]['loss']:.4f} (ratio "
+        f"{ratio:.3f}, gate {DRILL_LOSS_RATIO}); {drill_s:.1f} s for "
+        f"{ran} steps")
+    if not close or ratio > DRILL_LOSS_RATIO:
+        raise AssertionError(f"restart drill: close {close}, loss ratio "
+                             f"{ratio}")
+    evals = [SyntheticPipeline(bdc).global_batch(100_000 + i)
+             for i in range(4)]
+    ev = {}
+    for name, recipe in (("fp", None), ("w4a8-is", DEFAULT_RECIPE),
+                         ("w4a8-fs", FLOAT_SCALE_RECIPE)):
+        with obs.use_registry(obs.Registry()):
+            qp = p_ref if recipe is None else ptq.post_training_quantize(
+                bapi, bcfg, p_ref, recipe, None)
+        step = T.make_eval_step(bapi, bcfg, recipe)
+        ev[name] = float(np.mean([float(step(qp, {
+            k: torch.from_numpy(v).to("cuda") for k, v in b.items()})["loss"])
+            for b in evals]))
+    log(f"[train] {bcfg.name} eval loss on 4 held-out batches: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ev.items())
+        + " (information, not a gate)")
+    stats["drill"] = dict(model=bcfg.name, steps=DRILL_STEPS,
+                          fail_at=DRILL_FAIL_AT, resumed=resumed,
+                          bit_equal=bit_equal, max_abs_diff=worst_drill,
+                          loss_first=h_ref[0]["loss"],
+                          loss_last=h_ref[-1]["loss"], loss_ratio=ratio,
+                          seconds=drill_s, eval_loss=ev)
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"[train] phase {stats['seconds']:.1f} s; {smi}")
+    return stats
+
+
+def _paths(tree, path=""):
+    """(path, leaf) pairs in ``S.leaves`` order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{path}/{k}" if path else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, f"{path}/{i}" if path else str(i))
+    else:
+        yield path, tree
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3549,6 +4039,7 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in check_grouped(gen, rows).items():
         errs[k] = max(errs.get(k, 0.0), v)
+    errs["flash_attention_bwd"] = check_flash_bwd(gen, rows)
 
     def opt(v):
         return "-" if v is None else f"{v:.4f} ms"
@@ -3560,6 +4051,8 @@ def main() -> int:
             f"{r['dense_bound_ms']:.5f} ms ({r['dense_bound_by']})")
         if r.get("plan"):
             extra += f"; plan {r['plan']}"
+        if r.get("sk"):
+            extra += f"; Sk {r['sk']}"
         log(f"[kernel] {r['kernel']} {r['variant']} {r['shape']}: "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library "
@@ -3759,10 +4252,13 @@ def main() -> int:
     recurrent_stats = recurrent_phase(sc, prompts, toks, n0, launches_total,
                                       smi)
 
+    # -- 8g. training: llama3.2-3b at full width, the restart drill ----------
+    train_stats = train_phase(launches_total, smi)
+
     missing = sorted(k for k in _build.KERNELS if launches_total[k] <= 0)
     if missing:
-        raise AssertionError(f"kernels never launched on a served path: "
-                             f"{missing}")
+        raise AssertionError(f"kernels never launched on a served or "
+                             f"training path: {missing}")
 
     # -- 9. report ----------------------------------------------------------------
     meta = {
@@ -3802,6 +4298,19 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "bf16_matmul_ms": r["bf16_matmul_ms"], "shape": shape})
+    r = next(r for r in rows if r["kernel"] == "flash_attention_bwd"
+             and r["shape"] == [4, 1024, 24, 128])
+    kernels.append({  # the jnp attention that jax.value_and_grad trains
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:53",
+        "launches": launches_total["flash_attention_bwd"],
+        "max_abs_err": errs["flash_attention_bwd"],
+        "max_abs_diff": errs["flash_attention_bwd"], "ms": r["ms"],
+        "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "bf16_matmul_ms": None,
+        "shape": r["shape"]})
     for r in qlint_rows:  # row 11: the factory _pallas's five kernels
         kernels.append({
             "name": r["kernel"], "route": "cuda",
@@ -3827,7 +4336,7 @@ def main() -> int:
         "mixtral": mixtral_stats, "calib": calib_stats,
         "llama3": llama3_stats, "kv8": kv8_stats, "configs": configs_stats,
         "mla": mla_stats, "xattn": xattn_stats,
-        "recurrent": recurrent_stats,
+        "recurrent": recurrent_stats, "train": train_stats,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

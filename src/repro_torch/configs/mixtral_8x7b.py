@@ -31,7 +31,7 @@ def smoke() -> ModelConfig:
         q_chunk=16, kv_chunk=16,
         num_experts=8, top_k=2, moe_d_ff=256,
         capacity_factor=4.0,
-        dtype="float32", kv_cache_dtype="float32",
+        dtype="float32", kv_cache_dtype="float32", remat=False,
     )
 
 

@@ -28,7 +28,7 @@ def tiny_lm() -> ModelConfig:
         name="tiny-lm-100m", family="dense",
         num_layers=14, d_model=768, num_heads=12, num_kv_heads=12,
         d_ff=2048, vocab_size=512, head_dim=64, dtype="float32",
-        q_chunk=64, kv_chunk=64,
+        q_chunk=64, kv_chunk=64, remat=False,
     )
 
 
@@ -41,5 +41,5 @@ def bench_lm() -> ModelConfig:
         name="bench-lm-30m", family="dense",
         num_layers=8, d_model=512, num_heads=8, num_kv_heads=8,
         d_ff=1536, vocab_size=512, head_dim=64, dtype="float32",
-        q_chunk=512, kv_chunk=512,
+        q_chunk=512, kv_chunk=512, remat=False,
     )

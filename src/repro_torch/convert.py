@@ -28,7 +28,9 @@ into the reference's layout for its layer kinds (a Griffin tree needs its
 config).
 Values are carried bit for bit (``qvalue``, ``scale`` and ``alpha`` included); bf16 arrays (numpy
 dtype ``bfloat16`` from ml_dtypes) are reinterpreted through their 16-bit
-patterns.
+patterns. :func:`opt_from_reference` and :func:`opt_to_reference` carry
+an AdamW state (``training/optimizer.py``): its ``mu`` and ``nu`` trees
+through the param converters, its ``step`` as an int32 scalar.
 """
 from __future__ import annotations
 
@@ -159,3 +161,20 @@ def to_reference(params: dict, cfg=None) -> dict:
             f"s{j}": _stack([blocks[n + r * P + j] for r in range(R)])
             for j in range(P)}
     return out
+
+
+def opt_from_reference(state: dict, *, device=None) -> dict:
+    """The reference's AdamW state (numpy leaves) -> the port's, on
+    ``device`` (default the GPU)."""
+    dev = S.resolve_device(device)
+    return {"mu": from_reference(state["mu"], device=dev),
+            "nu": from_reference(state["nu"], device=dev),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev)}
+
+
+def opt_to_reference(state: dict, cfg=None) -> dict:
+    """The port's AdamW state -> the reference's layout as numpy."""
+    return {"mu": to_reference(state["mu"], cfg),
+            "nu": to_reference(state["nu"], cfg),
+            "step": np.asarray(int(state["step"]), dtype=np.int32)}

@@ -40,6 +40,10 @@
 //   window are skipped (the reference's masked blocks contribute exactly
 //   zero there), and the epilogue floors the denominator at 1e-30. There is
 //   no q offset: prefill starts at position 0.
+// Training: given an lse pointer, both write each row's log-sum-exp
+//   (natural log, f32, (B, Hq, Sq)) beside the output, for the backward in
+//   flash_attention_bwd.cu; given none, they write only the output, as the
+//   serving paths do.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,8 +65,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int Hq, int Hkv, float scale, int causal, int window) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
+                 float scale, int causal, int window) {
   extern __shared__ float smem[];
   float* Qs = smem;                 // BQ x (D+1), pre-scaled
   float* Ks = Qs + BQ * (D + 1);    // BK x (D+1)
@@ -185,14 +190,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int jj = 0; jj < D / 32; ++jj) {
         store(ob + qp * qs + lane + 32 * jj, acc[rr][jj] / den);
       }
+      if (lse != nullptr && lane == 0) {  // natural log, scores pre-scaled
+        lse[static_cast<int64_t>(bh) * Sq + qp] = m[rr] + logf(den);
+      }
     }
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Sk, int Hq, int Hkv, float scale, int causal, int window,
-           cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int Hq, int Hkv, float scale, int causal,
+           int window, cudaStream_t st) {
   const size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -201,8 +209,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   const dim3 grid(B * Hq, (Sq + BQ - 1) / BQ);
   flash_fwd_kernel<T, D><<<grid, kThreads, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, Hq, Hkv, scale,
-      causal, window);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, Hq, Hkv,
+      scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -212,6 +220,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 
 constexpr int TQ = 32, TK = 64, kTcThreads = 64;  // 2 warps x 16 query rows
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct TcSmem {
@@ -278,8 +287,9 @@ __global__ void __launch_bounds__(kTcThreads)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ o, int Sq, int Sk, int Hq, int Hkv,
-                float scale, int causal, int window) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int Sq, int Sk, int Hq, int Hkv, float scale, int causal,
+                int window) {
   using L = TcSmem<D>;
   constexpr int ST = L::stride;
   constexpr int CH = D / 8;  // 16-byte chunks per row
@@ -456,6 +466,11 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr && t == 0) {  // natural log: m is in the log2 domain
+    float* lb = lse + static_cast<int64_t>(bh) * Sq;
+    if (qr0 < Sq) lb[qr0] = m0 * LN2 + logf(d0);
+    if (qr1 < Sq) lb[qr1] = m1 * LN2 + logf(d1);
+  }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = j * 8 + 2 * t;
@@ -471,9 +486,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int Sq, int Sk, int Hq, int Hkv, float scale, int causal,
-              int window, cudaStream_t st) {
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int Sq, int Sk, int Hq, int Hkv, float scale,
+              int causal, int window, cudaStream_t st) {
   constexpr int bytes = TcSmem<D>::bytes;
   static bool attr[64] = {};  // the attribute is per kernel and device
   int dev = 0;
@@ -491,7 +506,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Sq, Sk, Hq, Hkv, scale, causal, window);
+      lse, Sq, Sk, Hq, Hkv, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -500,38 +515,43 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
 // q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), o (B, Sq, Hq, D); all contiguous,
 // one dtype: bf16 (is_bf16 = 1) or f32. D is 32, 64, 128 or 256;
 // Hq % Hkv == 0.
-// window < 0 means no window. Returns cudaGetLastError() after the launch.
+// window < 0 means no window. lse: null, or f32 (B, Hq, Sq) that receives
+// each row's log-sum-exp of its scaled, masked scores (natural log), which
+// the backward (flash_attention_bwd.cu) reads; a null lse writes nothing
+// more and changes no output bit. Returns cudaGetLastError() after the
+// launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int is_bf16,
                                       int B, int Sq, int Sk, int Hq, int Hkv,
                                       int D, float scale, int causal,
-                                      int window, void* stream) {
+                                      int window, void* stream, void* lse) {
   if (Hkv <= 0 || Hq % Hkv != 0 ||
       (D != 32 && D != 64 && D != 128 && D != 256)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (is_bf16) {
     switch (D) {
       case 256:
-        return launch_tc<256>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
+        return launch_tc<256>(q, k, v, o, l, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
       case 128:
-        return launch_tc<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
+        return launch_tc<128>(q, k, v, o, l, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
       case 64:
-        return launch_tc<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
+        return launch_tc<64>(q, k, v, o, l, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
       default:
-        return launch_tc<32>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
+        return launch_tc<32>(q, k, v, o, l, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
     }
   }
   switch (D) {
     case 256:
-      return launch<float, 256>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
+      return launch<float, 256>(q, k, v, o, l, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
     case 128:
-      return launch<float, 128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
+      return launch<float, 128>(q, k, v, o, l, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
     case 64:
-      return launch<float, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
+      return launch<float, 64>(q, k, v, o, l, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
     default:
-      return launch<float, 32>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
+      return launch<float, 32>(q, k, v, o, l, B, Sq, Sk, Hq, Hkv, scale, causal, window, st);
   }
 }

@@ -41,7 +41,8 @@ import time
 from pathlib import Path
 
 KERNELS = ("act_quant", "w4a8_gemm_is", "flash_attention", "w4a8_gemm_fs",
-           "w4a16_gemm", "moe_w4a8_is", "moe_w4a8_fs", "moe_w4a16")
+           "w4a16_gemm", "moe_w4a8_is", "moe_w4a8_fs", "moe_w4a16",
+           "flash_attention_bwd")
 
 FIXTURES = ("broken_fp32_dot", "broken_no_preferred", "broken_narrowing",
             "broken_index_map", "broken_divisibility")

@@ -1,1 +1,1 @@
-"""Command-line entry points (``serve``)."""
+"""Command-line entry points (``serve``, ``train``)."""

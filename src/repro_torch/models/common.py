@@ -51,10 +51,13 @@ def linear(recipe: QuantRecipe | None, path: str, K: int, N: int, *,
 class Linear(nn.Module):
     """A recipe-aware linear holding its param dict (``w``, or ``qvalue``/
     ``scale``/``alpha``, and ``pre_scale``/``rot`` where its algorithm
-    made them; ``b``) as buffers: the port serves, it does not train, so
-    nothing here needs a gradient. ``qspec`` is the recipe's spec for its
-    path (None: bf16); while the calibration capture is on, its input is
-    recorded under ``path``."""
+    made them; ``b``) as buffers: the same tensor objects as the param
+    tree's leaves. Training (``training/train_step.py``) sets
+    ``requires_grad_()`` on those leaves and differentiates with respect
+    to them, so nothing here becomes an ``nn.Parameter`` and serving is
+    untouched. ``qspec`` is the recipe's spec for its path (None: bf16);
+    while the calibration capture is on, its input is recorded under
+    ``path``."""
 
     def __init__(self, recipe: QuantRecipe | None, path: str, params: dict):
         super().__init__()

@@ -86,6 +86,9 @@ class ModelConfig:
     # "int8": int8 codes plus f32 per-token, per-head scales; any other
     # value: a cache in the activation dtype (the reference's rule)
     kv_cache_dtype: str = "bfloat16"
+    # train mode with grad enabled recomputes each block in the backward
+    # (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
+    remat: bool = True
 
     def __post_init__(self):
         if self.head_dim == 0:

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import spec as S
 from . import attention as A
@@ -164,7 +165,10 @@ class Transformer(nn.Module):
     its cross layers in train and prefill (decode reads their cache). A
     given ``cache`` is written in place. On CUDA tensors the
     quantized linears and prefill attention launch the Hopper kernels; on
-    CPU tensors they take the kernels' plain versions.
+    CPU tensors they take the kernels' plain versions. In "train" mode
+    with grad enabled and ``cfg.remat``, each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant), as the reference's
+    ``jax.checkpoint``: its activations are recomputed in the backward.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, recipe=None):
@@ -185,9 +189,16 @@ class Transformer(nn.Module):
         cfg = self.cfg
         x = F.embedding(tokens.long(), self.embed).to(cfg.activation_dtype)
         aux = torch.zeros((), device=x.device)
+        # the reference's remat: each block's activations recomputed in the
+        # backward (training only; serving runs without grad)
+        remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
             c = cache["blocks"][i] if cache is not None else None
-            x, _, a = blk(x, mode=mode, cache=c, pos=pos, memory=memory)
+            if remat:
+                x, _, a = checkpoint(blk, x, mode=mode, cache=c, pos=pos,
+                                     memory=memory, use_reentrant=False)
+            else:
+                x, _, a = blk(x, mode=mode, cache=c, pos=pos, memory=memory)
             if a is not None:
                 aux = aux + a
         if mode == "prefill":

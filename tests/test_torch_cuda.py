@@ -74,6 +74,15 @@ smoke models on the card against the CPU (a prefill, then a decode step;
 (``serving.graphs.Step`` restoring the state its warm-up advanced) equal
 to the eager loop; and the xLSTM engine, one slot reused, equal to the
 eager greedy loop.
+
+Training: the flash-attention backward kernel against its plain version
+(head dims 32, 64 and 128; bf16 and f32; causal, windowed, non-causal
+with Sq != Sk; S no multiple of the tile; B > 1; GQA and MQA) within
+``BWD_REL_TOLERANCE`` x max |plain| and bit-repeatable; the forward with
+its lse output bit-equal to the forward without it; head dim 256
+refused; autograd on the card launching the backward kernel once; and
+a smoke train step (remat on) on the card against the CPU: loss within
+1e-2 and every gradient leaf within 5e-2 (bf16), 1e-5 and 1e-4 (f32).
 """
 import numpy as np
 import pytest
@@ -1968,3 +1977,145 @@ def test_xlstm_engine_reusing_one_slot_equals_the_eager_loop(cuda):
     assert eng.decode_traces == eng.prefill_traces == 1
     assert outs == eager_greedy(api, cfg, eng.model, prompts, sc)
 
+
+
+# ---------------------------------------------------------------------------
+# Training: the flash-attention backward kernel and a train step
+# ---------------------------------------------------------------------------
+
+BWD_SHAPES = [  # (B, Sq, Sk, Hq, Hkv, D, causal, window)
+    (2, 128, 128, 8, 2, 128, True, None),    # GQA, B > 1
+    (1, 77, 77, 4, 4, 64, True, None),       # S no multiple of the tile
+    (3, 300, 300, 4, 2, 64, True, 100),      # window across key tiles
+    (2, 45, 45, 4, 1, 32, True, 16),         # heads of 32, MQA, window
+    (2, 33, 150, 8, 2, 128, False, None),    # non-causal, Sq != Sk
+    (1, 200, 200, 4, 4, 128, False, None)]   # non-causal, square
+
+
+def _bwd_inputs(cuda, dtype, B, Sq, Sk, Hq, Hkv, D):
+    return [_normal(i, s, 1.0, cuda).to(dtype) for i, s in enumerate(
+        ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D), (B, Sq, Hq, D)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", BWD_SHAPES)
+def test_flash_bwd_kernel_vs_plain(cuda, dtype, B, Sq, Sk, Hq, Hkv, D,
+                                   causal, window):
+    """dq, dk, dv within ``BWD_REL_TOLERANCE`` x max |plain| of the plain
+    version on the same inputs and the same lse, and the same bits from
+    a second call (no atomics)."""
+    from repro_torch.kernels.flash_attention import (
+        BWD_REL_TOLERANCE, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_fwd)
+
+    q, k, v, do = _bwd_inputs(cuda, dtype, B, Sq, Sk, Hq, Hkv, D)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    before = _build.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                              window=window)
+    assert _build.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                     window=window)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                window=window)
+    for g, w, a, t in zip(got, want, again, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        bound = BWD_REL_TOLERANCE[dtype] * w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= bound
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", BWD_SHAPES)
+def test_flash_forward_lse_changes_no_output_bit(cuda, dtype, B, Sq, Sk, Hq,
+                                                 Hkv, D, causal, window):
+    """The forward with its lse output gives the bits of the forward
+    without it; the lse is the plain version's within 1e-5 (f32 sums in
+    another order)."""
+    from repro_torch.kernels.flash_attention import _plain, flash_attention_fwd
+
+    q, k, v, _ = _bwd_inputs(cuda, dtype, B, Sq, Sk, Hq, Hkv, D)
+    with torch.no_grad():
+        plain_out = flash_attention(q, k, v, causal=causal, window=window)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    assert torch.equal(o, plain_out)
+    want = _plain(q, k, v, causal, window, None, True)[1]
+    assert lse.dtype == torch.float32 and lse.shape == (B, Hq, Sq)
+    assert (lse - want).abs().max().item() <= 1e-5 * max(
+        1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_refuses_head_dim_256(cuda):
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+
+    q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 1, 64, 64, 2, 1, 256)
+    o, lse = flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="flash_attention_bwd"):
+        flash_attention_bwd(q, k, v, o, lse, do)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_on_the_card_launches_the_backward_kernel(cuda):
+    q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 2, 128, 128, 8, 2, 64)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(_build.LAUNCHES)
+    out = flash_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert _build.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert (_build.LAUNCHES["flash_attention_bwd"]
+            == before["flash_attention_bwd"] + 1)
+    assert all(g.isfinite().all() for g in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,loss_rel,grad_rel", [
+    ("bfloat16", 1e-2, 5e-2), ("float32", 1e-5, 1e-4)])
+def test_train_step_on_the_card_matches_the_cpu(cuda, dtype, loss_rel,
+                                                grad_rel):
+    """The smoke LLaMA-2-7B (4 layers, heads of 64), remat on: loss and
+    every gradient leaf on the card (flash forward and backward kernels,
+    cuBLAS products) against the CPU's plain versions on the same params
+    and batch (bf16: rounding in other places, 1e-2 / 5e-2; f32: sums in
+    other orders, TF32 off), then one AdamW step on each, finite and
+    counted."""
+    import dataclasses
+
+    from repro_torch.core import ptq
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models.registry import get_arch, get_model
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as T
+
+    cfg = dataclasses.replace(get_arch("llama2-7b", smoke=True), dtype=dtype)
+    assert cfg.remat
+    api = get_model(cfg)
+    batch = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=96, batch_size=2)
+                              ).global_batch(0)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = ptq.materialize_by_layer(api, cfg, seed=1, device="cpu")
+        params = S.tree_map(lambda t: t.to(dev), params)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        leaves = S.leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = T.make_loss_fn(api, cfg)(params, b)
+        grads = torch.autograd.grad(loss, leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        before = _build.LAUNCHES["flash_attention_bwd"]
+        opt = S.materialize(O.state_specs(api.param_specs(cfg)), device=dev)
+        _, _, m = T.make_train_step(api, cfg, O.AdamWConfig())(params, opt, b)
+        launched = _build.LAUNCHES["flash_attention_bwd"] - before
+        assert launched == (cfg.num_layers if dev == cuda else 0)
+        assert all(bool(v.isfinite()) for v in m.values())
+        out[str(dev)] = (float(loss.detach()), [g.float().cpu() for g in grads])
+    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda)]
+    assert abs(lg - lc) <= loss_rel * abs(lc)
+    for a, b in zip(gg, gc):
+        assert (a - b).norm().item() <= grad_rel * b.norm().item()

@@ -266,7 +266,9 @@ def test_port_imports_and_runs_without_jax_or_repro():
         " 'repro_torch.models.moe', 'repro_torch.configs.mixtral_8x7b',"
         " 'repro_torch.models.xlstm', 'repro_torch.models.griffin',"
         " 'repro_torch.configs.xlstm_1b3',"
-        " 'repro_torch.configs.recurrentgemma_9b'}"
+        " 'repro_torch.configs.recurrentgemma_9b',"
+        " 'repro_torch.training.optimizer', 'repro_torch.training.train_step',"
+        " 'repro_torch.checkpoint.manager', 'repro_torch.launch.train'}"
         " <= set(mods), mods",
         "from repro_torch.models.config import ModelConfig",
         "from repro_torch.models.registry import get_model",

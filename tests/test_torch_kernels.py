@@ -318,6 +318,8 @@ def test_wrappers_take_plain_versions_on_cpu():
     ("act_quant", "act_quant_routed_launch", "act_quant:_ROUTED_ARGS"),
     ("w4a8_gemm_is", "w4a8_gemm_is_launch", "w4a8_gemm"),
     ("flash_attention", "flash_attention_launch", "flash_attention"),
+    ("flash_attention_bwd", "flash_attention_bwd_launch",
+     "flash_attention:_BWD_ARGS"),
     ("w4a8_gemm_fs", "w4a8_gemm_fs_launch", "w4a8_gemm_fscale"),
     ("w4a16_gemm", "w4a16_gemm_launch", "w4a16_gemm"),
     ("moe_w4a8_is", "moe_w4a8_is_launch", "moe_gemm:_IS_ARGS"),
