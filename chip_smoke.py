@@ -5,7 +5,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases (any failure raises and exits non-zero; nothing is caught):
+Phases (any failure raises and exits non-zero; nothing is caught). A
+``[time]`` line after each gives its wall seconds and the run's so far.
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
 2. Build every kernel from ``src/repro_torch/csrc`` (one nvcc per source,
@@ -295,7 +296,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    backward kernel first (``FLASH_BWD``: llama3.2-3b's step, the bench
    LM's heads of 64 in f32, a window, non-causal Sq != Sk) against its
    plain version (``BWD_REL_TOLERANCE``), bit-repeatable, timed beside
-   the plain version and SDPA's backward.
+   the plain version and SDPA's backward, each row with its launch plan
+   (the bf16 heads split, dK/dV and dQ blocks); ``[bwd]`` lines give
+   ptxas's registers and spills of each backward entry beside the bf16
+   blocks' dynamic shared memory, and a spill at head dim 128 fails.
 9. Print the ``kernels`` JSON line (the nine kernels, launches summed
    over every served and training path; the five qlint fixtures,
    launches from their run in phase 2b), then the result line
@@ -972,6 +976,58 @@ def check_flash_cross(gen, rows):
     return err
 
 
+def check_bwd_build():
+    """The backward's kernel entries as ptxas built them (registers, spills,
+    static shared memory) beside the dynamic shared memory of the bf16
+    blocks (``TcSmem`` of csrc/flash_attention_bwd.cu, from its tile
+    constants: bf16 rows of D + 8, and the dK/dV block's f32 lse and delta
+    buffers); raises if a bf16 kernel at D = 128 spills."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    src = _build.source("flash_attention_bwd").read_text()
+    t = {n: int(re.search(rf"\b{n} = (\d+)", src).group(1))
+         for n in ("TKV", "TQS", "TQD", "TKS")}
+    for fn, info in ptxas_report(
+            _build.BUILD_LOG.get("flash_attention_bwd", "")).items():
+        d = next((d for d in (32, 64, 128) if f"_tcILi{d}E" in fn), None)
+        if d is not None:
+            rows = (2 * t["TKV"] + 4 * t["TQS"] if "dkdv" in fn
+                    else 2 * t["TQD"] + 4 * t["TKS"])
+            dyn = rows * (d + 8) * 2 + (16 * t["TQS"] if "dkdv" in fn else 0)
+            info += f"; dynamic shared {dyn} bytes"
+        log(f"[bwd] ptxas {fn}: {info}")
+        if d == 128 and not re.search(r"\b0 bytes spill stores", info):
+            raise AssertionError(f"flash bwd {fn} spills at D = 128: {info}")
+
+
+def kernel_ms(fn, reps=5) -> dict[str, float]:
+    """{device kernel: ms a call of ``fn``} under ``torch.profiler``,
+    after one call outside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / reps / 1e3
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def log_kernel_ms(tag: str, ms: dict[str, float]) -> None:
+    def short(name: str) -> str:
+        name = name.replace("(anonymous namespace)::", "")
+        return name.removeprefix("void ").split("(")[0][:60]
+
+    log(f"[bwd] {tag}: {sum(ms.values()):.4f} ms of device kernels a call: "
+        + "; ".join(f"{short(k)} {v:.4f}" for k, v in
+                    sorted(ms.items(), key=lambda kv: -kv[1])))
+
+
 def check_flash_bwd(gen, rows):
     """The flash-attention backward kernel at ``FLASH_BWD``: dq, dk and dv
     within ``BWD_REL_TOLERANCE`` x max |plain| of its plain version on the
@@ -979,20 +1035,26 @@ def check_flash_bwd(gen, rows):
     call, timed as a replayed graph beside the plain version and beside
     SDPA's backward (eager, between CUDA events: autograd's backward of a
     forward made outside a capture cannot be captured) as the library
-    call. Bound: the five products of the backward (S, dP, dV, dK, dQ)
-    over the unmasked pairs at the dense peak of the inputs' type, or
-    the bytes (q, k, v, o, dO, lse read; dq, dk, dv written). Returns the
-    max abs diff."""
+    call; at the first row (the train step's) each kernel's device ms of
+    both under ``torch.profiler``. Bound: the five products of the
+    backward (S, dP, dV, dK, dQ) over the unmasked pairs at the dense
+    peak of the inputs' type, or the bytes (q, k, v, o, dO, lse read; dq,
+    dk, dv written). Returns the max abs diff."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        BWD_REL_TOLERANCE, _mask, flash_attention_bwd,
+        BWD_REL_TOLERANCE, _mask, bwd_launch_plan, flash_attention_bwd,
         flash_attention_bwd_plain, flash_attention_fwd)
+    from repro_torch.kernels.w4a8_gemm import _sm_count
 
+    check_bwd_build()
     err = 0.0
-    for B, Sq, Sk, Hq, Hkv, D, causal, win, dtype in FLASH_BWD:
+    for i, (B, Sq, Sk, Hq, Hkv, D, causal, win, dtype) in enumerate(
+            FLASH_BWD):
         dt = getattr(torch, dtype)
         shape = [B, Sq, Hq, D]
+        plan = bwd_launch_plan(B, Sq, Sk, Hq, Hkv, D, dt,
+                               _sm_count(torch.cuda.current_device()))
         q = torch.randn((B, Sq, Hq, D), generator=gen, device="cuda").to(dt)
         k, v = (torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda"
                             ).to(dt) for _ in range(2))
@@ -1029,6 +1091,12 @@ def check_flash_bwd(gen, rows):
         dot = do.transpose(1, 2)
         lib = time_eager_ms(lambda: torch.autograd.grad(
             out, (qt, kt, vt), dot, retain_graph=True), (), iters=10)
+        if i == 0:
+            log_kernel_ms(f"profile {shape} {dtype}, ours", kernel_ms(
+                lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw)))
+            log_kernel_ms(f"profile {shape} {dtype}, SDPA's backward",
+                          kernel_ms(lambda: torch.autograd.grad(
+                              out, (qt, kt, vt), dot, retain_graph=True)))
         del out
         pairs = int(mask.sum())
         el = q.element_size()
@@ -1045,7 +1113,10 @@ def check_flash_bwd(gen, rows):
         rows.append(dict(kernel="flash_attention_bwd", variant=variant,
                          shape=shape, sk=Sk, ms=ms, plain_ms=pms,
                          max_abs_diff=e, bound_ms=b, bound_by=by,
-                         library_ms=lib, bf16_matmul_ms=None))
+                         library_ms=lib, bf16_matmul_ms=None,
+                         plan=(f"heads split {plan['splits']}, "
+                               f"{plan['kv_blocks']} dK/dV + "
+                               f"{plan['q_blocks']} dQ blocks")))
     return err
 
 
@@ -3996,6 +4067,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    phase_times: dict[str, float] = {}
+
+    def phase_done(name: str) -> None:
+        """Log the wall seconds since the last phase ended."""
+        now = time.perf_counter()
+        phase_times[name] = now - t_start - sum(phase_times.values())
+        log(f"[time] {name}: {phase_times[name]:.1f} s (run "
+            f"{now - t_start:.1f} s)")
 
     # -- 1. the card -----------------------------------------------------------
     smi = subprocess.run(
@@ -4006,6 +4085,8 @@ def main() -> int:
     log(f"[card] {smi}")
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {kind} x{torch.cuda.device_count()}")
+
+    phase_done("card")
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -4018,8 +4099,12 @@ def main() -> int:
         for fn, info in fns.items():
             log(f"[build] {name}: {fn}: {info}")
 
+    phase_done("build")
+
     # -- 2b. qlint: certificates, lint at every level, the fixtures -----------
     qlint_rows, qlint_stats = check_qlint(smi)
+
+    phase_done("qlint")
 
     # -- 3. kernels against their plain versions --------------------------------
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -4060,6 +4145,8 @@ def main() -> int:
             f"{extra}")
     log(f"[kernel] max abs diff vs plain: {json.dumps(errs)}")
 
+    phase_done("kernels")
+
     # -- 4. llama2-7b at full width under four recipes ---------------------------
     cfg = get_arch("llama2-7b")
     api = get_model(cfg)
@@ -4067,6 +4154,8 @@ def main() -> int:
     recipes = {r.name: r for r in (DEFAULT_RECIPE, FLOAT_SCALE_RECIPE, coarse,
                                    WEIGHT_ONLY_RECIPE)}
     qparams = build_models(api, cfg, recipes.values())
+
+    phase_done("llama2-7b build")
 
     # -- 5. serve each recipe --------------------------------------------------------
     sc = ServeConfig(max_slots=4, prefill_len=128, max_seq=256,
@@ -4112,10 +4201,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    phase_done("serve")
+
     # -- 5b. the int8 KV cache on the IS weights ----------------------------------
     kv8_stats = kv8_phase(api, cfg, qparams[DEFAULT_RECIPE.name],
                           DEFAULT_RECIPE, sc, prompts, toks, n0,
                           launches_total, is_outs, smi)
+
+    phase_done("kv8")
 
     # -- 6. breaker drill: IS -> FS on the card -----------------------------------
     eng, outs, launches, reg, wall, _ = serve_recipe(
@@ -4144,6 +4237,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase_done("drill")
+
     # -- 7. profile one IS and one W4A16 decode step ------------------------
     profiles = {}
     for name in (DEFAULT_RECIPE.name, WEIGHT_ONLY_RECIPE.name):
@@ -4166,9 +4261,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase_done("profile")
+
     # -- 7b. llama2-7b under the calibration algorithms ------------------------
     calib_stats = calib_phase(api, cfg, sc, prompts, toks, n0, launches_total,
                               smi)
+
+    phase_done("calib")
 
     # -- 8. mixtral-8x7b at full width, one recipe at a time ------------------------
     mcfg = get_arch("mixtral-8x7b")
@@ -4236,25 +4335,38 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    phase_done("mixtral")
+
     # -- 8b. llama3.2-3b under the paper's LLaMA-3 recipe ------------------------
     llama3_stats = llama3_phase(sc, prompts, toks, n0, launches_total, smi)
+
+    phase_done("llama3")
 
     # -- 8c. Qwen2-72B, Granite-34B and Phi-3.5-MoE at full width ------------------
     configs_stats = configs_phase(sc, prompts, toks, n0, launches_total, smi)
 
+    phase_done("configs")
+
     # -- 8d. MiniCPM3-4B and DeepSeek-V2 (MLA) at full width ---------------------
     mla_stats = mla_phase(sc, prompts, toks, n0, launches_total, smi)
 
+    phase_done("mla")
+
     # -- 8e. Llama-3.2-Vision and Whisper-tiny (cross attention) -------------
     xattn_stats = xattn_phase(launches_total, smi)
+
+    phase_done("xattn")
 
     # -- 8f. xLSTM-1.3B and RecurrentGemma-9B (the recurrent families) -------
     recurrent_stats = recurrent_phase(sc, prompts, toks, n0, launches_total,
                                       smi)
 
+    phase_done("recurrent")
+
     # -- 8g. training: llama3.2-3b at full width, the restart drill ----------
     train_stats = train_phase(launches_total, smi)
 
+    phase_done("train")
     missing = sorted(k for k in _build.KERNELS if launches_total[k] <= 0)
     if missing:
         raise AssertionError(f"kernels never launched on a served or "
@@ -4338,6 +4450,7 @@ def main() -> int:
         "mla": mla_stats, "xattn": xattn_stats,
         "recurrent": recurrent_stats, "train": train_stats,
         "seconds": time.perf_counter() - t_start,
+        "phase_seconds": phase_times,
     }, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -1,5 +1,6 @@
-// Staging helpers shared by the cp.async ring kernels (w4a16_ring.cuh and
-// w4a8_ring.cuh): 16-byte global -> shared copies, their commit groups and
+// Staging helpers shared by the cp.async ring kernels (w4a16_ring.cuh,
+// w4a8_ring.cuh and, through tc_bf16.cuh, the two flash-attention
+// kernels): 16- and 4-byte global -> shared copies, their commit groups and
 // waits, the plain-load path for rows that are not 16-byte aligned,
 // ldmatrix, the small integer quotient both loops track groups with, and
 // the routed-row count of an expert that the grouped launches read on the
@@ -19,6 +20,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0));
+}
+// 4 bytes global -> shared (cp.async.cg takes only 16), zero-filled when
+// !pred
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 4 : 0));
 }
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tc_bf16.cuh"
+
 namespace {
 
 constexpr int BQ = 64, BK = 64, kThreads = 128;
@@ -219,8 +221,6 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // ---------------------------------------------------------------------------
 
 constexpr int TQ = 32, TK = 64, kTcThreads = 64;  // 2 warps x 16 query rows
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct TcSmem {
@@ -229,58 +229,6 @@ struct TcSmem {
   static constexpr int kv = TK * stride;
   static constexpr int bytes = (q + 4 * kv) * 2;  // Q, K x 2, V x 2
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !pred
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// (a, b) as bf16 pairs hi = bf16(a, b) and lo = bf16(a - hi, b - hi)
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = pack_bf16(a, b);
-  lo = pack_bf16(a - __uint_as_float(hi << 16),
-                 b - __uint_as_float(hi & 0xffff0000u));
-}
 
 template <int D>
 __global__ void __launch_bounds__(kTcThreads)
@@ -357,7 +305,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     if (kQInRegs && kt == kt_begin) {
 #pragma unroll
       for (int kk = 0; kk < (kQInRegs ? D / 16 : 0); ++kk) {
-        ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * ST + kk * 16 +
+        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * ST + kk * 16 +
                             (lane >> 4) * 8);
       }
     }
@@ -374,14 +322,14 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       if constexpr (!kQInRegs) {
-        ldsm_x4(qf[0], Qs + (warp * 16 + (lane & 15)) * ST + kk * 16 +
+        ldmatrix_x4(qf[0], Qs + (warp * 16 + (lane & 15)) * ST + kk * 16 +
                            (lane >> 4) * 8);
       }
       const uint32_t(&qa)[4] = qf[kQInRegs ? kk : 0];
 #pragma unroll
       for (int j2 = 0; j2 < TK / 16; ++j2) {
         uint32_t bk[4];  // keys 16 j2 .. +7 and +8 .. +15
-        ldsm_x4(bk, Kt + (j2 * 16 + (lane >> 4) * 8 + (lane & 7)) * ST +
+        ldmatrix_x4(bk, Kt + (j2 * 16 + (lane >> 4) * 8 + (lane & 7)) * ST +
                         kk * 16 + ((lane >> 3) & 1) * 8);
         mma_bf16(s[2 * j2], qa, bk[0], bk[1]);
         mma_bf16(s[2 * j2 + 1], qa, bk[2], bk[3]);
@@ -448,7 +396,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int d2 = 0; d2 < D / 16; ++d2) {
         uint32_t bv[4];  // dims 16 d2 .. +7 and +8 .. +15
-        ldsm_x4_t(bv, Vt +
+        ldmatrix_x4_t(bv, Vt +
                           (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ST +
                           d2 * 16 + (lane >> 4) * 8);
         mma_bf16(acc[2 * d2], ph, bv[0], bv[1]);

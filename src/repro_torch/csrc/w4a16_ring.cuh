@@ -68,6 +68,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "tc_bf16.cuh"
 
 namespace {
 
@@ -93,15 +94,6 @@ struct Smem {
   static constexpr int red = 2 * BM * BN * 4;
   static constexpr int bytes = ring > red ? ring : red;
 };
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // The signed nibble under MASK of v as an exact float: the nibble (xor 8)
 // becomes the low mantissa bits of a float whose exponent (in magic) puts

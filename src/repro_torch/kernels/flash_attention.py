@@ -31,6 +31,7 @@ import math
 import torch
 
 from . import _build
+from .w4a8_gemm import _sm_count
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)  # head_dims the kernel is instantiated for
@@ -46,7 +47,11 @@ BWD_REL_TOLERANCE = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
          + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
 _BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float]
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+#: the bf16 backward's tiles (``TKV`` and ``TQD`` of
+#: csrc/flash_attention_bwd.cu): key rows of a dK/dV block, query rows of
+#: a dQ block
+BWD_KV_TILE = BWD_Q_TILE = 64
 
 
 def _mask(Sq: int, Sk: int, causal: bool, window: int | None, device):
@@ -164,6 +169,26 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     return _forward(q, k, v, causal, window, softmax_scale, True)
 
 
+def bwd_launch_plan(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int,
+                    dtype: torch.dtype, sms: int) -> dict:
+    """The backward's launch on a card with ``sms`` SMs: its dK/dV and dQ
+    blocks, the ``splits`` of each kv head's G query heads over dK/dV
+    blocks, and the f32 ``workspace`` elements of their partials (0
+    without a split). bf16 splits the heads, by the smallest divisor of G
+    that gives at least one dK/dV block an SM (or by G), where key tiles x
+    B Hkv blocks are fewer than the SMs; f32 (the scalar kernels, 64-row
+    tiles too) never does."""
+    G = Hq // Hkv
+    base = -(-Sk // BWD_KV_TILE) * B * Hkv
+    splits = 1
+    if dtype == torch.bfloat16:
+        while base * splits < sms and splits < G:
+            splits = next(s for s in range(splits + 1, G + 1) if G % s == 0)
+    return {"kv_blocks": base * splits, "q_blocks": -(-Sq // BWD_Q_TILE)
+            * B * Hq, "splits": splits,
+            "workspace": 2 * splits * B * Sk * Hkv * D if splits > 1 else 0}
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int | None = None,
                         softmax_scale: float | None = None):
@@ -171,7 +196,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     ``lse`` (f32 (B, Hq, Sq)) and the output's gradient ``do``. CPU
     tensors take :func:`flash_attention_bwd_plain`; CUDA tensors launch
     the backward kernel (head dims :data:`BWD_HEAD_DIMS`; another raises
-    ``ValueError``)."""
+    ``ValueError``) as :func:`bwd_launch_plan` lays it out on the card,
+    with the f32 workspace a head split needs."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window,
@@ -190,6 +216,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    plan = bwd_launch_plan(B, Sq, Sk, Hq, Hkv, D, q.dtype,
+                           _sm_count(q.device.index))
+    ws = (torch.empty(plan["workspace"], dtype=torch.float32,
+                      device=q.device) if plan["workspace"] else None)
     scale = softmax_scale or (1.0 / math.sqrt(D))
     fn = _build.function("flash_attention_bwd", "flash_attention_bwd_launch",
                          _BWD_ARGS)
@@ -199,6 +229,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  int(q.dtype == torch.bfloat16), B, Sq, Sk, Hq, Hkv, D,
                  scale, int(causal), -1 if window is None else window,
+                 plan["splits"], None if ws is None else ws.data_ptr(),
                  _build.stream_of(q))
     _build.check(err, "flash_attention_bwd")
     _build.count("flash_attention_bwd")

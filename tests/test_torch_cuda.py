@@ -77,7 +77,9 @@ eager greedy loop.
 
 Training: the flash-attention backward kernel against its plain version
 (head dims 32, 64 and 128; bf16 and f32; causal, windowed, non-causal
-with Sq != Sk; S no multiple of the tile; B > 1; GQA and MQA) within
+with Sq != Sk; S no multiple of the tile; B > 1; GQA and MQA; the
+train step's 24 over 8 heads; a grid small enough that the bf16 launch
+plan splits the heads) within
 ``BWD_REL_TOLERANCE`` x max |plain| and bit-repeatable; the forward with
 its lse output bit-equal to the forward without it; head dim 256
 refused; autograd on the card launching the backward kernel once; and
@@ -1989,7 +1991,13 @@ BWD_SHAPES = [  # (B, Sq, Sk, Hq, Hkv, D, causal, window)
     (3, 300, 300, 4, 2, 64, True, 100),      # window across key tiles
     (2, 45, 45, 4, 1, 32, True, 16),         # heads of 32, MQA, window
     (2, 33, 150, 8, 2, 128, False, None),    # non-causal, Sq != Sk
-    (1, 200, 200, 4, 4, 128, False, None)]   # non-causal, square
+    (1, 200, 200, 4, 4, 128, False, None),   # non-causal, square
+    # the train step's heads, S no multiple of the bf16 tiles (64); 288
+    # dK/dV blocks, so the launch plan splits no heads
+    (2, 1100, 1100, 24, 8, 128, True, None),
+    # 34 dK/dV blocks: the bf16 plan splits each group's 4 heads over 4
+    # blocks (f32 partials in the workspace, summed in order)
+    (1, 520, 1030, 8, 2, 128, False, None)]
 
 
 def _bwd_inputs(cuda, dtype, B, Sq, Sk, Hq, Hkv, D):

@@ -19,6 +19,11 @@ Tolerances and why:
   of order 1; sums in other orders); bf16 within one bf16 ulp of each
   gradient's largest value, 2^-7 of it (both round f32 gradients to bf16
   once; the port's rowsum(dO o O) reads the bf16-rounded output).
+* A CPU replay of the bf16 backward kernels' arithmetic (bf16 operands,
+  f32 sums one MMA k16 step at a time in the kernels' order, P and dS as
+  bf16 hi + lo parts, the launch plan's head split) against both: bf16
+  within the same 2^-7 of each gradient's largest value, the bound the
+  kernels are held to on the card (``BWD_REL_TOLERANCE``).
 * The train step from the reference's initial params, converted: the
   loss, ce and grad norm rtol 1e-5 (f32) / 2e-3 (bf16: bf16 activations
   rounded in other places), 20 times that at step 2 (computed from the
@@ -343,6 +348,131 @@ def test_flash_bwd_plain_matches_jax_vjp(case, dtype):
         for g, r in zip(got, ref):
             np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=0,
                                        atol=1e-5)
+
+
+def _bwd_cu_int(symbol: str) -> int:
+    """An integer constexpr of csrc/flash_attention_bwd.cu."""
+    import re
+
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    return int(re.search(rf"\b{symbol} = (\d+)", src).group(1))
+
+
+def _bf16_parts(x):
+    """x as the kernels feed P and dS to an MMA: bf16 hi and lo parts."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _bwd_tc_replay(q, k, v, o, lse, do, causal, window, splits):
+    """The bf16 backward kernels' arithmetic (csrc/flash_attention_bwd.cu)
+    on CPU tensors: bf16 operands into f32 sums, one MMA k16 step at a
+    time in the kernels' order; P and dS as the MMAs take them (bf16 hi
+    and lo parts, one MMA each); a kv head's dK and dV summed over the G
+    query heads of each of its ``splits`` in order, the splits' f32
+    partials added in order. Chunks the kernels skip add exact zeros
+    here."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    Gs = G // splits
+    f32 = torch.float32
+    scale = torch.tensor(1.0 / np.sqrt(D), dtype=f32)
+    log2e = torch.tensor(1.4426950408889634, dtype=f32)
+    sl2 = (scale * log2e).double()
+    qh, doh = (t.float().permute(0, 2, 1, 3) for t in (q, do))
+    kh, vh = (t.float().permute(0, 2, 1, 3).repeat_interleave(G, 1)
+              for t in (k, v))
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+
+    def over_d(a, b):  # a b^T in k16 steps over the head dim
+        acc = torch.zeros(a.shape[:-1] + (b.shape[-2],), dtype=f32)
+        for c in range(0, D, 16):
+            acc = acc + a[..., c:c + 16] @ b[..., c:c + 16].transpose(-1, -2)
+        return acc
+
+    s, dp = over_d(qh, kh), over_d(doh, vh)  # (B, Hq, Sq, Sk)
+    l2 = (lse * log2e)[..., None].double()
+    p = torch.where(FA._mask(Sq, Sk, causal, window, "cpu"),
+                    torch.exp2((s.double() * sl2 - l2).float()), 0.0)
+    ds = p * (dp - delta[..., None])
+
+    dk = dv = None
+    for z in range(splits):
+        pk = pv = torch.zeros(B, Hkv, Sk, D, dtype=f32)
+        for gi in range(Gs):
+            heads = [hk * G + z * Gs + gi for hk in range(Hkv)]
+            for c in range(0, Sq, 16):
+                for part in _bf16_parts(
+                        p[:, heads, c:c + 16].transpose(-1, -2)):
+                    pv = pv + part @ doh[:, heads, c:c + 16]
+                for part in _bf16_parts(
+                        ds[:, heads, c:c + 16].transpose(-1, -2)):
+                    pk = pk + part @ qh[:, heads, c:c + 16]
+        pk = pk * scale
+        dk = pk if dk is None else dk + pk
+        dv = pv if dv is None else dv + pv
+    dq = torch.zeros(B, Hq, Sq, D, dtype=f32)
+    for c in range(0, Sk, 16):
+        for part in _bf16_parts(ds[..., c:c + 16]):
+            dq = dq + part @ kh[:, :, c:c + 16]
+    dq = dq * scale
+    return tuple(t.permute(0, 2, 1, 3).to(torch.bfloat16)
+                 for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("plan", ["card", "unsplit"])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_flash_bwd_tensor_core_replay_matches_jax_vjp(case, plan):
+    """A CPU replay of the bf16 backward kernels' arithmetic, with the G
+    heads split as the launch plan splits them on a 132-SM card or not
+    split, within ``BWD_REL_TOLERANCE`` (one bf16 ulp of each gradient's
+    largest value) of ``jax.vjp`` of the reference's attention and of
+    :func:`flash_attention_bwd_plain`."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window = BWD_CASES[case]
+    (jq, jk, jv, jdo), (q, k, v, do) = _qkv(case, "bfloat16")
+    _, vjp = jax.vjp(lambda q_, k_, v_: jattn.flash_attention(
+        q_, k_, v_, causal=causal, window=window, q_chunk=8, kv_chunk=8),
+        jq, jk, jv)
+    want_jax = [np.asarray(g, np.float32) for g in vjp(jdo)]
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want = FA.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                        window=window)
+    splits = (FA.bwd_launch_plan(B, Sq, Sk, Hq, Hkv, D, torch.bfloat16,
+                                 132)["splits"] if plan == "card" else 1)
+    got = _bwd_tc_replay(q, k, v, out, lse, do, causal, window, splits)
+    rel = FA.BWD_REL_TOLERANCE[torch.bfloat16]
+    for g, w, wj, t in zip(got, want, want_jax, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
+                                   rtol=0, atol=rel * w.float().abs().max())
+        np.testing.assert_allclose(g.float().numpy(), wj, rtol=0,
+                                   atol=rel * np.abs(wj).max())
+
+
+@pytest.mark.parametrize("shape,dtype,kv_blocks,splits", [
+    ((4, 1024, 1024, 24, 8, 128), torch.bfloat16, 512, 1),
+    ((2, 1024, 1024, 8, 2, 128), torch.bfloat16, 256, 4),
+    ((2, 256, 1024, 8, 2, 64), torch.bfloat16, 256, 4),
+    ((3, 300, 300, 4, 2, 64), torch.bfloat16, 60, 2),
+    ((8, 256, 256, 8, 8, 64), torch.float32, 256, 1)])
+def test_flash_bwd_launch_plan(shape, dtype, kv_blocks, splits):
+    """The backward's launch plan on a 132-SM H100: llama3.2-3b's train
+    step fills the card with key tiles x B Hkv dK/dV blocks; a window or
+    a long memory (key tiles x B Hkv = 64) splits each group's G heads
+    (a divisor of G) until at least 132 blocks run, or G does; f32 never
+    splits. The tiles are the .cu's (``TKV``, ``TQD``), and the
+    workspace holds the splits' f32 dK and dV partials."""
+    B, Sq, Sk, Hq, Hkv, D = shape
+    assert (FA.BWD_KV_TILE, FA.BWD_Q_TILE) == (_bwd_cu_int("TKV"),
+                                              _bwd_cu_int("TQD"))
+    plan = FA.bwd_launch_plan(B, Sq, Sk, Hq, Hkv, D, dtype, 132)
+    assert plan["splits"] == splits and (Hq // Hkv) % splits == 0
+    assert plan["kv_blocks"] == -(-Sk // _bwd_cu_int("TKV")) * B * Hkv * \
+        splits == kv_blocks
+    assert plan["q_blocks"] == -(-Sq // _bwd_cu_int("TQD")) * B * Hq
+    assert plan["workspace"] == (2 * splits * B * Sk * Hkv * D
+                                 if splits > 1 else 0)
 
 
 def test_flash_attention_trains_through_its_autograd_function_on_cpu():
