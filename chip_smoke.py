@@ -300,6 +300,27 @@ Phases (any failure raises and exits non-zero; nothing is caught). A
    (the bf16 heads split, dK/dV and dQ blocks); ``[bwd]`` lines give
    ptxas's registers and spills of each backward entry beside the bf16
    blocks' dynamic shared memory, and a spill at head dim 128 fails.
+8h. ``[train-moe]``: training the MoE family and MLA
+   (:func:`train_moe_phase`). ``mixtral-8x7b`` at full width (8 experts
+   top-2 of 14336, capacity factor 1.25: tokens dropped) cut to 2 of 32
+   layers, bf16, remat, 4 steps of 4 x 1024 tokens through
+   ``launch.train.train_loop``: step ms, tokens/s, peak, loss, ce, aux
+   (> 0) and grad norm (finite), each MoE layer's dropped share, launches
+   exactly 2 flash forwards and 1 backward a layer and step; one step
+   with ``moe_int8_dispatch`` against one without at lr 0 (printed);
+   whether two equal forwards and backwards repeat bit for bit; one step
+   profiled (the expert GEMMs, dispatch and combine, the router, flash
+   forward and backward, AdamW, the rest). Its first layer at full width
+   in f32 against the CPU (routed counts compared first, any flip
+   printed; loss, aux and every gradient within 1e-2 / 5e-2), on a
+   synthetic batch and on one whose first half is one token repeated
+   (tokens dropped).
+   ``minicpm3-4b`` (MLA) at full width cut to 4 of 62 layers, bf16, 3
+   steps of 2 x 1024 (no kernel launched: MLA's prefill attention is
+   plain PyTorch, as the reference's is jnp), its first layer in f32
+   against the CPU; ``deepseek-v2-236b``'s smoke layout (a dense layer,
+   then MoE with shared experts over MLA) in f32 at top-2 and top-6
+   against the CPU, each repeated on the card for bit equality.
 9. Print the ``kernels`` JSON line (the nine kernels, launches summed
    over every served and training path; the five qlint fixtures,
    launches from their run in phase 2b), then the result line
@@ -498,6 +519,18 @@ TRAIN_CPU_LOSS_REL, TRAIN_CPU_GRAD_REL = 1e-2, 5e-2
 TRAIN_ACCUM_LOSS_REL, TRAIN_ACCUM_NORM_REL = 1e-3, 1e-2
 DRILL_STEPS, DRILL_CKPT_EVERY, DRILL_FAIL_AT = 40, 10, 25
 DRILL_LOSS_RATIO = 0.8
+# phase 8h: training the MoE family and MLA. Mixtral-8x7B at full width
+# cut to TRAIN_MOE_LAYERS layers (bf16, remat, TRAIN_MOE_STEPS steps of
+# TRAIN_MOE_B x TRAIN_MOE_S tokens), then its first layer in f32 against
+# the CPU on TRAIN_MOE_CPU_B x TRAIN_MOE_CPU_S tokens; MiniCPM3-4B (MLA)
+# at full width cut to TRAIN_MLA_LAYERS layers the same way; DeepSeek-V2's
+# smoke config (f32, top-2 and top-6) on TRAIN_SMOKE_B x TRAIN_SMOKE_S
+# tokens against the CPU. The CPU checks hold the TRAIN_CPU_* bounds.
+TRAIN_MOE_ARCH, TRAIN_MOE_LAYERS, TRAIN_MOE_STEPS = "mixtral-8x7b", 2, 4
+TRAIN_MOE_B, TRAIN_MOE_S, TRAIN_MOE_CPU_B, TRAIN_MOE_CPU_S = 4, 1024, 1, 256
+TRAIN_MLA_ARCH, TRAIN_MLA_LAYERS, TRAIN_MLA_STEPS = "minicpm3-4b", 4, 3
+TRAIN_MLA_B, TRAIN_MLA_S = 2, 1024
+TRAIN_SMOKE_ARCH, TRAIN_SMOKE_B, TRAIN_SMOKE_S = "deepseek-v2-236b", 2, 64
 
 
 def log(*a):
@@ -3672,31 +3705,24 @@ def recurrent_model_api(launches_total, smi):
     return st
 
 
-def _loss_and_grads(api, cfg, params, batch):
-    """The train loss and every leaf's gradient (``training.train_step``'s
-    loss; the leaves require grad only for this call)."""
-    import torch
-    from repro_torch.nn import spec as S
-    from repro_torch.training import train_step as T
-
-    leaves = S.leaves(params)
-    for t in leaves:
-        t.requires_grad_(True)
-    try:
-        loss, _ = T.make_loss_fn(api, cfg)(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
-    finally:
-        for t in leaves:
-            t.requires_grad_(False)
-    return float(loss.detach()), grads
+# the ops of a MoE layer's dispatch and combine (sort, gathers, scatters,
+# index_add_ and their backwards), by the CPU op that launches them
+DISPATCH_OPS = ("aten::sort", "aten::argsort", "aten::gather",
+                "aten::scatter", "aten::scatter_", "aten::scatter_add",
+                "aten::scatter_add_", "aten::index", "aten::index_add_",
+                "aten::index_put_", "aten::_index_put_impl_",
+                "aten::cumsum", "aten::where")
 
 
-def profile_train_step(step, params, opt, batch, vocab, top=8):
+def profile_train_step(step, params, opt, batch, vocab, top=8, experts=0):
     """One train step under ``torch.profiler`` (with input shapes and a
     range around ``optimizer.apply_updates``): device ms in the flash
     forward and backward kernels (by name), the GEMMs (the self device
     time of ``aten::mm`` / ``addmm`` / ``bmm``), of them the f32 logit
-    head's (a dimension of ``vocab``), AdamW (the range) and the rest."""
+    head's (a dimension of ``vocab``), AdamW (the range) and the rest.
+    With ``experts``: the expert GEMMs (``aten::bmm``) and the router's
+    products (a dimension of ``experts``) apart from the other GEMMs, and
+    the dispatch and combine (``DISPATCH_OPS``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -3727,22 +3753,32 @@ def profile_train_step(step, params, opt, batch, vocab, top=8):
         return sum(e.self_device_time_total for e in kernels
                    if any(n in e.key for n in names)) / 1e3
 
-    gemm = head = 0.0
+    gemm = head = expert = router = dispatch = 0.0
     for e in avg:
-        if e.device_type == DeviceType.CPU and e.key in (
-                "aten::mm", "aten::addmm", "aten::bmm"):
-            ms = e.self_device_time_total / 1e3
+        if e.device_type != DeviceType.CPU:
+            continue
+        ms = e.self_device_time_total / 1e3
+        if e.key in ("aten::mm", "aten::addmm", "aten::bmm"):
             dims = {d for shp in (e.input_shapes or []) for d in (shp or [])}
             if vocab in dims:
                 head += ms
+            elif experts and e.key == "aten::bmm":
+                expert += ms
+            elif experts and experts in dims:
+                router += ms
             else:
                 gemm += ms
+        elif experts and e.key in DISPATCH_OPS:
+            dispatch += ms
     adamw = sum(e.device_time_total for e in avg
                 if e.key == "train.adamw"
                 and e.device_type == DeviceType.CPU) / 1e3
     split = dict(flash_fwd=kern("flash_fwd_kernel", "flash_tc_kernel"),
                  flash_bwd=kern("flash_bwd_"), gemm=gemm, logit_head=head,
                  adamw=adamw)
+    if experts:
+        split.update(expert_gemm=expert, router=router,
+                     dispatch_combine=dispatch)
     split["rest"] = total - sum(split.values())
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     return dict(device_ms=total, split=split,
@@ -3750,6 +3786,60 @@ def profile_train_step(step, params, opt, batch, vocab, top=8):
                 top=[dict(name=e.key[:120], count=e.count,
                           ms=e.self_device_time_total / 1e3)
                      for e in ranked])
+
+
+def timed_train_loop(cfg, dc, steps):
+    """``launch.train.train_loop`` on the card from seed 0 with the
+    reference's ``AdamWConfig`` defaults, launch counts reset just before:
+    (params, opt, history, [(CUDA events around each step, its metrics)],
+    the host's batch seconds, wall s, peak allocated bytes)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import optimizer as O
+
+    timed, data_s = [], []
+    real_make, real_pipe = (launch_train.make_train_step,
+                            launch_train.SyntheticPipeline)
+
+    def make_timed(*a, **k):
+        step = real_make(*a, **k)
+
+        def timed_step(params, opt, batch):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = step(params, opt, batch)
+            ev[1].record()
+            timed.append((ev, out[2]))
+            return out
+        return timed_step
+
+    class TimedPipeline(real_pipe):
+        def global_batch(self, step):
+            t0 = time.perf_counter()
+            out = super().global_batch(step)
+            data_s.append(time.perf_counter() - t0)
+            return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[train] allocated on the card before the loop "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    _build.reset_launches()
+    launch_train.make_train_step = make_timed
+    launch_train.SyntheticPipeline = TimedPipeline
+    t0 = time.perf_counter()
+    try:
+        params, opt, hist = launch_train.train_loop(
+            cfg, dc, O.AdamWConfig(), steps=steps, seed=0, log_every=1,
+            log_fn=log, device="cuda")
+    finally:
+        launch_train.make_train_step = real_make
+        launch_train.SyntheticPipeline = real_pipe
+    torch.cuda.synchronize()
+    return (params, opt, hist, timed, data_s, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
 
 
 def train_phase(launches_total, smi):
@@ -3802,46 +3892,8 @@ def train_phase(launches_total, smi):
     api = get_model(cfg)
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
                     batch_size=TRAIN_B)
-    timed, data_s = [], []
-    real_make, real_pipe = (launch_train.make_train_step,
-                            launch_train.SyntheticPipeline)
-
-    def make_timed(*a, **k):
-        step = real_make(*a, **k)
-
-        def timed_step(params, opt, batch):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            out = step(params, opt, batch)
-            ev[1].record()
-            timed.append((ev, out[2]))
-            return out
-        return timed_step
-
-    class TimedPipeline(real_pipe):
-        def global_batch(self, step):
-            t0 = time.perf_counter()
-            out = super().global_batch(step)
-            data_s.append(time.perf_counter() - t0)
-            return out
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    launch_train.make_train_step = make_timed
-    launch_train.SyntheticPipeline = TimedPipeline
-    t0 = time.perf_counter()
-    try:
-        params, opt, hist = launch_train.train_loop(
-            cfg, dc, O.AdamWConfig(), steps=TRAIN_STEPS, seed=0, log_every=1,
-            log_fn=log, device="cuda")
-    finally:
-        launch_train.make_train_step = real_make
-        launch_train.SyntheticPipeline = real_pipe
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    params, opt, hist, timed, data_s, wall, peak = timed_train_loop(
+        cfg, dc, TRAIN_STEPS)
     L = cfg.num_layers
     check_xattn_launches(f"train {cfg.name}", _build.LAUNCHES,
                          {"flash_attention": 2 * L,
@@ -3885,8 +3937,10 @@ def train_phase(launches_total, smi):
     still = O.AdamWConfig(lr=0.0)  # both steps read the same params
     accum = {}
     for ga in (1, 2):
-        _, _, m = T.make_train_step(api, cfg, still, grad_accum=ga)(
-            params, opt, batch)
+        # the metrics only: a name bound to the returned state would keep
+        # it alive past the ``del`` below
+        m = T.make_train_step(api, cfg, still, grad_accum=ga)(
+            params, opt, batch)[2]
         accum[ga] = (float(m["loss"]), float(m["grad_norm"]))
     dl = abs(accum[2][0] - accum[1][0]) / abs(accum[1][0])
     dn = abs(accum[2][1] - accum[1][1]) / abs(accum[1][1])
@@ -3918,39 +3972,14 @@ def train_phase(launches_total, smi):
     cfg2 = dataclasses.replace(cfg, num_layers=TRAIN_CPU_LAYERS)
     api2 = get_model(cfg2)
     p_card = ptq.materialize_by_layer(api2, cfg2, seed=0, device="cuda")
-    p_cpu = S.tree_map(lambda t: t.cpu(), p_card)
-    b2 = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
-                                      seq_len=TRAIN_CPU_S,
-                                      batch_size=TRAIN_CPU_B)).global_batch(0)
-    _build.reset_launches()
-    l_card, g_card = _loss_and_grads(api2, cfg2, p_card, {
-        k: torch.from_numpy(v).to("cuda") for k, v in b2.items()})
-    torch.cuda.synchronize()
-    if _build.LAUNCHES["flash_attention_bwd"] != TRAIN_CPU_LAYERS:
-        raise AssertionError(f"train cpu check: {dict(_build.LAUNCHES)}")
-    t0 = time.perf_counter()
-    l_cpu, g_cpu = _loss_and_grads(api2, cfg2, p_cpu, {
-        k: torch.from_numpy(v) for k, v in b2.items()})
-    cpu_s = time.perf_counter() - t0
-    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
-    grad_rel = {}
-    for (path, _), gk, gp in zip(_paths(p_cpu), g_card, g_cpu, strict=True):
-        gk, gp = gk.float().cpu(), gp.float()
-        grad_rel[path] = ((gk - gp).norm() / gp.norm().clamp_min(1e-30)
-                          ).item()
-    worst = max(grad_rel, key=grad_rel.get)
-    log(f"[train] {cfg.name} first {TRAIN_CPU_LAYERS} layers at full width, "
-        f"{TRAIN_CPU_B} x {TRAIN_CPU_S} tokens, card vs CPU plain versions: "
-        f"loss {l_card:.6f} vs {l_cpu:.6f} ({loss_rel:.2e} relative, bound "
-        f"{TRAIN_CPU_LOSS_REL}); worst leaf |dg|/|g| {grad_rel[worst]:.2e} "
-        f"({worst}; bound {TRAIN_CPU_GRAD_REL}); CPU {cpu_s:.1f} s")
-    if not (loss_rel <= TRAIN_CPU_LOSS_REL
-            and grad_rel[worst] <= TRAIN_CPU_GRAD_REL):
-        raise AssertionError(f"train cpu check: loss {loss_rel}, grads "
-                             f"{grad_rel}")
-    stats["cpu_check"] = dict(layers=TRAIN_CPU_LAYERS, loss_rel=loss_rel,
-                              grad_rel=grad_rel, cpu_s=cpu_s)
-    del p_card, p_cpu, g_card, g_cpu
+    stats["cpu_check"] = dict(layers=TRAIN_CPU_LAYERS, **card_vs_cpu(
+        f"[train] {cfg.name} first {TRAIN_CPU_LAYERS} layers at full width",
+        api2, cfg2, p_card, SyntheticPipeline(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_CPU_S,
+            batch_size=TRAIN_CPU_B)).global_batch(0),
+        {"flash_attention": 2 * TRAIN_CPU_LAYERS,  # remat recomputes
+         "flash_attention_bwd": TRAIN_CPU_LAYERS}))
+    del p_card
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4031,6 +4060,351 @@ def train_phase(launches_total, smi):
                           seconds=drill_s, eval_loss=ev)
     stats["seconds"] = time.perf_counter() - t_phase
     log(f"[train] phase {stats['seconds']:.1f} s; {smi}")
+    return stats
+
+
+def _routed(records, layers, steps, tokens, top_k):
+    """Each MoE layer's dropped share (1 - routed / (tokens x top_k)) per
+    step, from routing-sink records of a remat run: a step records its
+    ``layers`` forwards in order, then the recomputes in the backward."""
+    if len(records) != 2 * layers * steps:
+        raise AssertionError(f"{len(records)} routing records, expected "
+                             f"{2 * layers * steps}")
+    return [[1.0 - float(records[s * 2 * layers + i]["counts"].sum())
+             / (tokens * top_k) for i in range(layers)]
+            for s in range(steps)]
+
+
+def _grads_on(api, cfg, params, batch):
+    """(loss, aux, gradient leaves, routed counts per MoE layer call) of
+    one forward and backward, the leaves requiring grad only for it."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.nn import spec as S
+    from repro_torch.training import train_step as T
+
+    leaves = S.leaves(params)
+    recs = moe.start_routing_trace()
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss, parts = T.make_loss_fn(api, cfg)(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+        moe.stop_routing_trace(recs)
+    return (loss.detach(), parts["aux"].detach(), grads,
+            [r["counts"].cpu().numpy() for r in recs])
+
+
+def card_vs_cpu(tag, api, cfg, params, batch, launches=None):
+    """One forward and backward of ``params`` (on the card) and of a CPU
+    copy on the same batch: a MoE model's routed counts compared first (a
+    flip is printed, not failed), then the loss, the aux loss and every
+    leaf's gradient held to ``TRAIN_CPU_*``; ``launches``, the kernels the
+    card's run must launch. ``tag`` begins the line it logs; returns the
+    row."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models import moe
+    from repro_torch.nn import spec as S
+
+    p_cpu = S.tree_map(lambda t: t.cpu(), params)
+    _build.reset_launches()
+    recs = moe.start_routing_trace()  # the card's capacities
+    try:
+        l_card, a_card, g_card, r_card = _grads_on(api, cfg, params, {
+            k: torch.from_numpy(v).to("cuda") for k, v in batch.items()})
+    finally:
+        moe.stop_routing_trace(recs)
+    torch.cuda.synchronize()
+    if launches is not None:
+        check_xattn_launches(f"{tag} card vs cpu", _build.LAUNCHES, launches)
+    t0 = time.perf_counter()
+    l_cpu, a_cpu, g_cpu, r_cpu = _grads_on(api, cfg, p_cpu, {
+        k: torch.from_numpy(v) for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    flips = [int((a != b).sum()) for a, b in zip(r_card, r_cpu,
+                                                  strict=True)]
+    B, Sq = batch["tokens"].shape
+    dropped = [round(1.0 - float(r.sum()) / (B * Sq * cfg.top_k), 4)
+               for r in r_card]
+    loss_rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    aux_rel = abs(float(a_card) - float(a_cpu)) / max(abs(float(a_cpu)),
+                                                      1e-30)
+    grad_rel = {}
+    for (path, _), gk, gp in zip(_paths(p_cpu), g_card, g_cpu, strict=True):
+        gk, gp = gk.float().cpu(), gp.float()
+        grad_rel[path] = ((gk - gp).norm() / gp.norm().clamp_min(1e-30)
+                          ).item()
+    worst = max(grad_rel, key=grad_rel.get)
+    routing = (f"routed counts of {len(r_card)} MoE layer calls, experts "
+               f"whose counts differ {flips} (a routing flip is printed, not "
+               f"failed), dropped share {dropped} (capacity "
+               f"{[r['capacity'] for r in recs]}); " if r_card else "")
+    log(f"{tag}, {cfg.dtype}, card vs CPU plain versions on {B} x {Sq} "
+        f"tokens: {routing}"
+        f"loss {float(l_card):.6f} vs {float(l_cpu):.6f} ({loss_rel:.2e} "
+        f"relative, bound {TRAIN_CPU_LOSS_REL}); aux {float(a_card):.6e} vs "
+        f"{float(a_cpu):.6e} ({aux_rel:.2e}); worst leaf |dg|/|g| "
+        f"{grad_rel[worst]:.2e} ({worst}; bound {TRAIN_CPU_GRAD_REL}); CPU "
+        f"{cpu_s:.1f} s")
+    if not (loss_rel <= TRAIN_CPU_LOSS_REL and aux_rel <= TRAIN_CPU_LOSS_REL
+            and grad_rel[worst] <= TRAIN_CPU_GRAD_REL
+            and all(np.isfinite(float(x)) for x in (l_card, a_card))):
+        raise AssertionError(f"{tag} card vs cpu: loss {loss_rel}, aux "
+                             f"{aux_rel}, grads {grad_rel}")
+    return dict(flips=flips, dropped=dropped, loss_rel=loss_rel,
+                aux_rel=aux_rel,
+                worst_grad_rel=grad_rel[worst], worst_leaf=worst,
+                cpu_s=cpu_s)
+
+
+def repeats_bits(api, cfg, params, batch) -> dict:
+    """Two forwards and backwards of the same params on the same batch on
+    the card: whether the loss and every gradient repeat bit for bit."""
+    import torch
+
+    b = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+    first = _grads_on(api, cfg, params, b)
+    second = _grads_on(api, cfg, params, b)
+    differ = sum(not torch.equal(x, y) for x, y in zip(first[2], second[2],
+                                                        strict=True))
+    return dict(loss_equal=bool(torch.equal(first[0], second[0])),
+                leaves=len(first[2]), leaves_differ=differ)
+
+
+def train_moe_phase(launches_total, smi):
+    """Phase 8h, ``[train-moe]``: (a) ``TRAIN_MOE_ARCH`` (Mixtral-8x7B:
+    d_model 4096, 32 query heads over 8 of 128, 8 experts top-2 of d_ff
+    14336, vocab 32000, capacity factor 1.25, so tokens are dropped) at
+    full width, cut to ``TRAIN_MOE_LAYERS`` layers, bf16, remat on, the
+    reference's AdamW defaults, ``TRAIN_MOE_STEPS`` steps of
+    ``TRAIN_MOE_B`` x ``TRAIN_MOE_S`` tokens through
+    ``launch.train.train_loop`` (:func:`timed_train_loop`): step ms,
+    tokens/s, peak, loss, ce, aux, grad norm (finite, aux > 0), each MoE
+    layer's dropped share (routing sinks), launches exactly 2 flash
+    forwards and 1 backward a layer and step; one step with
+    ``moe_int8_dispatch`` against one without on one batch at lr 0
+    (finite; the differences printed); whether two equal forwards and
+    backwards repeat bit for bit; one step profiled (expert GEMMs,
+    dispatch and combine, router, flash forward and backward, AdamW, the
+    rest). (b) Its first layer at full width in f32 against the CPU
+    (:func:`card_vs_cpu`: routed counts first, then the loss, aux and
+    every gradient), on a synthetic batch and on one with its first half
+    one token repeated (those route to the same two experts: tokens
+    dropped). (c) ``TRAIN_MLA_ARCH`` (MiniCPM3-4B: MLA, dense) at
+    full width cut to ``TRAIN_MLA_LAYERS`` layers, bf16, remat, the same
+    loop (no flash: MLA's prefill is plain PyTorch), then its first layer
+    in f32 against the CPU. (d) ``TRAIN_SMOKE_ARCH``'s smoke config (a
+    dense layer, then MoE with shared experts over MLA) in f32 at top-2
+    and top-6 against the CPU, and whether each repeats bit for bit."""
+    import torch
+    from repro_torch.core import ptq
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_arch, get_model
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.nn import spec as S
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as T
+
+    t_phase = time.perf_counter()
+    built = set(_build.BUILD_LOG)
+    stats: dict = {}
+
+    def train_run(cfg, B, Sq, steps, launches):
+        """The timed loop, its checks and its row; returns (the row,
+        params, opt, the data config)."""
+        dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=Sq, batch_size=B)
+        recs = moe.start_routing_trace()
+        try:
+            params, opt, hist, timed, data_s, wall, peak = timed_train_loop(
+                cfg, dc, steps)
+        finally:
+            moe.stop_routing_trace(recs)
+        L = cfg.num_layers
+        check_xattn_launches(f"train-moe {cfg.name}", _build.LAUNCHES,
+                             launches, steps)
+        for k, n in _build.LAUNCHES.items():
+            launches_total[k] += n
+        step_ms = [ev[0].elapsed_time(ev[1]) for ev, _ in timed]
+        mets = {k: [float(m[k]) for _, m in timed]
+                for k in ("loss", "ce", "aux", "grad_norm")}
+        if not all(math.isfinite(x) for v in mets.values() for x in v):
+            raise AssertionError(f"train-moe {cfg.name}: {mets}")
+        n_moe = sum(k == "moe" for k in layer_kinds(cfg))
+        dropped = (_routed(recs, n_moe, steps, B * Sq, cfg.top_k)
+                   if n_moe else [])
+        if n_moe and not min(mets["aux"]) > 0:
+            raise AssertionError(f"train-moe {cfg.name}: aux {mets['aux']}")
+        steady = sum(step_ms[1:]) / len(step_ms[1:])
+        resident = sum(t.numel() * t.element_size()
+                       for t in S.leaves(params) + S.leaves(opt))
+        row = dict(layers=L, step_ms=step_ms, steady_step_ms=steady,
+                   tokens_per_s=B * Sq / (steady / 1e3), data_s=data_s,
+                   peak_bytes=peak, resident_bytes=resident, wall_s=wall,
+                   dropped=dropped, launches=dict(_build.LAUNCHES), **mets)
+        log(f"[train-moe] {cfg.name}: {L} layers at full width, "
+            f"{cfg.dtype}, remat, {steps} steps of {B} x {Sq} tokens: step "
+            f"ms (CUDA events) first {step_ms[0]:.1f}, then "
+            + ", ".join(f"{x:.1f}" for x in step_ms[1:])
+            + f" (mean {steady:.1f}); {row['tokens_per_s']:.0f} tokens/s of "
+            f"the device's steps; host batch s "
+            + ", ".join(f"{x:.3f}" for x in data_s)
+            + f"; peak allocated {peak / 1e9:.2f} GB, params + AdamW state "
+            f"{resident / 1e9:.2f} GB; "
+            + "; ".join(f"{k} " + ", ".join(f"{x:.4f}" for x in v)
+                        for k, v in mets.items())
+            + (f"; dropped share per MoE layer and step "
+               f"{json.dumps([[round(x, 4) for x in d] for d in dropped])}"
+               if dropped else "")
+            + f"; launches {json.dumps(row['launches'])}; {smi}")
+        return row, params, opt, dc
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def cpu_batch(cfg, B, Sq):
+        return SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                            seq_len=Sq, batch_size=B)
+                                 ).global_batch(0)
+
+    # -- (a) Mixtral-8x7B at full width ---------------------------------------
+    full = get_arch(TRAIN_MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_MOE_LAYERS)
+    if not cfg.remat or cfg.dtype != "bfloat16" or cfg.capacity_factor > 1.25:
+        raise AssertionError(f"{cfg.name}: expected bf16, remat, capacity "
+                             "factor 1.25")
+    api = get_model(cfg)
+    L = cfg.num_layers
+    log(f"[train-moe] {cfg.name}: {L} of {full.num_layers} layers (depth "
+        f"cut), d_model {cfg.d_model}, {cfg.num_heads} query heads over "
+        f"{cfg.num_kv_heads} of {cfg.head_dim}, {cfg.num_experts} experts "
+        f"top-{cfg.top_k} of d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}, "
+        f"capacity factor {cfg.capacity_factor}")
+    row, params, opt, dc = train_run(
+        cfg, TRAIN_MOE_B, TRAIN_MOE_S, TRAIN_MOE_STEPS,
+        {"flash_attention": 2 * L, "flash_attention_bwd": L})
+    batch = SyntheticPipeline(dc).global_batch(TRAIN_MOE_STEPS)
+    tb = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+    still = O.AdamWConfig(lr=0.0)  # both steps read the same params
+    int8 = {}
+    for flag in (False, True):
+        c = dataclasses.replace(cfg, moe_int8_dispatch=flag)
+        _build.reset_launches()
+        m = T.make_train_step(get_model(c), c, still)(params, opt, tb)[2]
+        torch.cuda.synchronize()
+        check_xattn_launches(f"train-moe int8 {flag}", _build.LAUNCHES,
+                             {"flash_attention": 2 * L,
+                              "flash_attention_bwd": L})
+        for k, n in _build.LAUNCHES.items():
+            launches_total[k] += n
+        int8[flag] = {k: float(v) for k, v in m.items()}
+    if not all(math.isfinite(v) for m in int8.values() for v in m.values()):
+        raise AssertionError(f"train-moe int8 dispatch: {int8}")
+    dl = int8[True]["loss"] - int8[False]["loss"]
+    dn = int8[True]["grad_norm"] - int8[False]["grad_norm"]
+    log(f"[train-moe] moe_int8_dispatch on one batch at lr 0: loss "
+        f"{int8[True]['loss']:.6f} vs {int8[False]['loss']:.6f} ({dl:+.3e}), "
+        f"grad norm {int8[True]['grad_norm']:.6f} vs "
+        f"{int8[False]['grad_norm']:.6f} ({dn:+.3e}) (information: finite "
+        "and the launch counts are the gates)")
+    row["int8_dispatch"] = dict(on=int8[True], off=int8[False],
+                                loss_diff=dl, grad_norm_diff=dn)
+    row["repeat"] = repeats_bits(api, cfg, params, batch)
+    log(f"[train-moe] {cfg.name}: two equal forwards and backwards on the "
+        f"card: loss bit-equal {row['repeat']['loss_equal']}, gradient "
+        f"leaves differing {row['repeat']['leaves_differ']} of "
+        f"{row['repeat']['leaves']}")
+    step = T.make_train_step(api, cfg, still)
+    prof = profile_train_step(step, params, opt, tb, cfg.vocab_size,
+                              experts=cfg.num_experts)
+    sp, dev = prof["split"], prof["device_ms"]
+    log(f"[profile] train-moe {cfg.name}: one step {dev:.1f} ms of device "
+        f"kernels in {prof['launches']} launches: "
+        + "; ".join(f"{k} {v:.1f} ms ({v / dev:.3f})" for k, v in sp.items())
+        + f"; top {len(prof['top'])}:")
+    for p in prof["top"]:
+        log(f"[profile]   {p['ms']:.3f} ms  x{p['count']}  {p['name']}")
+    row["profile"] = prof
+    stats[cfg.name] = row
+    del params, opt, tb, step
+    free()
+
+    # -- (b) its first layer at full width, f32, against the CPU --------------
+    c1 = dataclasses.replace(cfg, num_layers=1, dtype="float32", remat=False)
+    a1 = get_model(c1)
+    p1 = ptq.materialize_by_layer(a1, c1, seed=0, device="cuda")
+    b1 = cpu_batch(c1, TRAIN_MOE_CPU_B, TRAIN_MOE_CPU_S)
+    flash1 = {"flash_attention": 1, "flash_attention_bwd": 1}
+    stats["mixtral_cpu_check"] = card_vs_cpu(
+        f"[train-moe] {c1.name} first layer", a1, c1, p1, b1, flash1)
+    # the first half of the positions one token repeated: their hidden
+    # states are alike, so they route to the same two experts, past their
+    # capacity. (All of it repeated would make every value row alike, and
+    # the gradient of q and k zero up to rounding on both devices.)
+    half = {k: v.copy() for k, v in b1.items()}
+    half["tokens"][:, :TRAIN_MOE_CPU_S // 2] = b1["tokens"][0, 0]
+    stats["mixtral_cpu_check_dropped"] = card_vs_cpu(
+        f"[train-moe] {c1.name} first layer, one token repeated over the "
+        "first half", a1, c1, p1, half, flash1)
+    if not min(stats["mixtral_cpu_check_dropped"]["dropped"]) > 0:
+        raise AssertionError("train-moe: the repeated token dropped none")
+    del p1
+    free()
+
+    # -- (c) MiniCPM3-4B (MLA, dense) at full width ---------------------------
+    mfull = get_arch(TRAIN_MLA_ARCH)
+    mcfg = dataclasses.replace(mfull, num_layers=TRAIN_MLA_LAYERS)
+    log(f"[train-moe] {mcfg.name}: {TRAIN_MLA_LAYERS} of {mfull.num_layers} "
+        f"layers (depth cut), d_model {mcfg.d_model}, {mcfg.num_heads} "
+        f"heads, kv_lora_rank {mcfg.kv_lora_rank}, q_lora_rank "
+        f"{mcfg.q_lora_rank}, d_ff {mcfg.d_ff}, vocab {mcfg.vocab_size}")
+    mrow, mp, mo, _ = train_run(mcfg, TRAIN_MLA_B, TRAIN_MLA_S,
+                                TRAIN_MLA_STEPS, {})
+    stats[mcfg.name] = mrow
+    del mp, mo
+    free()
+    m1 = dataclasses.replace(mcfg, num_layers=1, dtype="float32", remat=False)
+    ma1 = get_model(m1)
+    mp1 = ptq.materialize_by_layer(ma1, m1, seed=0, device="cuda")
+    stats["minicpm3_cpu_check"] = card_vs_cpu(
+        f"[train-moe] {m1.name} first layer", ma1, m1, mp1,
+        cpu_batch(m1, TRAIN_MOE_CPU_B, TRAIN_MOE_CPU_S), {})
+    del mp1
+    free()
+
+    # -- (d) DeepSeek-V2's smoke layout, top-2 and top-6 ----------------------
+    for top_k in (2, 6):
+        sc = dataclasses.replace(get_arch(TRAIN_SMOKE_ARCH, smoke=True),
+                                 dtype="float32", top_k=top_k)
+        sa = get_model(sc)
+        sparams = ptq.materialize_by_layer(sa, sc, seed=0, device="cuda")
+        sb = cpu_batch(sc, TRAIN_SMOKE_B, TRAIN_SMOKE_S)
+        r = card_vs_cpu(f"[train-moe] {sc.name} top-{top_k}", sa, sc,
+                        sparams, sb, {})
+        r["repeat"] = repeats_bits(sa, sc, sparams, sb)
+        log(f"[train-moe] {sc.name} top-{top_k}: two equal forwards and "
+            f"backwards on the card: loss bit-equal "
+            f"{r['repeat']['loss_equal']}, gradient leaves differing "
+            f"{r['repeat']['leaves_differ']} of {r['repeat']['leaves']}")
+        stats[f"{sc.name}-top{top_k}"] = r
+        del sparams
+    free()
+    new = {k: ptxas_report(v) for k, v in _build.BUILD_LOG.items()
+           if k not in built}
+    for name, fns in new.items():
+        for fn, info in fns.items():
+            log(f"[train-moe] built anew: {name}: {fn}: {info}")
+    stats["built_anew"] = sorted(new)
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"[train-moe] phase {stats['seconds']:.1f} s, kernels built anew "
+        f"{sorted(new) or 'none'}; {smi}")
     return stats
 
 
@@ -4367,6 +4741,11 @@ def main() -> int:
     train_stats = train_phase(launches_total, smi)
 
     phase_done("train")
+
+    # -- 8h. training the MoE family and MLA --------------------------------
+    train_moe_stats = train_moe_phase(launches_total, smi)
+
+    phase_done("train-moe")
     missing = sorted(k for k in _build.KERNELS if launches_total[k] <= 0)
     if missing:
         raise AssertionError(f"kernels never launched on a served or "
@@ -4449,6 +4828,7 @@ def main() -> int:
         "llama3": llama3_stats, "kv8": kv8_stats, "configs": configs_stats,
         "mla": mla_stats, "xattn": xattn_stats,
         "recurrent": recurrent_stats, "train": train_stats,
+        "train_moe": train_moe_stats,
         "seconds": time.perf_counter() - t_start,
         "phase_seconds": phase_times,
     }, indent=1))

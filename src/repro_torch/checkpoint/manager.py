@@ -159,7 +159,8 @@ class CheckpointManager:
             for k in z.files:
                 if k == "__meta__":
                     continue
-                a = np.ascontiguousarray(z[k])
+                # (ascontiguousarray would make a 0-d scalar (1,))
+                a = np.asarray(z[k], order="C")
                 t = torch.from_numpy(a.view(np.int16) if k in viewed else a)
                 if k in viewed:
                     t = t.view(_VIEWED[viewed[k]][0])

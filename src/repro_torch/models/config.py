@@ -1,9 +1,7 @@
 """Model configuration. Port of ``repro/models/config.py``: dense and MoE
 with GQA or MLA attention, the VLM (cross-attention layers every
 ``cross_attn_every``-th layer), the encoder-decoder ("audio", Whisper),
-xLSTM ("ssm") and RecurrentGemma / Griffin ("hybrid"). The MoE field
-that belongs to a later slice (the int8 dispatch all-to-all: multi-GPU)
-raises ``NotImplementedError`` when set."""
+xLSTM ("ssm") and RecurrentGemma / Griffin ("hybrid")."""
 from __future__ import annotations
 
 import dataclasses
@@ -52,7 +50,9 @@ class ModelConfig:
     dispatch_groups: int = 1
     num_shared_experts: int = 0     # an always-on MLP of this many experts
     first_dense_layers: int = 0     # leading dense blocks (DeepSeek-V2: 1)
-    moe_int8_dispatch: bool = False  # multi-GPU slice (the all-to-all)
+    # the dispatch buffer rounded through int8 per row, as the reference
+    # compresses its all-to-all (``models.moe``)
+    moe_int8_dispatch: bool = False
 
     # -- VLM (Llama-3.2-Vision) -------------------------------------------------
     cross_attn_every: int = 0       # every k-th layer is cross-attention
@@ -93,10 +93,6 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
-        if self.moe_int8_dispatch:
-            raise NotImplementedError(
-                f"{self.name}: moe_int8_dispatch comes with the multi-GPU "
-                "port slice")
 
     @property
     def activation_dtype(self) -> torch.dtype:

@@ -22,6 +22,12 @@ Shared experts (DeepSeek-V2) are a plain always-on MLP
 (``models.mlp.MLP``, ``num_shared_experts * moe_d_ff`` wide) over the
 same x as the router, added after the combine as the reference adds it.
 
+``cfg.moe_int8_dispatch`` rounds the dispatch buffer through int8 per
+row and back before the expert FFN (:class:`Int8Transport`), in every
+mode, as the reference does on one device: there it is the wire format of
+the expert all-to-all; here it is the same extra rounding, with a
+straight-through gradient.
+
 Expert parallelism (the reference shards the expert axis and lets GSPMD
 insert the all-to-all) comes with the multi-GPU slice; ``dispatch_groups``
 > 1 keeps the reference's grouped dispatch and its dense fallback (no
@@ -37,7 +43,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from repro_torch.core import qlinear
+from repro_torch.core import qlinear, quant
 from repro_torch.kernels import ops as kops
 from repro_torch.nn import spec as S
 from .config import ModelConfig
@@ -149,6 +155,26 @@ def moe_specs(cfg: ModelConfig, recipe, base: str) -> dict:
     return out
 
 
+class Int8Transport(torch.autograd.Function):
+    """The reference's ``_int8_transport``: each row of the buffer (its
+    last axis) as int8 codes times an f32 scale, ``max(amax, 1e-8) / 127``
+    and round half to even of a true f32 division (``core.quant``: on the
+    card a division by a python scalar would be a multiply by its
+    reciprocal), back in the buffer's dtype. The gradient passes straight
+    through."""
+
+    @staticmethod
+    def forward(ctx, buf: torch.Tensor) -> torch.Tensor:
+        xf = buf.float()
+        scl = quant.symmetric_scale(xf, -1, 8)
+        q8 = quant.quantize(xf, scl, 8).to(torch.int8)
+        return (q8.float() * scl).to(buf.dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        return g
+
+
 def capacity(tokens: int, top_k: int, num_experts: int,
              capacity_factor: float) -> int:
     """Per-expert capacity (8-aligned), as the reference computes it."""
@@ -231,10 +257,8 @@ class MoE(nn.Module):
         Tk = T * k
         e_flat = expert_idx.reshape(G, Tk)
         g_flat = gate_vals.reshape(G, Tk)
-        t_flat = torch.arange(Tk, device=dev) // k  # token of each choice
         order = torch.argsort(e_flat, dim=-1, stable=True)
         e_s = torch.gather(e_flat, 1, order)                  # (G, Tk)
-        t_s = t_flat[order]
         g_s = torch.gather(g_flat, 1, order)
         counts = torch.zeros((G, E), dtype=torch.int64, device=dev)
         counts.scatter_add_(1, e_s, torch.ones_like(e_s))
@@ -246,7 +270,13 @@ class MoE(nn.Module):
         # their expert's slot 0 (kept slots are unique, so add == set)
         grp = torch.arange(G, device=dev)[:, None]
         slot = (grp * E + e_s) * C + torch.where(keep, pos, 0)
-        rows = xf[grp, t_s]                                   # (G, Tk, d)
+        # each sorted choice's token row: the rows repeated k times, then
+        # permuted. The backward sums a token's k gradients by a reduction
+        # over k, in one order on every device (an indexed gather's backward
+        # accumulates them in a thread-dependent order on the CPU)
+        rows = torch.gather(
+            xf[:, :, None].expand(G, T, k, d).reshape(G, Tk, d), 1,
+            order[..., None].expand(G, Tk, d))                # (G, Tk, d)
         vals = torch.where(keep[..., None], rows, torch.zeros((), dtype=x.dtype,
                                                               device=dev))
         buf = torch.zeros((G * E * C, d), dtype=x.dtype, device=dev)
@@ -257,6 +287,8 @@ class MoE(nn.Module):
         # row_counts contract. With G > 1 the (E, G*C, d) slab interleaves
         # each group's padding, so the experts run densely (exactly).
         row_counts = routed[0] if G == 1 else None
+        if cfg.moe_int8_dispatch:
+            buf = Int8Transport.apply(buf)
         if _ROUTING_SINKS:
             _record_routing(routed, capacity=C)
 

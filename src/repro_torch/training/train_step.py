@@ -18,9 +18,12 @@ gradient the hand-written backward kernel (``kernels/flash_attention``);
 the linears of an fp model are ``x @ w``. Under ``cfg.remat`` each block
 is recomputed in the backward (``models/transformer.py``).
 
-This slice trains the dense GQA family; ``make_train_step`` refuses any
-other until a later slice holds it against the reference (ROADMAP §1,
-item 5).
+The dense and MoE families train, with GQA or MLA attention (MLA's
+prefill is ``models.attention.chunked_attention``, plain PyTorch, as the
+reference's is jnp); the MoE aux loss enters ``loss = ce + aux`` summed
+over the layers. ``make_train_step`` refuses the VLM, audio (Whisper),
+ssm (xLSTM) and hybrid (RecurrentGemma) families until a later slice
+holds them against the reference (ROADMAP §1, item 1).
 """
 from __future__ import annotations
 
@@ -92,14 +95,17 @@ def _tree_of(params, leaves: list):
     return S.tree_map(lambda _: next(it), params)
 
 
+_TRAINED = ("dense", "moe")  # with GQA or MLA attention
+
+
 def make_train_step(api: ModelApi, cfg: ModelConfig,
                     opt_cfg: O.AdamWConfig, recipe=None,
                     grad_accum: int = 1):
-    if cfg.family != "dense" or cfg.attention != "gqa":
+    if cfg.family not in _TRAINED:
         raise NotImplementedError(
-            f"{cfg.name}: the port trains the dense GQA family only; "
-            f"training the {cfg.family} family with {cfg.attention} "
-            "attention waits for its slice (ROADMAP §1, item 5)")
+            f"{cfg.name}: the port trains the {' and '.join(_TRAINED)} "
+            f"families; training the {cfg.family} family waits for its "
+            "slice (ROADMAP §1, item 1)")
     loss_fn = make_loss_fn(api, cfg, recipe)
 
     def train_step(params, opt_state, batch):

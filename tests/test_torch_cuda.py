@@ -85,6 +85,11 @@ its lse output bit-equal to the forward without it; head dim 256
 refused; autograd on the card launching the backward kernel once; and
 a smoke train step (remat on) on the card against the CPU: loss within
 1e-2 and every gradient leaf within 5e-2 (bf16), 1e-5 and 1e-4 (f32).
+The MoE family and MLA: the smoke Mixtral (tokens dropped; the int8
+dispatch), DeepSeek-V2 at top-6 and MiniCPM3 in f32 against the CPU
+(routed counts equal, 1e-5 / 1e-4) and repeated bit for bit; the int8
+dispatch transport bit-equal to the CPU's; the engine serving with it,
+each step captured once.
 """
 import numpy as np
 import pytest
@@ -2127,3 +2132,111 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, dtype, loss_rel,
     assert abs(lg - lc) <= loss_rel * abs(lc)
     for a, b in zip(gg, gc):
         assert (a - b).norm().item() <= grad_rel * b.norm().item()
+
+
+# ---------------------------------------------------------------------------
+# Training the MoE family and MLA; the int8 dispatch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_transport_on_the_card_equals_the_cpu(cuda, dtype):
+    """``models.moe.Int8Transport`` on the card: the same bits as on the
+    CPU (a true division by the f32 scale; a division by the python 127
+    would be a multiply by its reciprocal there), with capacity padding,
+    a row under the amax floor and rows of .5 ties; the gradient passes
+    straight through."""
+    from repro_torch.models import moe
+
+    buf = _normal(40, (64, 256), 3.0)
+    buf[5:9] = 0.0
+    buf[9] *= 1e-10
+    buf[10] = torch.round(_normal(41, (256,), 20.0)) + 0.5
+    buf[10, 0] = 127.0
+    buf = buf.to(dtype)
+    want = moe.Int8Transport.apply(buf)
+    x = buf.to(cuda).requires_grad_()
+    got = moe.Int8Transport.apply(x)
+    assert got.dtype == dtype and torch.equal(got.detach().cpu(), want)
+    w = _normal(42, (64, 256)).to(dtype).to(cuda)
+    (g,) = torch.autograd.grad((got * w).sum(), x)
+    assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kw", [
+    ("mixtral-8x7b", dict(capacity_factor=1.25)),
+    ("mixtral-8x7b", dict(moe_int8_dispatch=True)),
+    ("deepseek-v2-236b", dict(top_k=6)),
+    ("minicpm3-4b", dict(num_layers=2))])
+def test_moe_and_mla_train_step_on_the_card_matches_the_cpu(cuda, arch, kw):
+    """The smoke Mixtral (tokens dropped at capacity factor 1.25; the int8
+    dispatch), DeepSeek-V2 at top-6 and MiniCPM3, f32, remat on: the
+    routed counts equal, then the loss within 1e-5 and every gradient leaf
+    within 1e-4 of the CPU's on the same params and batch (the f32 bounds
+    of the dense train step's card test); Mixtral launches one flash
+    backward a layer, the MLA models none; two runs on the card give the
+    same bits."""
+    import dataclasses
+
+    from repro_torch.core import ptq
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_arch, get_model
+    from repro_torch.training import train_step as T
+
+    cfg = dataclasses.replace(get_arch(arch, smoke=True), dtype="float32",
+                              remat=True, **kw)
+    api = get_model(cfg)
+    batch = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=48, batch_size=2)
+                              ).global_batch(0)
+    out = {}
+    for dev in ("cpu", cuda, cuda):
+        params = ptq.materialize_by_layer(api, cfg, seed=1, device="cpu")
+        params = S.tree_map(lambda t: t.to(dev), params)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        leaves = S.leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        before = _build.LAUNCHES["flash_attention_bwd"]
+        recs = moe.start_routing_trace()
+        loss, _ = T.make_loss_fn(api, cfg)(params, b)
+        grads = torch.autograd.grad(loss, leaves)
+        moe.stop_routing_trace(recs)
+        for t in leaves:
+            t.requires_grad_(False)
+        launched = _build.LAUNCHES["flash_attention_bwd"] - before
+        gqa = cfg.attention == "gqa" and dev == cuda
+        assert launched == (cfg.num_layers if gqa else 0)
+        out.setdefault(str(dev), []).append((
+            float(loss.detach()), [g.cpu() for g in grads],
+            [r["counts"].cpu() for r in recs]))
+    (lc, gc, rc), = out["cpu"]
+    (lg, gg, rg), again = out[str(cuda)]
+    assert all(torch.equal(x, y) for x, y in zip(rg, rc, strict=True))
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(gg, gc, strict=True):
+        assert (a - b).norm().item() <= 1e-4 * b.norm().item()
+    assert again[0] == lg
+    assert all(torch.equal(x, y) for x, y in zip(again[1], gg))
+
+
+@pytest.mark.cuda
+def test_engine_with_int8_dispatch_captures_once(cuda):
+    """The smoke Mixtral under W4A8 IS with ``moe_int8_dispatch``: the
+    captured prefill and decode round the dispatch buffer through int8
+    (as the reference does in every mode), each step captured once, the
+    streams equal the eager loop's."""
+    import dataclasses
+
+    api, cfg, params, recipe = _served("mixtral-8x7b", "w4a8-is", cuda)
+    cfg = dataclasses.replace(cfg, moe_int8_dispatch=True)
+    prompts = _engine_prompts(cfg)
+    sc = ServeConfig(**ENGINE_SC)
+    eng, outs = _serve(api, cfg, params, recipe, prompts, sc)
+    eng.close()
+    assert eng._decode_step.captured and eng._prefill_step.captured
+    assert eng.decode_traces == eng.prefill_traces == 1
+    assert outs == eager_greedy(api, cfg, eng.model, prompts, sc)

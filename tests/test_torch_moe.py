@@ -420,12 +420,11 @@ def test_mixtral_configs_equal_reference():
             full.top_k, full.capacity_factor) == (32, 4096, 14336, 8, 2, 1.25)
     assert moe.capacity(4, 2, 8, 1.25) == 8
     assert moe.capacity(128, 2, 8, 1.25) == 40
-    # shared experts and leading dense layers are ported (DeepSeek-V2);
-    # the int8 dispatch all-to-all waits for the multi-GPU slice
-    for kw in (dict(num_shared_experts=2), dict(first_dense_layers=1)):
+    # shared experts and leading dense layers are ported (DeepSeek-V2),
+    # and the int8 dispatch (tests/test_torch_train_moe.py)
+    for kw in (dict(num_shared_experts=2), dict(first_dense_layers=1),
+               dict(moe_int8_dispatch=True)):
         dataclasses.replace(full, **kw)
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(full, moe_int8_dispatch=True)
 
 
 @pytest.mark.parametrize("groups", [1, 2])

@@ -622,9 +622,11 @@ def test_remat_recomputes_each_block_and_changes_no_bit():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "minicpm3-4b",
-                                  "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "recurrentgemma-9b",
+                                  "llama-3.2-vision-90b", "whisper-tiny"])
 def test_make_train_step_refuses_other_families(arch):
+    """The families no slice has yet held against the reference's train
+    step (the MoE family and MLA train: tests/test_torch_train_moe.py)."""
     cfg = get_arch(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.make_train_step(get_model(cfg), cfg, O.AdamWConfig())
