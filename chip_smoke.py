@@ -148,8 +148,8 @@ Phases (any failure raises and exits non-zero; nothing is caught). A
    IS step must run no elementwise division kernel (``DivFunctor``): the
    GEMM's epilogue divides ``sa / alpha``.
    Free the llama2-7b weights.
-7b. ``[calib]``: ``llama2-7b`` at full width (32 layers, bf16, seed 0),
-   its fp weights drawn whole (13.5 GB) and run over 2 seeded synthetic
+7b. ``[calib]``: ``llama2-7b`` at full width cut to 8 of its 32 layers
+   (bf16, seed 0), its fp weights drawn whole and run over 2 seeded synthetic
    calibration batches of 4 x 128 tokens with the capture on
    (``ptq.collect_calibration``: 512 rows per linear). For each of layer
    0's seven linears, AWQ's and OmniQuant's calibration output MSE must
@@ -159,7 +159,7 @@ Phases (any failure raises and exits non-zero; nothing is caught). A
    OmniQuant is served, held while the others are), each served as in
    phase 5: every outcome ``ok``, one
    capture per step, exactly the IS kernels and the graphs' counts, the
-   first token the argmax, the first 2 layers against the CPU's plain
+   first token the argmax, the first layer against the CPU's plain
    versions; GPTQ's and AWQ's streams equal the eager greedy loop;
    ``[launches]``: act_quant 4 a layer under GPTQ and OmniQuant, 7 under
    AWQ and SmoothQuant (each linear divides its own input by its
@@ -174,14 +174,14 @@ Phases (any failure raises and exits non-zero; nothing is caught). A
    the argmax of the logits, ``engine_moe_m_tiles_total`` executed <=
    total and > 0 (the routing records the decode graph's capture made,
    handed on after every replay), and for IS the streams equal the eager
-   greedy loop and the first two layers on the card agree with the same
-   layers on the CPU. The decode step is timed eagerly
+   greedy loop and the first layer on the card agrees with the same
+   layer on the CPU. The decode step is timed eagerly
    and as a captured CUDA graph with no routing sink attached; the
    capture is itself the check that the MoE layer makes no host sync.
    The tick's launches are counted as in phase 5: act_quant exactly 2
    dense (q/k/v, o) and 2 routed (gate/up, down) a layer under IS and
    FS (4 and 3 in a tree whose linears each quantize their own).
-8b. ``[llama3]``: ``llama3.2-3b`` at full width (28 layers, 24 query
+8b. ``[llama3]``: ``llama3.2-3b`` at full width cut to 14 of 28 layers (24 query
    heads over 8 KV heads of 128, bf16, seed 0) quantized under the
    paper's LLaMA-3 recipe (``LLAMA3_RECIPE``: W8A8 g128 heuristic+6 on
    the down projections, W4A8 g128 IS elsewhere, QuaRot rotation on every
@@ -204,8 +204,8 @@ Phases (any failure raises and exits non-zero; nothing is caught). A
    building and serving, tick, prefill, TTFT, idle share and the (K,
    dtype) of every dense act_quant row are logged. Each model is freed
    before the next is built.
-8d. ``[mla]``: ``minicpm3-4b`` (62 layers, 40 heads, q_lora 768, kv_lora
-   256, rope 32, nope 64, v 64, d_ff 6400) at full depth and
+8d. ``[mla]``: ``minicpm3-4b`` (40 heads, q_lora 768, kv_lora 256, rope
+   32, nope 64, v 64, d_ff 6400) at full width cut to 20 of 62 layers and
    ``deepseek-v2-236b`` at full width cut to 24 layers (its dense first
    layer of d_ff 12288 and 23 MoE layers of 160 experts top-6 of d_ff
    1536 plus 2 shared; 128 heads, q_lora 1536, kv_lora 512, rope 64,
@@ -216,7 +216,7 @@ Phases (any failure raises and exits non-zero; nothing is caught). A
    graphs' counts (no flash: MLA's prefill attention is plain PyTorch,
    as the reference's), act_quant per graph exactly 6 (prefill) or 5
    (decode) dense a layer and 2 routed a MoE layer, the argmax, m-tiles,
-   the streams equal the eager greedy loop, the first 2 layers against
+   the streams equal the eager greedy loop, the first layer against
    the CPU's plain versions through the latent cache. One decode step
    is profiled: the share of the MLA decode's f32 einsums, of
    ``_dense_weight`` (k_up and v_up dequantized inside the step) and of
@@ -239,7 +239,7 @@ Phases (any failure raises and exits non-zero; nothing is caught). A
    (:func:`xattn_launches`: VLM 420 act_quant, 700 IS GEMMs, 100 flash a
    prefill and 400, 660, 20 a step; Whisper 44, 64, 12 and 24, 32, 4).
    Then the kernels against the CPU's plain versions at B = 1 through
-   the caches (the VLM's first 2 layers, and its first cross layer fed
+   the caches (the VLM's first layer, and its first cross layer fed
    the card's own hidden state; Whisper whole), timing (tokens/s of the
    replayed loop, the replayed step, the prefill), peaks, cache MB, and
    one decode step profiled (the flash and GEMM shares; the cross
@@ -251,16 +251,16 @@ Phases (any failure raises and exits non-zero; nothing is caught). A
    6000 (``XATTN_BIG_M``, also at forced K splits of 1 and 2).
 8f. ``[recurrent]``: the recurrent families at full width and depth,
    W4A8 g128 IS built block by block (seed 0), every certificate
-   certified or capped. ``xlstm-1.3b`` (48 layers: 42 mLSTM, 6 sLSTM)
-   served through the engine with phase 5's prompts and ``ServeConfig``
+   certified or capped. ``xlstm-1.3b`` cut to 16 of 48 layers (14
+   mLSTM, 2 sLSTM) served through the engine with phase 5's prompts and ``ServeConfig``
    and phase 8's checks: outcomes, one capture per step, exactly the IS
    kernels and the graphs' counts, each graph's launches the derived
    ones (:func:`recurrent_launches`: act_quant 4 an mLSTM and 3 an sLSTM
    layer, no flash), the argmax, the streams equal to the eager greedy
    loop that prefills the same padded prompts from a zero state (the
    reference engine's semantics), the first 2 layers against the CPU
-   through the state; how many streams equal a loop over the unpadded
-   prompts is printed, not held; the state's MB. ``recurrentgemma-9b``
+   through the state; how many of the first 2 streams equal a loop over
+   the unpadded prompts is printed, not held; the state's MB. ``recurrentgemma-9b``
    (38 layers: 26 RG-LRU, 12 local attention at head dim 256, window
    2048) through the model API (the engine refuses it: its decode takes
    one scalar position): a prefill of 4 seeded 128-token prompts, 32
@@ -321,6 +321,24 @@ Phases (any failure raises and exits non-zero; nothing is caught). A
    against the CPU; ``deepseek-v2-236b``'s smoke layout (a dense layer,
    then MoE with shared experts over MLA) in f32 at top-2 and top-6
    against the CPU, each repeated on the card for bit equality.
+8i. ``[train-rec]``: training the recurrent families
+   (:func:`train_rec_phase`). ``recurrentgemma-9b`` at full width cut to
+   8 of 38 layers (the reference's prefix of 2 RG-LRU layers, then 2
+   whole (rec, rec, attn) patterns), bf16, remat, 4 steps of 1 x 4096
+   tokens (the window of 2048 masks): step ms, tokens/s, peak and
+   resident memory, finite metrics, launches exactly 2 flash forwards
+   and 1 backward (head dim 256) a local-attention layer and step; two
+   equal forwards and backwards bit for bit; one step profiled (flash
+   forward and backward, the f32 head, AdamW, the rest; the RG-LRU's
+   range apart). Its first 3 layers in f32 against the CPU (the f32
+   backward at head dim 256). ``xlstm-1.3b`` at full width cut to one
+   period of 8 of 48 layers (7 mLSTM, 1 sLSTM), 3 steps of 2 x 256
+   under the per-token scan (its device launches a step printed: host
+   time) and one chunkwise, its first 2 layers in f32 against the CPU.
+   Phase 3 adds the backward at head dim 256 (16 over 1 head: the train
+   shape, 2 x 512 causal, non-causal Sq != Sk; bf16 and f32) beside its
+   plain version and SDPA's backward, with the profile of each kernel at
+   the train shape.
 9. Print the ``kernels`` JSON line (the nine kernels, launches summed
    over every served and training path; the five qlint fixtures,
    launches from their run in phase 2b), then the result line
@@ -439,21 +457,34 @@ QLINT_PTX_RULE = {"broken-fp32-dot": "float-accum-on-is-path",
 # copies (the dot fixtures' int8 products have no CUDA library call at M = 8)
 QLINT_LIBRARY = {"broken_index_map": lambda x: x.narrow(0, 4, 8).clone(),
                  "broken_divisibility": lambda x: x.clone()}
-# kernels vs plain versions on Mixtral's first layers: two, as for
-# llama2-7b (the CPU's plain grouped GEMMs take about 15 s a layer on the
-# card's 8-core host), with the same bound
-MIXTRAL_PLAIN_CHECK_LAYERS = 2
+# kernels vs plain versions on Mixtral's first layer (a MoE layer; the
+# CPU's plain grouped GEMMs take about 15 s a layer on the card's 8-core
+# host, so one, where llama2-7b checks two), with the same bound
+MIXTRAL_PLAIN_CHECK_LAYERS = 1
 # phase 7b: the calibration algorithms on llama2-7b, calibrated on this
 # many seeded synthetic batches of 4 x 128 tokens
 CALIB_ALGOS = ("gptq", "awq", "smoothquant", "omniquant")
 CALIB_BATCHES = 2
+# phase 8b: llama3.2-3b under the LLaMA-3 recipe, cut to 14 of its 28
+# layers (QuaRot's rotations and the W8A8 certificates are per layer)
+LLAMA3_LAYERS = 14
+# the calibrated llama2-7b's depth: its first 8 of 32 layers (the
+# calibration, PTQ and serving are per layer; phase 5 serves all 32)
+CALIB_LAYERS = 8
+# each calibrated model's layers held against the CPU's plain versions
+# (about 5 s a llama2-7b layer; phase 5 holds two of the RTN model's)
+CALIB_PLAIN_CHECK_LAYERS = 1
 # phase 8c: the configs served at full width and depth under W4A8 g128 IS
 CONFIG_ARCHS = ("qwen2-72b", "granite-34b", "phi3.5-moe-42b-a6.6b")
 # phase 8d: the MLA models at full width under W4A8 g128 IS, MiniCPM3 at
 # its full depth, DeepSeek-V2 cut to its dense layer plus 23 MoE layers
 # (all 60 are about 127 GB under W4A8; 24 are about 52 GB)
 MLA_ARCHS = ("minicpm3-4b", "deepseek-v2-236b")
-MLA_DEPTH = {"deepseek-v2-236b": 24}
+MLA_DEPTH = {"deepseek-v2-236b": 24, "minicpm3-4b": 20}
+# the MLA models' layers held against the CPU's plain versions: the first
+# (DeepSeek-V2's dense one; its first MoE layer of 160 experts took about
+# 50 s of the CPU)
+MLA_PLAIN_CHECK_LAYERS = 1
 # phase 8e: cross attention at full width under W4A8 g128 IS, through the
 # model API (prefill with memory, then greedy decode over the caches):
 # Llama-3.2-Vision at all 100 layers (80 self, 20 cross), Whisper-tiny whole
@@ -465,6 +496,9 @@ XATTN_B, XATTN_PROMPT, XATTN_STEPS, XATTN_MAX_SEQ = 4, 128, 32, 256
 XATTN_GATE_SEED = 17
 # the VLM's first cross layer, held against the CPU on the card's own input
 XATTN_CROSS_LAYER = 4
+# the VLM's self layers held against the CPU through the caches before
+# its cross layer (a layer of d_model 8192 takes about 20 s there)
+XATTN_PLAIN_CHECK_LAYERS = 1
 # phase 3 at phase 8e's shapes: the IS GEMM at the VLM's MLP (K, N) and
 # Whisper's (K, N) at M = 1..4 and 128; at the memory's rows (4 x 1600
 # image tokens, 4 x 1500 frames): the VLM's cross k/v at M = 6400 and
@@ -487,11 +521,17 @@ XATTN_FLASH = ((1, 128, 1600, 64, 8, 128), (4, 1, 1600, 64, 8, 128),
 # of RG_LONG tokens, past the window of 2048, and RG_LONG_STEPS decode
 # steps held to a train-mode forward over the same tokens
 RECURRENT_SERVED, RECURRENT_API = "xlstm-1.3b", "recurrentgemma-9b"
+# the served xLSTM cut to two of its periods (16 of 48 layers: 14 mLSTM,
+# 2 sLSTM), so its eager loops fit the run's time
+RECURRENT_SERVED_LAYERS = 16
 RG_B, RG_PROMPT, RG_STEPS, RG_MAX_SEQ = 4, 128, 32, 256
 RG_LONG, RG_LONG_STEPS = 2300, 4
 # RecurrentGemma's first layers held against the CPU: its two RG-LRU
 # layers and its first local attention
 RG_PLAIN_CHECK_LAYERS = 3
+# the served xLSTM's streams set beside an eager loop over the unpadded
+# prompt (information, not a gate; about 5 s a prompt): the first two
+RECURRENT_UNPADDED_PROMPTS = 2
 # phase 3 at phase 8f's widths: the IS GEMM at RecurrentGemma-9B's (K, N)
 # (gate / up, down, the single KV head of 256; q, o, gate_proj, x_proj
 # and out_proj are GEMM_KN's 4096 -> 4096) and xLSTM-1.3B's (up and wx,
@@ -500,11 +540,18 @@ RECURRENT_GEMM_KN = ((4096, 12288), (12288, 4096), (4096, 256),
                      (2048, 8192), (4096, 2048), (2048, 2816), (2816, 2048))
 # phase 3, the flash-attention backward kernel (B, Sq, Sk, Hq, Hkv, D,
 # causal, window, dtype): phase 8g's llama3.2-3b step, the bench LM's heads
-# of 64 in f32, a window across key tiles, non-causal with Sq != Sk
+# of 64 in f32, a window across key tiles, non-causal with Sq != Sk; then
+# RecurrentGemma's heads of 256 (16 over 1) in bf16 and f32: phase 8i's
+# train shape (the window of 2048 over 4096 tokens), 2 x 512 causal, and
+# non-causal with Sq != Sk
 FLASH_BWD = ((4, 1024, 1024, 24, 8, 128, True, None, "bfloat16"),
              (8, 256, 256, 8, 8, 64, True, None, "float32"),
              (2, 1024, 1024, 8, 2, 128, True, 256, "bfloat16"),
-             (2, 256, 1024, 8, 2, 64, False, None, "bfloat16"))
+             (2, 256, 1024, 8, 2, 64, False, None, "bfloat16")) + tuple(
+    (*shape, dt) for shape in ((1, 4096, 4096, 16, 1, 256, True, 2048),
+                               (2, 512, 512, 16, 1, 256, True, None),
+                               (2, 256, 1024, 16, 1, 256, False, None))
+    for dt in ("bfloat16", "float32"))
 # phase 8g: training. llama3.2-3b at full width and depth, bf16, remat on,
 # the reference's AdamWConfig defaults, TRAIN_STEPS steps of TRAIN_B x
 # TRAIN_S synthetic tokens through launch.train.train_loop; then its first
@@ -531,6 +578,26 @@ TRAIN_MOE_B, TRAIN_MOE_S, TRAIN_MOE_CPU_B, TRAIN_MOE_CPU_S = 4, 1024, 1, 256
 TRAIN_MLA_ARCH, TRAIN_MLA_LAYERS, TRAIN_MLA_STEPS = "minicpm3-4b", 4, 3
 TRAIN_MLA_B, TRAIN_MLA_S = 2, 1024
 TRAIN_SMOKE_ARCH, TRAIN_SMOKE_B, TRAIN_SMOKE_S = "deepseek-v2-236b", 2, 64
+# phase 8i: training the recurrent families. RecurrentGemma-9B at full
+# width cut to TRAIN_RG_LAYERS layers (the reference's prefix of 2 RG-LRU
+# layers, then 2 whole (rec, rec, attn) patterns: 2 local-attention
+# layers), bf16, remat, TRAIN_RG_STEPS steps of TRAIN_RG_B x TRAIN_RG_S
+# tokens (the window of 2048 masks the keys more than 2048 back), then
+# its first TRAIN_RG_CPU_LAYERS layers in f32 against the CPU on
+# TRAIN_MOE_CPU_B x TRAIN_MOE_CPU_S tokens. xLSTM-1.3B cut to one period
+# of TRAIN_XLSTM_LAYERS layers (7 mLSTM, 1 sLSTM), TRAIN_XLSTM_STEPS steps
+# of TRAIN_XLSTM_B x TRAIN_XLSTM_S tokens under its config's per-token
+# scan (its launches a step counted from profiled steps of
+# TRAIN_XLSTM_COUNT_S tokens), then one chunkwise; its first
+# TRAIN_XLSTM_CPU_LAYERS layers in f32 against the CPU on
+# TRAIN_XLSTM_CPU_B x TRAIN_XLSTM_CPU_S tokens (the CPU steps a 4 x 1024 x
+# 1024 f32 state a head and token). The CPU checks hold the TRAIN_CPU_*
+# bounds.
+TRAIN_RG_ARCH, TRAIN_RG_LAYERS, TRAIN_RG_STEPS = "recurrentgemma-9b", 8, 4
+TRAIN_RG_B, TRAIN_RG_S, TRAIN_RG_CPU_LAYERS = 1, 4096, 3
+TRAIN_XLSTM_ARCH, TRAIN_XLSTM_LAYERS, TRAIN_XLSTM_STEPS = "xlstm-1.3b", 8, 3
+TRAIN_XLSTM_B, TRAIN_XLSTM_S, TRAIN_XLSTM_COUNT_S = 2, 256, (16, 32)
+TRAIN_XLSTM_CPU_LAYERS, TRAIN_XLSTM_CPU_B, TRAIN_XLSTM_CPU_S = 2, 1, 64
 
 
 def log(*a):
@@ -1014,21 +1081,25 @@ def check_bwd_build():
     static shared memory) beside the dynamic shared memory of the bf16
     blocks (``TcSmem`` of csrc/flash_attention_bwd.cu, from its tile
     constants: bf16 rows of D + 8, and the dK/dV block's f32 lse and delta
-    buffers); raises if a bf16 kernel at D = 128 spills."""
+    buffers; at D = 256 the dK/dV block's ``TKV_256`` and ``TQS_256``);
+    raises if a bf16 kernel at D = 128 spills."""
     import re
 
     from repro_torch.kernels import _build
 
     src = _build.source("flash_attention_bwd").read_text()
     t = {n: int(re.search(rf"\b{n} = (\d+)", src).group(1))
-         for n in ("TKV", "TQS", "TQD", "TKS")}
+         for n in ("TKV", "TQS", "TQD", "TKS", "TKV_256", "TQS_256")}
     for fn, info in ptxas_report(
             _build.BUILD_LOG.get("flash_attention_bwd", "")).items():
-        d = next((d for d in (32, 64, 128) if f"_tcILi{d}E" in fn), None)
+        d = next((d for d in (32, 64, 128, 256) if f"_tcILi{d}E" in fn),
+                 None)
         if d is not None:
-            rows = (2 * t["TKV"] + 4 * t["TQS"] if "dkdv" in fn
+            tkv, tqs = ((t["TKV_256"], t["TQS_256"]) if d == 256
+                        else (t["TKV"], t["TQS"]))
+            rows = (2 * tkv + 4 * tqs if "dkdv" in fn
                     else 2 * t["TQD"] + 4 * t["TKS"])
-            dyn = rows * (d + 8) * 2 + (16 * t["TQS"] if "dkdv" in fn else 0)
+            dyn = rows * (d + 8) * 2 + (16 * tqs if "dkdv" in fn else 0)
             info += f"; dynamic shared {dyn} bytes"
         log(f"[bwd] ptxas {fn}: {info}")
         if d == 128 and not re.search(r"\b0 bytes spill stores", info):
@@ -1049,6 +1120,21 @@ def kernel_ms(fn, reps=5) -> dict[str, float]:
         torch.cuda.synchronize()
     return {e.key: e.self_device_time_total / reps / 1e3
             for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def device_launches(fn):
+    """(``fn()``, its device launches, their device ms) under
+    ``torch.profiler`` with the CUDA activity alone (no op or shape
+    records: a per-token scan's step makes a quarter of a million)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (out, sum(e.count for e in ev),
+            sum(e.self_device_time_total for e in ev) / 1e3)
 
 
 def log_kernel_ms(tag: str, ms: dict[str, float]) -> None:
@@ -1124,7 +1210,8 @@ def check_flash_bwd(gen, rows):
         dot = do.transpose(1, 2)
         lib = time_eager_ms(lambda: torch.autograd.grad(
             out, (qt, kt, vt), dot, retain_graph=True), (), iters=10)
-        if i == 0:
+        if i == 0 or (D == 256 and win is not None
+                      and dt == torch.bfloat16):  # the two train shapes
             log_kernel_ms(f"profile {shape} {dtype}, ours", kernel_ms(
                 lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw)))
             log_kernel_ms(f"profile {shape} {dtype}, SDPA's backward",
@@ -2153,12 +2240,13 @@ def check_qlint(smi: str):
 
 def serve_checked(tag, name, api, cfg, qparams, recipe, sc, prompts, toks,
                   n0, launches_total, *, per_layer, eager, want=None,
-                  must=KERNELS_OF["w4a8-is"]):
+                  must=KERNELS_OF["w4a8-is"],
+                  plain_layers=PLAIN_CHECK_LAYERS):
     """Phase 5's serve and checks for one recipe of a later phase: every
     outcome ok, exactly the kernels ``must`` (the W4A8 IS ones) launched
     and exactly the graphs' counts, the first token the argmax of the
-    logits, the first layers on the card against the CPU's plain
-    versions, the engine's streams against the eager greedy loop
+    logits, the first ``plain_layers`` layers on the card against the
+    CPU's plain versions, the engine's streams against the eager greedy loop
     (``eager``), and ``per_layer`` act_quant a layer (or ``want``, the
     (dense, routed) pair) in one decode tick. Returns (stats, engine)."""
     eng, outs, launches, reg, wall, peak = serve_recipe(
@@ -2172,7 +2260,7 @@ def serve_checked(tag, name, api, cfg, qparams, recipe, sc, prompts, toks,
         check_eager_streams(f"{tag} {name}", api, cfg, eng, prompts, sc,
                             outs)
     rel, cpu_s = plain_check(api, cfg, qparams, recipe, toks, n0,
-                             PLAIN_CHECK_LAYERS, sc)
+                             plain_layers, sc)
     st = report_serve(tag, name, api, cfg, eng, outs, launches, reg, wall,
                       sc, peak)
     schemes: dict = {}
@@ -2193,7 +2281,8 @@ def _fp_linear(fp, path):
 
 
 def calib_phase(api, cfg, sc, prompts, toks, n0, launches_total, smi):
-    """Phase 7b: llama2-7b's fp weights drawn whole, captured over the
+    """Phase 7b: llama2-7b cut to ``CALIB_LAYERS`` layers, its fp weights
+    drawn whole, captured over the
     calibration batches, quantized W4A8 g128 IS under each calibration
     algorithm and served. Layer 0's seven linears: AWQ's and OmniQuant's
     calibration output MSE at most RTN's."""
@@ -2205,6 +2294,7 @@ def calib_phase(api, cfg, sc, prompts, toks, n0, launches_total, smi):
     from repro_torch.data.pipeline import calib_batches
     from repro_torch.nn import spec as S
 
+    cfg = dataclasses.replace(cfg, num_layers=CALIB_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     fp = S.materialize(api.param_specs(cfg, None), gen, device="cuda")
@@ -2267,7 +2357,8 @@ def calib_phase(api, cfg, sc, prompts, toks, n0, launches_total, smi):
         st, eng = serve_checked("calib", recipe.name, api, cfg, qp, recipe,
                                 sc, prompts, toks, n0, launches_total,
                                 per_layer=per_layer,
-                                eager=algo in ("gptq", "awq"))
+                                eager=algo in ("gptq", "awq"),
+                                plain_layers=CALIB_PLAIN_CHECK_LAYERS)
         st["ptq_s"] = ptq_s
         stats[recipe.name] = st
         del eng, qp
@@ -2308,7 +2399,8 @@ def profile_rot_products(api, cfg, model, sc):
 
 
 def llama3_phase(sc, prompts, toks, n0, launches_total, smi):
-    """Phase 8b: llama3.2-3b at full width under the paper's LLaMA-3
+    """Phase 8b: llama3.2-3b at full width, cut to ``LLAMA3_LAYERS``
+    layers, under the paper's LLaMA-3
     recipe (W8A8 heuristic+6 on the down projections, W4A8 IS elsewhere,
     QuaRot rotation on every linear), served as in phase 5; every down
     projection's certificate certified or capped; the x @ rot products'
@@ -2321,7 +2413,8 @@ def llama3_phase(sc, prompts, toks, n0, launches_total, smi):
     from repro_torch.models.registry import get_arch, get_model
     from repro_torch.nn import spec as S
 
-    cfg = get_arch("llama3.2-3b")
+    full = get_arch("llama3.2-3b")
+    cfg = dataclasses.replace(full, num_layers=LLAMA3_LAYERS)
     api = get_model(cfg)
     L = cfg.num_layers
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2703,9 +2796,9 @@ def mla_phase(sc, prompts, toks, n0, launches_total, smi):
     plain PyTorch, as the reference's) and exactly the graphs' counts,
     act_quant per graph as :func:`mla_act_quant` counts it, the first
     token the argmax, m-tiles executed <= total, the streams equal to the
-    eager greedy loop, the first 2 layers (DeepSeek-V2: the dense one and
-    a 160-expert one) on the card against the CPU's plain versions
-    through the latent cache; then one decode step profiled. The decode's
+    eager greedy loop, the first layer (DeepSeek-V2's dense one) on the
+    card against the CPU's plain versions through the latent cache; then
+    one decode step profiled. The decode's
     f32 einsums must run with TF32 off. Each model is freed before the
     next is built."""
     import torch
@@ -2775,7 +2868,7 @@ def mla_phase(sc, prompts, toks, n0, launches_total, smi):
         first_token_is_argmax(f"mla {name}", eng, toks, n0, outs[0][0])
         check_eager_streams(f"mla {name}", api, cfg, eng, prompts, sc, outs)
         rel, cpu_s = plain_check(api, cfg, qp, recipe, toks, n0,
-                                 PLAIN_CHECK_LAYERS, sc)
+                                 MLA_PLAIN_CHECK_LAYERS, sc)
         st = report_serve("mla", name, api, cfg, eng, outs, launches, reg,
                           wall, sc, peak)
         prof = profile_mla_step(api, cfg, eng.model, sc)
@@ -2966,7 +3059,8 @@ def xattn_plain_check(api, cfg, qp, recipe, model, toks, mem, hidden, sc):
     """Kernels on the card against plain versions on the CPU, B = 1, a
     prefill then one decode step through the caches; each relative to the
     largest value it is held against (``PLAIN_LOGIT_REL_TOL``). The VLM:
-    its first 2 (self) layers (:func:`plain_check`), and its first cross
+    its first ``XATTN_PLAIN_CHECK_LAYERS`` (self) layers
+    (:func:`plain_check`), and its first cross
     layer alone, fed the card's own input hidden states of row 0 and the
     same memory, compared on the layer's update (output minus input).
     Whisper whole: the encoder output and the logits. Returns ({name:
@@ -2977,9 +3071,9 @@ def xattn_plain_check(api, cfg, qp, recipe, model, toks, mem, hidden, sc):
 
     rels, t_cpu = {}, 0.0
     if cfg.family == "vlm":
-        rels["layers 0-1"], t_cpu = plain_check(
-            api, cfg, qp, recipe, toks[:1], XATTN_PROMPT, PLAIN_CHECK_LAYERS,
-            sc)
+        rels[f"layers 0-{XATTN_PLAIN_CHECK_LAYERS - 1}"], t_cpu = plain_check(
+            api, cfg, qp, recipe, toks[:1], XATTN_PROMPT,
+            XATTN_PLAIN_CHECK_LAYERS, sc)
         i = XATTN_CROSS_LAYER
         x_pre, x_dec = hidden
         outs = {}
@@ -3456,15 +3550,17 @@ def rg_greedy(model, cache, first, steps, graph):
 
 
 def recurrent_phase(sc, prompts, toks, n0, launches_total, smi):
-    """Phase 8f, ``[recurrent]``: xLSTM-1.3B (48 layers: 42 mLSTM, 6
-    sLSTM) served through the engine with phase 5's prompts and
-    ``ServeConfig`` and phase 8's checks (outcomes, one capture per step,
+    """Phase 8f, ``[recurrent]``: xLSTM-1.3B cut to
+    ``RECURRENT_SERVED_LAYERS`` layers served through the engine with
+    phase 5's prompts and ``ServeConfig`` and phase 8's checks (outcomes,
+    one capture per step,
     exactly the IS kernels and the graphs' counts, each graph's launches
     the derived ones, the argmax, the streams equal to the eager greedy
     loop that prefills the same padded prompts from a zero state, the
     first 2 layers against the CPU's plain versions through the state,
-    act_quant 4 an mLSTM and 3 an sLSTM layer); the number of streams
-    equal to a loop over the unpadded prompts is printed, not held. Then
+    act_quant 4 an mLSTM and 3 an sLSTM layer); the number of the first
+    ``RECURRENT_UNPADDED_PROMPTS`` streams equal to a loop over the
+    unpadded prompts is printed, not held. Then
     RecurrentGemma-9B (38 layers: 26 RG-LRU, 12 local attention) through
     the model API: a prefill of ``RG_B`` seeded prompts, ``RG_STEPS``
     greedy steps at a 0-d position eager and as a replayed graph (equal),
@@ -3489,7 +3585,8 @@ def recurrent_served(sc, prompts, toks, n0, launches_total, smi):
     from repro_torch.models.registry import get_arch, get_model
 
     recipe = DEFAULT_RECIPE
-    cfg = get_arch(RECURRENT_SERVED)
+    cfg = dataclasses.replace(get_arch(RECURRENT_SERVED),
+                              num_layers=RECURRENT_SERVED_LAYERS)
     api = get_model(cfg)
     qp, build_s, build_peak, qbytes, certs, summ = build_by_layer(
         api, cfg, recipe)
@@ -3524,10 +3621,11 @@ def recurrent_served(sc, prompts, toks, n0, launches_total, smi):
                                  f"launches {step.launches}, expected "
                                  f"{recurrent_launches(cfg, mode)}")
     t0 = time.perf_counter()
-    unpadded = unpadded_streams(api, cfg, eng.model, prompts,
+    unpadded = unpadded_streams(api, cfg, eng.model,
+                                prompts[:RECURRENT_UNPADDED_PROMPTS],
                                 sc.max_new_tokens)
     same = sum(a == b for a, b in zip(unpadded, st["outs"]))
-    log(f"[recurrent] {cfg.name}: {same} of {len(prompts)} streams equal a "
+    log(f"[recurrent] {cfg.name}: {same} of {len(unpadded)} streams equal a "
         f"loop over the unpadded prompt (the engine prefills the padded "
         f"prompt from a zero state, as the reference's; not a gate; "
         f"{time.perf_counter() - t0:.1f} s); graphs' launches a prefill / "
@@ -3714,7 +3812,8 @@ DISPATCH_OPS = ("aten::sort", "aten::argsort", "aten::gather",
                 "aten::cumsum", "aten::where")
 
 
-def profile_train_step(step, params, opt, batch, vocab, top=8, experts=0):
+def profile_train_step(step, params, opt, batch, vocab, top=8, experts=0,
+                       ranges=()):
     """One train step under ``torch.profiler`` (with input shapes and a
     range around ``optimizer.apply_updates``): device ms in the flash
     forward and backward kernels (by name), the GEMMs (the self device
@@ -3722,7 +3821,11 @@ def profile_train_step(step, params, opt, batch, vocab, top=8, experts=0):
     head's (a dimension of ``vocab``), AdamW (the range) and the rest.
     With ``experts``: the expert GEMMs (``aten::bmm``) and the router's
     products (a dimension of ``experts``) apart from the other GEMMs, and
-    the dispatch and combine (``DISPATCH_OPS``)."""
+    the dispatch and combine (``DISPATCH_OPS``). ``ranges``: (module,
+    function name) pairs, each called inside a profiler range whose
+    device ms (its forward calls and their recomputes under remat, the
+    GEMMs in them included; autograd's backward runs outside it) is
+    returned apart from the split."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -3734,7 +3837,16 @@ def profile_train_step(step, params, opt, batch, vocab, top=8, experts=0):
         with record_function("train.adamw"):
             return real(*a, **k)
 
+    def annotated(fn, tag):
+        def wrapped(*a, **k):
+            with record_function(tag):
+                return fn(*a, **k)
+        return wrapped
+
     O.apply_updates = traced
+    wrapped = {(o, n): getattr(o, n) for o, n in ranges}
+    for (o, n), fn in wrapped.items():
+        setattr(o, n, annotated(fn, f"train.{n}"))
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      record_shapes=True) as prof:
@@ -3742,9 +3854,12 @@ def profile_train_step(step, params, opt, batch, vocab, top=8, experts=0):
             torch.cuda.synchronize()
     finally:
         O.apply_updates = real
+        for (o, n), fn in wrapped.items():
+            setattr(o, n, fn)
     avg = prof.key_averages(group_by_input_shape=True)
     kernels = [e for e in avg if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and not e.key.startswith("train.")]
     if not kernels:
         raise AssertionError("the profiler recorded no device kernels")
     total = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -3781,7 +3896,11 @@ def profile_train_step(step, params, opt, batch, vocab, top=8, experts=0):
                      dispatch_combine=dispatch)
     split["rest"] = total - sum(split.values())
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
-    return dict(device_ms=total, split=split,
+    spans = {n: sum(e.device_time_total for e in avg
+                    if e.key == f"train.{n}"
+                    and e.device_type == DeviceType.CPU) / 1e3
+             for _, n in ranges}
+    return dict(device_ms=total, split=split, ranges=spans,
                 launches=sum(e.count for e in kernels),
                 top=[dict(name=e.key[:120], count=e.count,
                           ms=e.self_device_time_total / 1e3)
@@ -4176,6 +4295,64 @@ def repeats_bits(api, cfg, params, batch) -> dict:
                 leaves=len(first[2]), leaves_differ=differ)
 
 
+def train_run(tag, cfg, B, Sq, steps, launches, launches_total, smi):
+    """``cfg`` trained through :func:`timed_train_loop`, its checks and its
+    row: launches exactly ``launches`` a step, finite metrics, a MoE
+    layer's aux > 0 and dropped share (routing sinks). ``tag`` begins its
+    lines; returns (the row, params, opt, the data config)."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import _build
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.nn import spec as S
+
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=Sq, batch_size=B)
+    recs = moe.start_routing_trace()
+    try:
+        params, opt, hist, timed, data_s, wall, peak = timed_train_loop(
+            cfg, dc, steps)
+    finally:
+        moe.stop_routing_trace(recs)
+    L = cfg.num_layers
+    check_xattn_launches(f"{tag} {cfg.name}", _build.LAUNCHES,
+                         launches, steps)
+    for k, n in _build.LAUNCHES.items():
+        launches_total[k] += n
+    step_ms = [ev[0].elapsed_time(ev[1]) for ev, _ in timed]
+    mets = {k: [float(m[k]) for _, m in timed]
+            for k in ("loss", "ce", "aux", "grad_norm")}
+    if not all(math.isfinite(x) for v in mets.values() for x in v):
+        raise AssertionError(f"{tag} {cfg.name}: {mets}")
+    n_moe = sum(k == "moe" for k in layer_kinds(cfg))
+    dropped = (_routed(recs, n_moe, steps, B * Sq, cfg.top_k)
+               if n_moe else [])
+    if n_moe and not min(mets["aux"]) > 0:
+        raise AssertionError(f"{tag} {cfg.name}: aux {mets['aux']}")
+    steady = sum(step_ms[1:]) / len(step_ms[1:])
+    resident = sum(t.numel() * t.element_size()
+                   for t in S.leaves(params) + S.leaves(opt))
+    row = dict(layers=L, step_ms=step_ms, steady_step_ms=steady,
+               tokens_per_s=B * Sq / (steady / 1e3), data_s=data_s,
+               peak_bytes=peak, resident_bytes=resident, wall_s=wall,
+               dropped=dropped, launches=dict(_build.LAUNCHES), **mets)
+    log(f"[{tag}] {cfg.name}: {L} layers at full width, "
+        f"{cfg.dtype}, remat, {steps} steps of {B} x {Sq} tokens: step "
+        f"ms (CUDA events) first {step_ms[0]:.1f}, then "
+        + ", ".join(f"{x:.1f}" for x in step_ms[1:])
+        + f" (mean {steady:.1f}); {row['tokens_per_s']:.0f} tokens/s of "
+        f"the device's steps; host batch s "
+        + ", ".join(f"{x:.3f}" for x in data_s)
+        + f"; peak allocated {peak / 1e9:.2f} GB, params + AdamW state "
+        f"{resident / 1e9:.2f} GB; "
+        + "; ".join(f"{k} " + ", ".join(f"{x:.4f}" for x in v)
+                    for k, v in mets.items())
+        + (f"; dropped share per MoE layer and step "
+           f"{json.dumps([[round(x, 4) for x in d] for d in dropped])}"
+           if dropped else "")
+        + f"; launches {json.dumps(row['launches'])}; {smi}")
+    return row, params, opt, dc
+
+
 def train_moe_phase(launches_total, smi):
     """Phase 8h, ``[train-moe]``: (a) ``TRAIN_MOE_ARCH`` (Mixtral-8x7B:
     d_model 4096, 32 query heads over 8 of 128, 8 experts top-2 of d_ff
@@ -4205,65 +4382,13 @@ def train_moe_phase(launches_total, smi):
     from repro_torch.core import ptq
     from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
     from repro_torch.kernels import _build
-    from repro_torch.models import moe
     from repro_torch.models.registry import get_arch, get_model
-    from repro_torch.models.transformer import layer_kinds
-    from repro_torch.nn import spec as S
     from repro_torch.training import optimizer as O
     from repro_torch.training import train_step as T
 
     t_phase = time.perf_counter()
     built = set(_build.BUILD_LOG)
     stats: dict = {}
-
-    def train_run(cfg, B, Sq, steps, launches):
-        """The timed loop, its checks and its row; returns (the row,
-        params, opt, the data config)."""
-        dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=Sq, batch_size=B)
-        recs = moe.start_routing_trace()
-        try:
-            params, opt, hist, timed, data_s, wall, peak = timed_train_loop(
-                cfg, dc, steps)
-        finally:
-            moe.stop_routing_trace(recs)
-        L = cfg.num_layers
-        check_xattn_launches(f"train-moe {cfg.name}", _build.LAUNCHES,
-                             launches, steps)
-        for k, n in _build.LAUNCHES.items():
-            launches_total[k] += n
-        step_ms = [ev[0].elapsed_time(ev[1]) for ev, _ in timed]
-        mets = {k: [float(m[k]) for _, m in timed]
-                for k in ("loss", "ce", "aux", "grad_norm")}
-        if not all(math.isfinite(x) for v in mets.values() for x in v):
-            raise AssertionError(f"train-moe {cfg.name}: {mets}")
-        n_moe = sum(k == "moe" for k in layer_kinds(cfg))
-        dropped = (_routed(recs, n_moe, steps, B * Sq, cfg.top_k)
-                   if n_moe else [])
-        if n_moe and not min(mets["aux"]) > 0:
-            raise AssertionError(f"train-moe {cfg.name}: aux {mets['aux']}")
-        steady = sum(step_ms[1:]) / len(step_ms[1:])
-        resident = sum(t.numel() * t.element_size()
-                       for t in S.leaves(params) + S.leaves(opt))
-        row = dict(layers=L, step_ms=step_ms, steady_step_ms=steady,
-                   tokens_per_s=B * Sq / (steady / 1e3), data_s=data_s,
-                   peak_bytes=peak, resident_bytes=resident, wall_s=wall,
-                   dropped=dropped, launches=dict(_build.LAUNCHES), **mets)
-        log(f"[train-moe] {cfg.name}: {L} layers at full width, "
-            f"{cfg.dtype}, remat, {steps} steps of {B} x {Sq} tokens: step "
-            f"ms (CUDA events) first {step_ms[0]:.1f}, then "
-            + ", ".join(f"{x:.1f}" for x in step_ms[1:])
-            + f" (mean {steady:.1f}); {row['tokens_per_s']:.0f} tokens/s of "
-            f"the device's steps; host batch s "
-            + ", ".join(f"{x:.3f}" for x in data_s)
-            + f"; peak allocated {peak / 1e9:.2f} GB, params + AdamW state "
-            f"{resident / 1e9:.2f} GB; "
-            + "; ".join(f"{k} " + ", ".join(f"{x:.4f}" for x in v)
-                        for k, v in mets.items())
-            + (f"; dropped share per MoE layer and step "
-               f"{json.dumps([[round(x, 4) for x in d] for d in dropped])}"
-               if dropped else "")
-            + f"; launches {json.dumps(row['launches'])}; {smi}")
-        return row, params, opt, dc
 
     def free():
         gc.collect()
@@ -4288,8 +4413,9 @@ def train_moe_phase(launches_total, smi):
         f"top-{cfg.top_k} of d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}, "
         f"capacity factor {cfg.capacity_factor}")
     row, params, opt, dc = train_run(
-        cfg, TRAIN_MOE_B, TRAIN_MOE_S, TRAIN_MOE_STEPS,
-        {"flash_attention": 2 * L, "flash_attention_bwd": L})
+        "train-moe", cfg, TRAIN_MOE_B, TRAIN_MOE_S, TRAIN_MOE_STEPS,
+        {"flash_attention": 2 * L, "flash_attention_bwd": L},
+        launches_total, smi)
     batch = SyntheticPipeline(dc).global_batch(TRAIN_MOE_STEPS)
     tb = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
     still = O.AdamWConfig(lr=0.0)  # both steps read the same params
@@ -4365,8 +4491,8 @@ def train_moe_phase(launches_total, smi):
         f"layers (depth cut), d_model {mcfg.d_model}, {mcfg.num_heads} "
         f"heads, kv_lora_rank {mcfg.kv_lora_rank}, q_lora_rank "
         f"{mcfg.q_lora_rank}, d_ff {mcfg.d_ff}, vocab {mcfg.vocab_size}")
-    mrow, mp, mo, _ = train_run(mcfg, TRAIN_MLA_B, TRAIN_MLA_S,
-                                TRAIN_MLA_STEPS, {})
+    mrow, mp, mo, _ = train_run("train-moe", mcfg, TRAIN_MLA_B, TRAIN_MLA_S,
+                                TRAIN_MLA_STEPS, {}, launches_total, smi)
     stats[mcfg.name] = mrow
     del mp, mo
     free()
@@ -4405,6 +4531,205 @@ def train_moe_phase(launches_total, smi):
     stats["seconds"] = time.perf_counter() - t_phase
     log(f"[train-moe] phase {stats['seconds']:.1f} s, kernels built anew "
         f"{sorted(new) or 'none'}; {smi}")
+    return stats
+
+
+def train_rec_phase(launches_total, smi):
+    """Phase 8i, ``[train-rec]``: (a) ``TRAIN_RG_ARCH`` (RecurrentGemma-9B:
+    d_model 4096, RG-LRU and local attention 2:1, 16 query heads over one
+    KV head of 256, window 2048, d_ff 12288, vocab 256000) at full width
+    cut to ``TRAIN_RG_LAYERS`` layers, bf16, remat, the reference's AdamW
+    defaults, ``TRAIN_RG_STEPS`` steps of ``TRAIN_RG_B`` x ``TRAIN_RG_S``
+    tokens through ``launch.train.train_loop`` (:func:`train_run`): step
+    ms, tokens/s, peak and resident memory, finite metrics, launches
+    exactly 2 flash forwards (the forward and remat's recompute) and 1
+    backward a local-attention layer and step (the backward at head dim
+    256); whether two equal forwards and backwards repeat bit for bit; one
+    step profiled (flash forward and backward, the f32 logit head, AdamW,
+    the rest; the RG-LRU's forward and recompute apart). (b) Its first
+    ``TRAIN_RG_CPU_LAYERS`` layers (2 RG-LRU, 1 local attention) in f32
+    against the CPU (:func:`card_vs_cpu`: the f32 backward kernel at head
+    dim 256). (c) ``TRAIN_XLSTM_ARCH`` (xLSTM-1.3B: d_model 2048, 4
+    heads, vocab 50304; no attention, so no hand-written kernel) at full
+    width cut to ``TRAIN_XLSTM_LAYERS`` layers, the same loop for
+    ``TRAIN_XLSTM_STEPS`` steps under its per-token mLSTM scan, then one
+    step chunkwise (ms, peak); the scan step's device launches (host
+    time: about a thousand a token) from two shorter profiled steps; its
+    first
+    ``TRAIN_XLSTM_CPU_LAYERS`` layers in f32 against the CPU."""
+    import torch
+    from repro_torch.core import ptq
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.models import griffin
+    from repro_torch.models.registry import get_arch, get_model
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as T
+
+    t_phase = time.perf_counter()
+    built = set(_build.BUILD_LOG)
+    stats: dict = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def cpu_batch(cfg, B, Sq):
+        return SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                            seq_len=Sq, batch_size=B)
+                                 ).global_batch(0)
+
+    marks: dict[str, float] = {}
+
+    def mark(part):  # the phase's wall seconds at the end of each part
+        marks[part] = time.perf_counter() - t_phase
+
+    def log_profile(name, prof):
+        sp, dev = prof["split"], prof["device_ms"]
+        log(f"[profile] train-rec {name}: one step {dev:.1f} ms of device "
+            f"kernels in {prof['launches']} launches: "
+            + "; ".join(f"{k} {v:.1f} ms ({v / dev:.3f})"
+                        for k, v in sp.items())
+            + "".join(f"; {k} (forward and recompute, apart) {v:.1f} ms "
+                      f"({v / dev:.3f})" for k, v in prof["ranges"].items())
+            + f"; top {len(prof['top'])}:")
+        for p in prof["top"]:
+            log(f"[profile]   {p['ms']:.3f} ms  x{p['count']}  {p['name']}")
+
+    # -- (a) RecurrentGemma-9B at full width ----------------------------------
+    full = get_arch(TRAIN_RG_ARCH)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_RG_LAYERS)
+    if not cfg.remat or cfg.dtype != "bfloat16":
+        raise AssertionError(f"{cfg.name}: expected bf16, remat")
+    api = get_model(cfg)
+    kinds = griffin.layer_kinds(cfg)
+    n_attn = kinds.count("attn")
+    log(f"[train-rec] {cfg.name}: {cfg.num_layers} of {full.num_layers} "
+        f"layers (depth cut; the reference's layout {griffin.split(cfg)}: "
+        f"{', '.join(kinds)}), d_model {cfg.d_model}, {cfg.num_heads} query "
+        f"heads over {cfg.num_kv_heads} of {cfg.head_dim}, window "
+        f"{cfg.window}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
+    row, params, opt, dc = train_run(
+        "train-rec", cfg, TRAIN_RG_B, TRAIN_RG_S, TRAIN_RG_STEPS,
+        {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn},
+        launches_total, smi)
+    mark("recurrentgemma loop")
+    batch = SyntheticPipeline(dc).global_batch(TRAIN_RG_STEPS)
+    tb = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+    row["repeat"] = repeats_bits(api, cfg, params, batch)
+    log(f"[train-rec] {cfg.name}: two equal forwards and backwards on the "
+        f"card: loss bit-equal {row['repeat']['loss_equal']}, gradient "
+        f"leaves differing {row['repeat']['leaves_differ']} of "
+        f"{row['repeat']['leaves']}")
+    if not (row["repeat"]["loss_equal"]
+            and row["repeat"]["leaves_differ"] == 0):
+        raise AssertionError(f"train-rec {cfg.name}: {row['repeat']}")
+    mark("recurrentgemma repeat")
+    step = T.make_train_step(api, cfg, O.AdamWConfig(lr=0.0))
+    prof = profile_train_step(step, params, opt, tb, cfg.vocab_size,
+                              ranges=[(griffin, "_rglru")])
+    log_profile(cfg.name, prof)
+    mark("recurrentgemma profile")
+    row["profile"] = prof
+    stats[cfg.name] = row
+    del params, opt, tb, step
+    free()
+
+    # -- (b) its first layers at full width, f32, against the CPU -------------
+    c3 = dataclasses.replace(cfg, num_layers=TRAIN_RG_CPU_LAYERS,
+                             dtype="float32", remat=False)
+    a3 = get_model(c3)
+    p3 = ptq.materialize_by_layer(a3, c3, seed=0, device="cuda")
+    n3 = griffin.layer_kinds(c3).count("attn")
+    stats["recurrentgemma_cpu_check"] = card_vs_cpu(
+        f"[train-rec] {c3.name} first {c3.num_layers} layers "
+        f"({', '.join(griffin.layer_kinds(c3))})", a3, c3, p3,
+        cpu_batch(c3, TRAIN_MOE_CPU_B, TRAIN_MOE_CPU_S),
+        {"flash_attention": n3, "flash_attention_bwd": n3})
+    del p3
+    free()
+    mark("recurrentgemma cpu check")
+
+    # -- (c) xLSTM-1.3B at full width ------------------------------------------
+    xfull = get_arch(TRAIN_XLSTM_ARCH)
+    xcfg = dataclasses.replace(xfull, num_layers=TRAIN_XLSTM_LAYERS)
+    if xcfg.mlstm_impl != "scan" or not xcfg.remat:
+        raise AssertionError(f"{xcfg.name}: expected the scan, remat")
+    log(f"[train-rec] {xcfg.name}: {xcfg.num_layers} of {xfull.num_layers} "
+        f"layers (depth cut: one period, {xcfg.slstm_every - 1} mLSTM and 1 "
+        f"sLSTM), d_model {xcfg.d_model}, {xcfg.num_heads} heads, vocab "
+        f"{xcfg.vocab_size}")
+    xrow, xp, xo, xdc = train_run(
+        "train-rec", xcfg, TRAIN_XLSTM_B, TRAIN_XLSTM_S, TRAIN_XLSTM_STEPS,
+        {}, launches_total, smi)
+    mark("xlstm loop")
+    xb = {k: torch.from_numpy(v).to("cuda") for k, v in
+          SyntheticPipeline(xdc).global_batch(TRAIN_XLSTM_STEPS).items()}
+    # the scan's launches, from profiled steps at TRAIN_XLSTM_COUNT_S
+    # tokens (the profiler takes about 0.25 ms of host time a launch, so
+    # a profiled 2 x 256 step takes over a minute): the count is
+    # fixed + per token x tokens, exactly
+    xstep = T.make_train_step(get_model(xcfg), xcfg, O.AdamWConfig(lr=0.0))
+    counts = {}
+    for s_ in TRAIN_XLSTM_COUNT_S:
+        b_ = {k: v[:, :s_] for k, v in xb.items()}
+        _, counts[s_], _ = device_launches(lambda: xstep(xp, xo, b_))
+    (s1, n1), (s2, n2) = sorted(counts.items())
+    per_token = (n2 - n1) / (s2 - s1)
+    n = n1 + per_token * (TRAIN_XLSTM_S - s1)
+    xrow.update(launches_by_tokens=counts, launches_per_token=per_token,
+                step_launches=n)
+    log(f"[train-rec] {xcfg.name} scan: step {xrow['steady_step_ms']:.1f} "
+        f"ms (CUDA events, mean after the first) for {n:.0f} device "
+        f"launches a step ({per_token:.0f} a token: the per-token cell's "
+        f"launches are host time; profiled steps of {TRAIN_XLSTM_B} x "
+        + " and ".join(f"{k} tokens launched {v}" for k, v in counts.items())
+        + ")")
+    mark("xlstm launch count")
+    ccfg = dataclasses.replace(xcfg, mlstm_impl="chunked")
+    cstep = T.make_train_step(get_model(ccfg), ccfg, O.AdamWConfig())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    _, _, cm = cstep(xp, xo, xb)
+    ev[1].record()
+    torch.cuda.synchronize()
+    chunk = dict(step_ms=ev[0].elapsed_time(ev[1]),
+                 peak_bytes=torch.cuda.max_memory_allocated(),
+                 **{k: float(v) for k, v in cm.items()})
+    if not all(math.isfinite(v) for v in chunk.values()):
+        raise AssertionError(f"train-rec {ccfg.name} chunked: {chunk}")
+    log(f"[train-rec] {ccfg.name}: one step chunkwise (chunks of "
+        f"{ccfg.chunk_size}) {chunk['step_ms']:.1f} ms (its first call, CUDA "
+        f"events), peak allocated {chunk['peak_bytes'] / 1e9:.2f} GB; loss "
+        f"{chunk['loss']:.4f}, grad norm {chunk['grad_norm']:.4f}; {smi}")
+    xrow["chunked"] = chunk
+    mark("xlstm chunked")
+    stats[xcfg.name] = xrow
+    del xp, xo, xb, xstep, cstep, cm
+    free()
+    x2 = dataclasses.replace(xcfg, num_layers=TRAIN_XLSTM_CPU_LAYERS,
+                             dtype="float32", remat=False)
+    xa2 = get_model(x2)
+    xp2 = ptq.materialize_by_layer(xa2, x2, seed=0, device="cuda")
+    stats["xlstm_cpu_check"] = card_vs_cpu(
+        f"[train-rec] {x2.name} first {x2.num_layers} layers", xa2, x2, xp2,
+        cpu_batch(x2, TRAIN_XLSTM_CPU_B, TRAIN_XLSTM_CPU_S), {})
+    del xp2
+    free()
+    mark("xlstm cpu check")
+    new = {k: ptxas_report(v) for k, v in _build.BUILD_LOG.items()
+           if k not in built}
+    for name, fns in new.items():
+        for fn, info in fns.items():
+            log(f"[train-rec] built anew: {name}: {fn}: {info}")
+    stats["built_anew"] = sorted(new)
+    stats["seconds"] = time.perf_counter() - t_phase
+    stats["marks"] = marks
+    log(f"[train-rec] phase {stats['seconds']:.1f} s (wall s at the end of "
+        f"each part: " + ", ".join(f"{k} {v:.1f}" for k, v in marks.items())
+        + f"), kernels built anew {sorted(new) or 'none'}; {smi}")
     return stats
 
 
@@ -4746,6 +5071,11 @@ def main() -> int:
     train_moe_stats = train_moe_phase(launches_total, smi)
 
     phase_done("train-moe")
+
+    # -- 8i. training the recurrent families ---------------------------------
+    train_rec_stats = train_rec_phase(launches_total, smi)
+
+    phase_done("train-rec")
     missing = sorted(k for k in _build.KERNELS if launches_total[k] <= 0)
     if missing:
         raise AssertionError(f"kernels never launched on a served or "
@@ -4828,7 +5158,7 @@ def main() -> int:
         "llama3": llama3_stats, "kv8": kv8_stats, "configs": configs_stats,
         "mla": mla_stats, "xattn": xattn_stats,
         "recurrent": recurrent_stats, "train": train_stats,
-        "train_moe": train_moe_stats,
+        "train_moe": train_moe_stats, "train_rec": train_rec_stats,
         "seconds": time.perf_counter() - t_start,
         "phase_seconds": phase_times,
     }, indent=1))

@@ -23,7 +23,7 @@
 // Design (bf16, the tensor cores): no atomics, so two calls give the same
 //   bits. Three kernels, and a fourth where the heads are split:
 //   1. delta: one warp per (b, row, head), f32 (B, Hq, Sq), each lane one
-//      8-, 4- or 2-byte load of O and of dO.
+//      16-, 8-, 4- or 2-byte load of O and of dO.
 //   2. dK, dV: one block of 4 warps per (key tile of TKV = 64, b, kv head,
 //      split), earliest key tiles first (under a causal mask they see the
 //      most query tiles). K and V stay in shared memory for the whole
@@ -68,22 +68,42 @@
 //   lo (split_bf16, one more MMA each), as the forward does for P: within
 //   2^-16 of the f32 value. On the H100 a build without the second MMAs
 //   was only a little faster.
-// Resources at D = 128 (ptxas -v, sm_90a; chip_smoke.py prints them):
+// Resources (ptxas -v, sm_90a; chip_smoke.py prints them): at D = 128
 //   dK/dV 255 registers, no spill, 105,472 B of shared memory: 2 blocks,
-//   8 warps an SM; dQ 168 registers, no spill, 69,632 B: 3 blocks.
+//   8 warps an SM; dQ 168 registers, no spill, 69,632 B: 3 blocks. At
+//   D = 256 dK/dV 251 registers, no spill, 101,888 B: 2 blocks; dQ 255
+//   registers, 16 B of spill stores, 135,168 B: 1 block. f32 at D = 256:
+//   dK/dV 127 registers, dQ 64, no spill, 140,288 B.
 // What holds it back, and stays for later: with mma.sync each warp loads
 //   its own fragments from shared memory with ldmatrix for only 16 rows
 //   of A, and the dK/dV block's 255 registers leave 8 warps an SM to hide
 //   the latency (at the train step's shape the dK/dV pass takes 0.60 of
 //   the time, dQ 0.36, delta 0.035: chip_smoke.py's [bwd] profile). wgmma
 //   (64-row warpgroup tiles, B read by the tensor cores from swizzled
-//   shared memory, asynchronous) and TMA are the next design. D = 256
-//   would need 256 f32 accumulators a thread for dK and dV: it does not
-//   fit.
+//   shared memory, asynchronous) and TMA are the next design. At D = 256
+//   and RecurrentGemma's train shape (1 x 4096 tokens, 16 query heads
+//   over one KV head, window 2048) dK/dV takes 1.94 ms and dQ 1.10 of
+//   3.06, 0.085 of its 0.261 ms bound (cuDNN's backward: 3.55 ms).
+// D = 256 (RecurrentGemma's local attention: 16 query heads over one KV
+//   head, a window of 2048). One warp's dK and dV accumulators for 16 keys
+//   x 256 dims would be 256 f32 a thread, past the 255 registers D = 128
+//   already takes. So the D split: two warps share 16 key rows (TKV_256 =
+//   32 keys a block of 4 warps), each computes S^T and dP^T over all 256
+//   dims and accumulates dK and dV for its half of D, 128 f32 a thread as
+//   at D = 128. The price: S^T and dP^T twice, 9 products where 7 are
+//   done at D <= 128. The other layout, one warp making two passes over
+//   the D halves, recomputes the same products and stages Q and dO twice.
+//   Shared memory, rows of 264 bf16: K and V for 32 keys and
+//   double-buffered Q and dO tiles of TQS_256 = 32 query rows, 101,888 B,
+//   2 blocks an SM (64-row query tiles would take 169,984 B: one block);
+//   dQ keeps its layout (16 rows x 256 dims a warp, 128 f32 a thread),
+//   135,168 B: one block of 4 warps an SM. Few dK/dV blocks (4096 keys of
+//   one KV head make 128) bring in the head split below.
 // f32 inputs keep the first design: scalar f32 FMAs from shared memory,
-//   one block of 256 threads per (key tile of 64, b, kv head) for dK / dV
-//   and per (query tile of 64, b, query head) for dQ; f32 tiles padded to
-//   D + 1 (165,888 B at D = 128). TF32 would break f32's 1e-5 bound.
+//   one block of 256 threads per (key tile, b, kv head) for dK / dV and
+//   per (query tile, b, query head) for dQ; f32 tiles padded to D + 1:
+//   tiles of 64 rows (165,888 B at D = 128), of 32 at D = 256 (140,288
+//   B). TF32 would break f32's 1e-5 bound.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,17 +112,23 @@
 
 namespace {
 
-// f32: the scalar kernels
-constexpr int BQ = 64, BK = 64, kThreads = 256, kWarps = kThreads / 32;
-static_assert(BQ == BK, "load_tile fills BQ rows of a query or key tile");
+// f32: the scalar kernels. One tile size BT for query and key tiles: 64
+// rows, and 32 at D = 256 (four 64-row tiles of 257 f32 would take
+// 263,168 B of shared memory); each of the 16 x 16 threads owns BT / 16
+// rows and columns of a tile's scores
+constexpr int kThreads = 256, kWarps = kThreads / 32;
+constexpr int BT = 64, BT_256 = 32;
+
+template <int D>
+constexpr int f32_tile = D > 128 ? BT_256 : BT;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
 template <int D>
 constexpr size_t smem_bytes() {  // Q, dO, K, V; P, dS; lse, delta
-  return sizeof(float) *
-         ((2 * BQ + 2 * BK) * (D + 1) + 2 * BQ * (BK + 1) + 2 * BQ);
+  constexpr int T = f32_tile<D>;
+  return sizeof(float) * (4 * T * (D + 1) + 2 * T * (T + 1) + 2 * T);
 }
 
 // delta[b, h, s] = sum_d dO[b, s, h, d] O[b, s, h, d], one warp a row
@@ -134,13 +160,13 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   }
 }
 
-// rows [r0, r0 + BQ) of head h of a (B, S, H, D) tensor into a (BQ, D + 1)
+// rows [r0, r0 + BT) of head h of a (B, S, H, D) tensor into a (BT, D + 1)
 // f32 tile, times mul; zeros past S
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
                                           int r0, int S, int64_t stride,
                                           float mul) {
-  for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
+  for (int i = threadIdx.x; i < f32_tile<D> * D; i += kThreads) {
     const int r = i / D, d = i % D;
     dst[r * (D + 1) + d] =
         r0 + r < S ? to_f32(src[(r0 + r) * stride + d]) * mul : 0.f;
@@ -154,43 +180,44 @@ __device__ __forceinline__ void score_tile(
     const float* Qs, const float* dOs, const float* Ks, const float* Vs,
     const float* lse_s, const float* dl_s, float* Ps, float* dSs, int q0,
     int k0, int Sq, int Sk, int causal, int window, int tx, int ty) {
-  float s[4][4], dp[4][4];
+  constexpr int T = f32_tile<D>, RI = T / 16;
+  float s[RI][RI], dp[RI][RI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < RI; ++j) s[i][j] = dp[i][j] = 0.f;
   }
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float qa[4], oa[4], kb[4], vb[4];
+    float qa[RI], oa[RI], kb[RI], vb[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       qa[i] = Qs[(ty + 16 * i) * (D + 1) + d];
       oa[i] = dOs[(ty + 16 * i) * (D + 1) + d];
       kb[i] = Ks[(tx + 16 * i) * (D + 1) + d];
       vb[i] = Vs[(tx + 16 * i) * (D + 1) + d];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
         dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int r = ty + 16 * i, qp = q0 + r;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < RI; ++j) {
       const int c = tx + 16 * j, kp = k0 + c;
       bool ok = qp < Sq && kp < Sk;
       if (causal) ok = ok && kp <= qp;
       if (window >= 0) ok = ok && kp > qp - window;
       const float p = ok ? expf(s[i][j] - lse_s[r]) : 0.f;
-      Ps[r * (BK + 1) + c] = p;
-      dSs[r * (BK + 1) + c] = p * (dp[i][j] - dl_s[r]);
+      Ps[r * (T + 1) + c] = p;
+      dSs[r * (T + 1) + c] = p * (dp[i][j] - dl_s[r]);
     }
   }
 }
@@ -201,19 +228,20 @@ struct Smem {
 
 template <int D>
 __device__ __forceinline__ Smem carve(float* smem) {
+  constexpr int T = f32_tile<D>;
   Smem m;
   m.Qs = smem;
-  m.dOs = m.Qs + BQ * (D + 1);
-  m.Ks = m.dOs + BQ * (D + 1);
-  m.Vs = m.Ks + BK * (D + 1);
-  m.Ps = m.Vs + BK * (D + 1);
-  m.dSs = m.Ps + BQ * (BK + 1);
-  m.lse_s = m.dSs + BQ * (BK + 1);
-  m.dl_s = m.lse_s + BQ;
+  m.dOs = m.Qs + T * (D + 1);
+  m.Ks = m.dOs + T * (D + 1);
+  m.Vs = m.Ks + T * (D + 1);
+  m.Ps = m.Vs + T * (D + 1);
+  m.dSs = m.Ps + T * (T + 1);
+  m.lse_s = m.dSs + T * (T + 1);
+  m.dl_s = m.lse_s + T;
   return m;
 }
 
-// Q (scaled), dO, lse and delta of query rows [q0, q0 + BQ) of head h
+// Q (scaled), dO, lse and delta of query rows [q0, q0 + BT) of head h
 template <typename T, int D>
 __device__ __forceinline__ void load_query_side(
     const Smem& m, const T* __restrict__ q, const T* __restrict__ dout,
@@ -224,7 +252,7 @@ __device__ __forceinline__ void load_query_side(
   load_tile<T, D>(m.Qs, q + off, q0, Sq, qs, scale);
   load_tile<T, D>(m.dOs, dout + off, q0, Sq, qs, 1.f);
   const int64_t row = (static_cast<int64_t>(b) * Hq + h) * Sq;
-  for (int r = threadIdx.x; r < BQ; r += kThreads) {
+  for (int r = threadIdx.x; r < f32_tile<D>; r += kThreads) {
     const bool in = q0 + r < Sq;
     m.lse_s[r] = in ? lse[row + q0 + r] : 0.f;
     m.dl_s[r] = in ? delta[row + q0 + r] : 0.f;
@@ -239,6 +267,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ delta, T* __restrict__ dk,
                       T* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv,
                       float scale, int causal, int window) {
+  constexpr int BQ = f32_tile<D>, BK = BQ, RI = BQ / 16;
   extern __shared__ float smem[];
   const Smem m = carve<D>(smem);
   const int k0 = blockIdx.x * BK;  // earliest key tile first
@@ -256,9 +285,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (window >= 0) qt_end = min(nq, (k0 + BK - 1 + window - 1) / BQ + 1);
 
   constexpr int DJ = D / 16;
-  float aK[4][DJ], aV[4][DJ];
+  float aK[RI][DJ], aV[RI][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
 #pragma unroll
     for (int j = 0; j < DJ; ++j) aK[i][j] = aV[i][j] = 0.f;
   }
@@ -273,9 +302,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
 #pragma unroll 2
       for (int r = 0; r < BQ; ++r) {
-        float p[4], ds[4], o[DJ], x[DJ];
+        float p[RI], ds[RI], o[DJ], x[DJ];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RI; ++i) {
           p[i] = m.Ps[r * (BK + 1) + ty + 16 * i];
           ds[i] = m.dSs[r * (BK + 1) + ty + 16 * i];
         }
@@ -285,7 +314,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           x[j] = m.Qs[r * (D + 1) + tx + 16 * j];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RI; ++i) {
 #pragma unroll
           for (int j = 0; j < DJ; ++j) {
             aV[i][j] = fmaf(p[i], o[j], aV[i][j]);
@@ -296,7 +325,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int kp = k0 + ty + 16 * i;
     if (kp < Sk) {
 #pragma unroll
@@ -317,6 +346,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int Sq, int Sk, int Hq, int Hkv, float scale, int causal,
                     int window) {
+  constexpr int BQ = f32_tile<D>, BK = BQ, RI = BQ / 16;
   extern __shared__ float smem[];
   const Smem m = carve<D>(smem);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // latest tile first
@@ -334,9 +364,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t koff = (static_cast<int64_t>(b) * Sk * Hkv + hk) * D;
 
   constexpr int DJ = D / 16;
-  float aQ[4][DJ];
+  float aQ[RI][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
 #pragma unroll
     for (int j = 0; j < DJ; ++j) aQ[i][j] = 0.f;
   }
@@ -351,13 +381,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 #pragma unroll 2
     for (int c = 0; c < BK; ++c) {
-      float ds[4], kv[DJ];
+      float ds[RI], kv[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = m.dSs[(ty + 16 * i) * (BK + 1) + c];
+      for (int i = 0; i < RI; ++i) ds[i] = m.dSs[(ty + 16 * i) * (BK + 1) + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) kv[j] = m.Ks[c * (D + 1) + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
 #pragma unroll
         for (int j = 0; j < DJ; ++j) aQ[i][j] = fmaf(ds[i], kv[j], aQ[i][j]);
       }
@@ -366,7 +396,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t qs = static_cast<int64_t>(Hq) * D;
   const int64_t qoff = (static_cast<int64_t>(b) * Sq * Hq + h) * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int qp = q0 + ty + 16 * i;
     if (qp < Sq) {
 #pragma unroll
@@ -382,6 +412,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            const float* lse, const void* dout, float* delta, void* dq,
            void* dk, void* dv, int B, int Sq, int Sk, int Hq, int Hkv,
            float scale, int causal, int window, cudaStream_t st) {
+  constexpr int BQ = f32_tile<D>, BK = BQ;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -432,6 +463,9 @@ int launch_d(int D, const void* q, const void* k, const void* v,
              void* dq, void* dk, void* dv, int B, int Sq, int Sk, int Hq,
              int Hkv, float scale, int causal, int window, cudaStream_t st) {
   switch (D) {
+    case 256:
+      return launch<T, 256>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, Sq,
+                            Sk, Hq, Hkv, scale, causal, window, st);
     case 128:
       return launch<T, 128>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, Sq,
                             Sk, Hq, Hkv, scale, causal, window, st);
@@ -456,18 +490,36 @@ constexpr int SUB = 32;  // query columns of a dK/dV warp's chunk
 constexpr int TQD = 64;  // query rows of a dQ block: 4 warps x 16
 constexpr int TKS = 32;   // key rows the dQ block stages a step
 constexpr int KSUB = 32;  // keys of a dQ warp's chunk
+// D = 256: two warps share 16 key rows, each accumulating dK and dV for
+// half of D, so a dK/dV block holds 2 x 16 keys and stages 32 query rows
+// a step (see the header)
+constexpr int TKV_256 = 32, TQS_256 = 32;
 constexpr int kTcThreads = 128;
 static_assert(TKV == 16 * (kTcThreads / 32) && TQD == TKV, "16 rows a warp");
-static_assert(TQS % SUB == 0 && SUB % 16 == 0 && TKS % KSUB == 0 &&
-                  KSUB % 16 == 0, "k16 steps");
+static_assert(TKV_256 == 16 * (kTcThreads / 32) / 2, "2 warps a 16-key row");
+static_assert(TQS % SUB == 0 && TQS_256 % SUB == 0 && SUB % 16 == 0 &&
+                  TKS % KSUB == 0 && KSUB % 16 == 0, "k16 steps");
+
+// The bf16 layout of one head dim: the dK/dV block's key rows (tkv) and
+// staged query rows (tqs), the dims a dK/dV warp accumulates (wd) and the
+// warps that share its 16 key rows (wpk)
+template <int D>
+struct TcTiles {
+  static constexpr bool split_d = D > 128;
+  static constexpr int tkv = split_d ? TKV_256 : TKV;
+  static constexpr int tqs = split_d ? TQS_256 : TQS;
+  static constexpr int wd = split_d ? D / 2 : D;
+  static constexpr int wpk = D / wd;
+};
 
 template <int D>
 struct TcSmem {
   static constexpr int stride = D + 8;  // bf16 row stride (ldmatrix banks)
-  static constexpr int kv = TKV * stride, qs = TQS * stride;
+  static constexpr int tqs = TcTiles<D>::tqs;
+  static constexpr int kv = TcTiles<D>::tkv * stride, qs = tqs * stride;
   static constexpr int qd = TQD * stride, ks = TKS * stride;
   // dK/dV: K, V; Q x 2, dO x 2; lse x 2, delta x 2 (f32)
-  static constexpr int dkdv = (2 * kv + 4 * qs) * 2 + 4 * TQS * 4;
+  static constexpr int dkdv = (2 * kv + 4 * qs) * 2 + 4 * tqs * 4;
   // dQ: Q, dO; K x 2, V x 2
   static constexpr int dq = (2 * qd + 4 * ks) * 2;
 };
@@ -532,7 +584,11 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   int Sq, int Sk, int Hq, int Hkv, float scale, int causal,
                   int window, int splits) {
   using L = TcSmem<D>;
-  constexpr int ST = L::stride, DK = D / 16, DN = D / 8;
+  using W = TcTiles<D>;
+  constexpr int TKV = W::tkv, TQS = W::tqs;  // this head dim's tiles
+  // S^T and dP^T over all of D; dK and dV over this warp's wd dims
+  constexpr int ST = L::stride, DK = D / 16, DKW = W::wd / 16,
+                DN = W::wd / 8;
   extern __shared__ __align__(16) unsigned char smem_tc[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_tc);
   bf16* Vs = Ks + L::kv;
@@ -580,9 +636,11 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_commit();
 
   const float sl2 = scale * LOG2E;  // scores in the log2 domain
-  const int kw0 = k0 + warp * 16;   // this warp's 16 keys
-  const bf16* Kw = Ks + warp * 16 * ST + a_lane<ST>(lane);
-  const bf16* Vw = Vs + warp * 16 * ST + a_lane<ST>(lane);
+  const int kr = warp / W::wpk;     // this warp's 16 keys
+  const int kw0 = k0 + kr * 16;
+  const int dw0 = (warp % W::wpk) * W::wd;  // and its dims of dK and dV
+  const bf16* Kw = Ks + kr * 16 * ST + a_lane<ST>(lane);
+  const bf16* Vw = Vs + kr * 16 * ST + a_lane<ST>(lane);
   const int bl = b_lane<ST>(lane), tl = t_lane<ST>(lane);
   float aK[DN][4], aV[DN][4];
 #pragma unroll
@@ -662,10 +720,10 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t ph[4], pl[4], sh[4], sl[4];
         a_frag(st, c, ph, pl);
         a_frag(dpt, c, sh, sl);
-        const int row = (c0 + 16 * c) * ST + tl;
+        const int row = (c0 + 16 * c) * ST + tl + dw0;
 #pragma unroll
-        for (int d2 = 0; d2 < DK; ++d2) {
-          uint32_t bt[4];  // dims 16 d2 .. +7 and +8 .. +15
+        for (int d2 = 0; d2 < DKW; ++d2) {
+          uint32_t bt[4];  // dims dw0 + 16 d2 .. +7 and +8 .. +15
           ldmatrix_x4_t(bt, Ot + row + d2 * 16);
           mma_bf16(aV[2 * d2], ph, bt[0], bt[1]);
           mma_bf16(aV[2 * d2 + 1], ph, bt[2], bt[3]);
@@ -682,14 +740,14 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   cp_wait<0>();
 
-  // rows kw0 + g and kw0 + g + 8, dims 8 j + 2 t and + 1: bf16 into dk /
-  // dv, or this split's f32 partial into the workspace
+  // rows kw0 + g and kw0 + g + 8, dims dw0 + 8 j + 2 t and + 1: bf16 into
+  // dk / dv, or this split's f32 partial into the workspace
   const int64_t slab = static_cast<int64_t>(B) * Sk * Hkv * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int kp = kw0 + g + 8 * r;
     if (kp >= Sk) continue;
-    const int64_t at0 = koff + kp * ks + 2 * t;
+    const int64_t at0 = koff + kp * ks + dw0 + 2 * t;
 #pragma unroll
     for (int j = 0; j < DN; ++j) {
       const int64_t at = at0 + 8 * j;
@@ -709,7 +767,7 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // delta[b, h, s] = sum_d dO[b, s, h, d] O[b, s, h, d] for bf16, one warp a
 // row: lane l sums dims [E l, E l + E) in order (E = D / 32, one load of
-// 2E bytes each), then the warp's butterfly
+// 2E bytes each: 16 at D = 256), then the warp's butterfly
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_delta_bf16(const bf16* __restrict__ o, const bf16* __restrict__ dout,
@@ -722,7 +780,12 @@ flash_bwd_delta_bf16(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   const bf16* op = o + row * D + lane * E;
   const bf16* dp = dout + row * D + lane * E;
   uint32_t a[E > 1 ? E / 2 : 1], b[E > 1 ? E / 2 : 1];  // bf16 pairs
-  if constexpr (E == 4) {
+  if constexpr (E == 8) {
+    const uint4 x = *reinterpret_cast<const uint4*>(op);
+    const uint4 y = *reinterpret_cast<const uint4*>(dp);
+    a[0] = x.x, a[1] = x.y, a[2] = x.z, a[3] = x.w;
+    b[0] = y.x, b[1] = y.y, b[2] = y.z, b[3] = y.w;
+  } else if constexpr (E == 4) {
     const uint2 x = *reinterpret_cast<const uint2*>(op);
     const uint2 y = *reinterpret_cast<const uint2*>(dp);
     a[0] = x.x, a[1] = x.y, b[0] = y.x, b[1] = y.y;
@@ -941,8 +1004,9 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
   err = allow_smem(flash_bwd_dq_tc<D>, L::dq, attr_q);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (Sk > 0) {
+    constexpr int tkv = TcTiles<D>::tkv;
     flash_bwd_dkdv_tc<D>
-        <<<dim3((Sk + TKV - 1) / TKV, B * Hkv * splits), kTcThreads, L::dkdv,
+        <<<dim3((Sk + tkv - 1) / tkv, B * Hkv * splits), kTcThreads, L::dkdv,
            st>>>(qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dk),
                  static_cast<bf16*>(dv), ws, B, Sq, Sk, Hq, Hkv, scale,
                  causal, window, splits);
@@ -969,7 +1033,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
 // q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), o and dout (B, Sq, Hq, D), dq like
 // q, dk/dv like k; all contiguous, one dtype: bf16 (is_bf16 = 1) or f32.
 // lse: the forward's f32 (B, Hq, Sq); delta: f32 (B, Hq, Sq) scratch. D is
-// 32, 64 or 128; Hq % Hkv == 0; window < 0 means no window. splits (bf16
+// 32, 64, 128 or 256; Hq % Hkv == 0; window < 0 means no window. splits (bf16
 // only; f32 takes 1) divides G = Hq / Hkv: the dK/dV blocks of a kv head
 // split its G query heads, and above 1, ws is an f32 workspace of
 // 2 splits B Sk Hkv D elements (null otherwise). Returns the first
@@ -980,7 +1044,8 @@ extern "C" int flash_attention_bwd_launch(
     void* dv, int is_bf16, int B, int Sq, int Sk, int Hq, int Hkv, int D,
     float scale, int causal, int window, int splits, void* ws,
     void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || (D != 32 && D != 64 && D != 128) ||
+  if (Hkv <= 0 || Hq % Hkv != 0 ||
+      (D != 32 && D != 64 && D != 128 && D != 256) ||
       splits < 1 || (Hq / Hkv) % splits != 0 ||
       (splits > 1 && (!is_bf16 || ws == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -992,6 +1057,9 @@ extern "C" int flash_attention_bwd_launch(
   float* w = static_cast<float*>(ws);
   if (is_bf16) {
     switch (D) {
+      case 256:
+        return launch_tc<256>(q, k, v, o, l, dout, dl, dq, dk, dv, w, B, Sq,
+                              Sk, Hq, Hkv, scale, causal, window, splits, st);
       case 128:
         return launch_tc<128>(q, k, v, o, l, dout, dl, dq, dk, dv, w, B, Sq,
                               Sk, Hq, Hkv, scale, causal, window, splits, st);

@@ -16,7 +16,8 @@ a bf16 output is held to on the card (one bf16 ulp at |x| ~ 2 is 1.6e-2).
 Training: when grad is enabled and an input requires grad,
 :func:`flash_attention` goes through a ``torch.autograd.Function`` whose
 forward also writes each row's log-sum-exp and whose backward is
-:func:`flash_attention_bwd` (the backward kernel on CUDA tensors,
+:func:`flash_attention_bwd` (the backward kernel on CUDA tensors, at every
+head dim of the forward, RecurrentGemma's 256 included;
 :func:`flash_attention_bwd_plain` on CPU tensors). The reference's train
 step differentiates its jnp attention (``repro/models/attention.py``
 ``flash_attention``) with ``jax.value_and_grad``; the backward computes
@@ -35,7 +36,7 @@ from .w4a8_gemm import _sm_count
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)  # head_dims the kernel is instantiated for
-BWD_HEAD_DIMS = (32, 64, 128)   # and the backward's (256 does not fit)
+BWD_HEAD_DIMS = HEAD_DIMS       # and the backward's
 #: max |kernel - plain| for bf16 outputs (one bf16 ulp at |x|~2 is 1.6e-2)
 TOLERANCE = 2e-2
 #: the backward's bound on the card: max |kernel - plain| <= this times
@@ -50,8 +51,10 @@ _BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float]
              + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
 #: the bf16 backward's tiles (``TKV`` and ``TQD`` of
 #: csrc/flash_attention_bwd.cu): key rows of a dK/dV block, query rows of
-#: a dQ block
+#: a dQ block; at head dim 256 a dK/dV block holds ``TKV_256`` keys (two
+#: warps share 16 key rows, each accumulating half of D)
 BWD_KV_TILE = BWD_Q_TILE = 64
+BWD_KV_TILE_256 = 32
 
 
 def _mask(Sq: int, Sk: int, causal: bool, window: int | None, device):
@@ -177,14 +180,18 @@ def bwd_launch_plan(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int,
     without a split). bf16 splits the heads, by the smallest divisor of G
     that gives at least one dK/dV block an SM (or by G), where key tiles x
     B Hkv blocks are fewer than the SMs; f32 (the scalar kernels, 64-row
-    tiles too) never does."""
+    tiles, 32 at D = 256) never does."""
     G = Hq // Hkv
-    base = -(-Sk // BWD_KV_TILE) * B * Hkv
+    kv_tile = BWD_KV_TILE_256 if D == 256 else BWD_KV_TILE
+    # f32's tiles are square and as long as bf16's key tiles (``BT``,
+    # ``BT_256`` of the .cu)
+    q_tile = kv_tile if dtype == torch.float32 else BWD_Q_TILE
+    base = -(-Sk // kv_tile) * B * Hkv
     splits = 1
     if dtype == torch.bfloat16:
         while base * splits < sms and splits < G:
             splits = next(s for s in range(splits + 1, G + 1) if G % s == 0)
-    return {"kv_blocks": base * splits, "q_blocks": -(-Sq // BWD_Q_TILE)
+    return {"kv_blocks": base * splits, "q_blocks": -(-Sq // q_tile)
             * B * Hq, "splits": splits,
             "workspace": 2 * splits * B * Sk * Hkv * D if splits > 1 else 0}
 

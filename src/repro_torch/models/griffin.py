@@ -28,7 +28,14 @@ written in place.
 
 The embedding is scaled by sqrt(d_model) in the activation dtype, and the
 logits are computed in f32 over the tied embedding, then soft-capped at
-``logit_softcap``. The reference's layout takes the first ``num_layers %
+``logit_softcap``. Training (``mode="train"`` with grad enabled) under
+``cfg.remat`` runs each block through ``torch.utils.checkpoint``
+(non-reentrant), as the reference's ``jax.checkpoint`` of its scanned
+body: the block's activations are recomputed in the backward. The
+RG-LRU's gradient is autograd's through :func:`_lru_scan`'s log-depth
+products; the local attention's is the flash backward kernel on CUDA
+tensors (head dim 256 with the window), its plain version on the CPU.
+The reference's layout takes the first ``num_layers %
 len(block_pattern)`` kinds as the unrolled prefix and scans whole patterns
 after it (:func:`split`). Linear paths are the reference's recipe paths:
 ``blocks/<i>/rglru/{gate_proj,x_proj,out_proj}``,
@@ -40,6 +47,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import flash_attention
@@ -378,9 +386,16 @@ class Griffin(nn.Module):
         # RecurrentGemma scales the embeddings by sqrt(d), in their dtype
         x = x * torch.sqrt(torch.full((), float(cfg.d_model),
                                       device=x.device)).to(x.dtype)
+        # the reference's remat: each block recomputed in the backward
+        # (training only; serving runs without grad)
+        remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x = blk(x, None if cache is None else cache["blocks"][i],
-                    pos=pos, mode=mode)
+            st = None if cache is None else cache["blocks"][i]
+            if remat:
+                x = checkpoint(blk, x, st, pos=pos, mode=mode,
+                               use_reentrant=False)
+            else:
+                x = blk(x, st, pos=pos, mode=mode)
         if mode == "prefill":
             x = x[:, -1:]
         return self.logits(x), cache, torch.zeros((), device=x.device)

@@ -18,7 +18,12 @@ sLSTM. A given cache is read as the starting state (zeros: the training
 init) and written in place with the final state; ``pos`` is not read.
 The recurrences and the causal conv are plain PyTorch on every device, as
 the reference's are plain jnp; the quantized linears launch the Hopper
-GEMMs on CUDA tensors.
+GEMMs on CUDA tensors. Training differentiates them with autograd
+(the per-token scan's ops one step at a time: on the card its launch
+count is host time); under ``cfg.remat`` (``mode="train"`` with grad
+enabled) each block runs through ``torch.utils.checkpoint``
+(non-reentrant), as the reference's ``jax.checkpoint`` of its scanned
+body.
 
 The reference lays its layers out as ``split_layers`` gives them
 (:func:`split`: xlstm-1.3b is ``blocks/s0..s7`` x 6); the port keeps one
@@ -31,6 +36,7 @@ import math
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.nn import spec as S
@@ -153,7 +159,10 @@ def _mlstm_chunked(q, k, v, i_raw, f_raw, C0, n0, m0, chunk: int):
     the cumulative sum of log sigmoid(f_raw), the stabilizer is
     m_t = F_t + max(m_0, cummax_{s<=t}(li_s - F_s)); each chunk is a
     decay-masked attention product plus its carried state, and only the
-    chunks are visited in order.
+    chunks are visited in order. The decay's exponent is masked before
+    the exponential (the same values): the reference masks after it, so
+    where a masked (future) entry's exponent passes f32's range (a long
+    chunk of strong forget gates) its gradient is 0 x inf = NaN.
 
     q, k, v (B, S, H, dh) f32; i_raw, f_raw (B, S, H) f32. Returns
     (h (B, S, H, dh), (C, n, m) the final state)."""
@@ -183,8 +192,9 @@ def _mlstm_chunked(q, k, v, i_raw, f_raw, C0, n0, m0, chunk: int):
         den_in = torch.einsum("bhk,bchk->bch", n_in, qb)
         logD = (Fb[:, :, None, :] - Fb[:, None, :, :]
                 + lib[:, None, :, :] - m_t[:, :, None, :])     # (B, t, s, H)
-        D = torch.where(mask[None, :, :, None], torch.exp(logD),
-                        torch.zeros((), device=q.device))
+        D = torch.exp(torch.where(mask[None, :, :, None], logD,
+                                  torch.full((), -math.inf,
+                                             device=q.device)))
         scores = torch.einsum("bthk,bshk->btsh", qb, kb) * D
         num = torch.einsum("btsh,bshv->bthv", scores, vb) \
             + g_in[..., None] * num_in
@@ -421,8 +431,13 @@ class XLSTM(nn.Module):
                 cache: dict | None = None, pos=0, memory=None):
         x = F.embedding(tokens.long(), self.embed).to(
             self.cfg.activation_dtype)
+        # the reference's remat: each block recomputed in the backward
+        # (training only; serving runs without grad)
+        remat = self.cfg.remat and mode == "train" and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x = blk(x, None if cache is None else cache["blocks"][i])
+            st = None if cache is None else cache["blocks"][i]
+            x = (checkpoint(blk, x, st, use_reentrant=False) if remat
+                 else blk(x, st))
         if mode == "prefill":
             x = x[:, -1:]
         return self.logits(x), cache, torch.zeros((), device=x.device)

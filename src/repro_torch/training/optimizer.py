@@ -10,7 +10,8 @@ keep the peak down at full width it takes the global norm first and
 makes each leaf's clipped f32 gradient inside that leaf's update: the
 same elementwise math as the reference's whole-tree clip, one leaf's
 temporaries at a time. Weight decay follows the reference's rule as the
-reference's layout holds the leaf (:func:`decay_mask`). Every scalar (the
+reference's layout holds the leaf (:func:`decay_mask`; a Griffin tree's
+layout needs the model's config, ``model_cfg``). Every scalar (the
 norm, the clip scale, the learning rate, the bias corrections) is an f32
 tensor on the device, so a step makes no host sync.
 """
@@ -83,12 +84,14 @@ def clip_by_global_norm(grads: Any, max_norm: float):
     return S.tree_map(lambda g: g.float() * scale, grads), norm
 
 
-def decay_mask(params: Any) -> Any:
+def decay_mask(params: Any, cfg=None) -> Any:
     """Which leaves take weight decay: the reference's ``ndim >= 2`` rule
     as the reference's layout holds each leaf. There the layers after its
     prefix lie stacked on a leading repeat axis (``convert.py``), so a
     port layer's (d,) norm gain is (R, d) and decays; a prefix layer is
-    unstacked, and a tree with no ``blocks`` list is its own layout."""
+    unstacked, and a tree with no ``blocks`` list is its own layout.
+    ``cfg``: the model's config, which a Griffin tree needs (its prefix
+    is its first ``num_layers % 3`` layers: ``convert.reference_split``)."""
 
     def plain(tree, extra=0):
         return S.tree_map(lambda p: p.ndim + extra >= 2, tree)
@@ -103,15 +106,17 @@ def decay_mask(params: Any) -> Any:
         return {k: model(v, 0) for k, v in params.items()}
     if isinstance(params, dict) and isinstance(params.get("blocks"), list):
         prefix, _, _ = convert.reference_split(
-            convert.layer_kinds_of(params["blocks"]))
+            convert.layer_kinds_of(params["blocks"]), cfg)
         return model(params, len(prefix))
     return plain(params)
 
 
 @torch.no_grad()
-def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig):
+def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
+                  model_cfg=None):
     """One AdamW step, in place. Returns (params, state, metrics): the
-    same trees, updated, and {"grad_norm", "lr"}."""
+    same trees, updated, and {"grad_norm", "lr"}. ``model_cfg``: the
+    model's config, for :func:`decay_mask` (a Griffin tree needs it)."""
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     state["step"].add_(1)
@@ -137,5 +142,5 @@ def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig):
     # paired by key and index, not by leaf order: a tree converted from the
     # reference's may order its keys differently from the state's
     S.tree_map(upd, params, grads, state["mu"], state["nu"],
-               decay_mask(params))
+               decay_mask(params, model_cfg))
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -14,16 +14,23 @@ leading batch dim into that many microbatches and sums the loss, ce, aux
 and gradients in f32 before dividing, as the reference's scan does.
 
 On the card the model's prefill attention is the flash kernel and its
-gradient the hand-written backward kernel (``kernels/flash_attention``);
+gradient the hand-written backward kernel (``kernels/flash_attention``;
+RecurrentGemma's local attention at head dim 256 with its window too);
 the linears of an fp model are ``x @ w``. Under ``cfg.remat`` each block
-is recomputed in the backward (``models/transformer.py``).
+is recomputed in the backward (``torch.utils.checkpoint`` in
+``models/transformer.py``, ``griffin.py`` and ``xlstm.py``).
 
 The dense and MoE families train, with GQA or MLA attention (MLA's
 prefill is ``models.attention.chunked_attention``, plain PyTorch, as the
 reference's is jnp); the MoE aux loss enters ``loss = ce + aux`` summed
-over the layers. ``make_train_step`` refuses the VLM, audio (Whisper),
-ssm (xLSTM) and hybrid (RecurrentGemma) families until a later slice
-holds them against the reference (ROADMAP §1, item 1).
+over the layers. The ssm (xLSTM: the mLSTM stepped token by token or
+chunkwise, the sLSTM scan) and hybrid (RecurrentGemma: the RG-LRU's
+log-depth scan, local attention) families train too; their recurrences
+are plain PyTorch, as the reference's are jnp. AdamW's weight decay
+reads the model's config for a Griffin tree's layout
+(``optimizer.decay_mask``). ``make_train_step`` refuses the VLM and
+audio (Whisper) families until a later slice holds them against the
+reference (ROADMAP §1, item 1).
 """
 from __future__ import annotations
 
@@ -95,7 +102,7 @@ def _tree_of(params, leaves: list):
     return S.tree_map(lambda _: next(it), params)
 
 
-_TRAINED = ("dense", "moe")  # with GQA or MLA attention
+_TRAINED = ("dense", "moe", "ssm", "hybrid")  # dense / MoE: GQA or MLA
 
 
 def make_train_step(api: ModelApi, cfg: ModelConfig,
@@ -103,9 +110,9 @@ def make_train_step(api: ModelApi, cfg: ModelConfig,
                     grad_accum: int = 1):
     if cfg.family not in _TRAINED:
         raise NotImplementedError(
-            f"{cfg.name}: the port trains the {' and '.join(_TRAINED)} "
-            f"families; training the {cfg.family} family waits for its "
-            "slice (ROADMAP §1, item 1)")
+            f"{cfg.name}: the port trains the {', '.join(_TRAINED)} "
+            f"families; training the {cfg.family} family (cross attention: "
+            "the VLM and Whisper) waits for its slice (ROADMAP §1, item 1)")
     loss_fn = make_loss_fn(api, cfg, recipe)
 
     def train_step(params, opt_state, batch):
@@ -131,7 +138,8 @@ def make_train_step(api: ModelApi, cfg: ModelConfig,
             for acc in grads:
                 acc.div_(grad_accum)
         params, opt_state, om = O.apply_updates(
-            params, _tree_of(params, grads), opt_state, opt_cfg)
+            params, _tree_of(params, grads), opt_state, opt_cfg,
+            model_cfg=cfg)
         metrics = {"loss": loss, **parts, **om}
         return params, opt_state, metrics
 

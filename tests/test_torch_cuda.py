@@ -82,9 +82,14 @@ train step's 24 over 8 heads; a grid small enough that the bf16 launch
 plan splits the heads) within
 ``BWD_REL_TOLERANCE`` x max |plain| and bit-repeatable; the forward with
 its lse output bit-equal to the forward without it; head dim 256
-refused; autograd on the card launching the backward kernel once; and
-a smoke train step (remat on) on the card against the CPU: loss within
-1e-2 and every gradient leaf within 5e-2 (bf16), 1e-5 and 1e-4 (f32).
+(RecurrentGemma's: bf16 on the D split, f32 on 32-row tiles; causal,
+windowed MQA, non-causal with Sq != Sk; the train shape's window of
+2048 on 1 x 4096 tokens) within the same bounds and bit-repeatable;
+other head dims refused; autograd on the card launching the backward
+kernel once; and a smoke train step (remat on) on the card against the
+CPU: loss within 1e-2 and every gradient leaf within 5e-2 (bf16), 1e-5
+and 1e-4 (f32), for LLaMA-2-7B's, RecurrentGemma's and xLSTM's smoke
+configs.
 The MoE family and MLA: the smoke Mixtral (tokens dropped; the int8
 dispatch), DeepSeek-V2 at top-6 and MiniCPM3 in f32 against the CPU
 (routed counts equal, 1e-5 / 1e-4) and repeated bit for bit; the int8
@@ -2060,15 +2065,36 @@ def test_flash_forward_lse_changes_no_output_bit(cuda, dtype, B, Sq, Sk, Hq,
         1.0, want.abs().max().item())
 
 
-@pytest.mark.cuda
-def test_flash_bwd_kernel_refuses_head_dim_256(cuda):
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
-                                                     flash_attention_fwd)
+BWD_SHAPES_256 = [  # (B, Sq, Sk, Hq, Hkv, causal, window): heads of 256
+    (2, 512, 512, 16, 1, True, None),     # causal MQA, no window
+    (2, 77, 77, 4, 2, True, 16),          # window, S no multiple of a tile
+    (2, 33, 150, 8, 2, False, None),      # non-causal, Sq != Sk
+    (1, 4096, 4096, 16, 1, True, 2048)]   # RecurrentGemma's train shape
 
-    q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 1, 64, 64, 2, 1, 256)
-    o, lse = flash_attention_fwd(q, k, v)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,causal,window", BWD_SHAPES_256)
+def test_flash_bwd_kernel_vs_plain_at_head_dim_256(cuda, dtype, B, Sq, Sk,
+                                                   Hq, Hkv, causal, window):
+    """RecurrentGemma's head dim: ``test_flash_bwd_kernel_vs_plain``'s
+    bounds and bits (bf16 two warps a 16-key row, each half of D, and the
+    head split the launch plan picks; f32 the scalar kernels on 32-row
+    tiles)."""
+    test_flash_bwd_kernel_vs_plain(cuda, dtype, B, Sq, Sk, Hq, Hkv, 256,
+                                   causal, window)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_refuses_other_head_dims(cuda):
+    from repro_torch.kernels.flash_attention import (BWD_HEAD_DIMS,
+                                                     flash_attention_bwd)
+
+    assert BWD_HEAD_DIMS == (32, 64, 128, 256)
+    q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 1, 64, 64, 2, 1, 96)
+    lse = torch.zeros((1, 2, 64), dtype=torch.float32, device=cuda)
     with pytest.raises(ValueError, match="flash_attention_bwd"):
-        flash_attention_bwd(q, k, v, o, lse, do)
+        flash_attention_bwd(q, k, v, q, lse, do)
 
 
 @pytest.mark.cuda
@@ -2085,16 +2111,20 @@ def test_flash_autograd_on_the_card_launches_the_backward_kernel(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama2-7b", "recurrentgemma-9b",
+                                  "xlstm-1.3b"])
 @pytest.mark.parametrize("dtype,loss_rel,grad_rel", [
     ("bfloat16", 1e-2, 5e-2), ("float32", 1e-5, 1e-4)])
 def test_train_step_on_the_card_matches_the_cpu(cuda, dtype, loss_rel,
-                                                grad_rel):
-    """The smoke LLaMA-2-7B (4 layers, heads of 64), remat on: loss and
-    every gradient leaf on the card (flash forward and backward kernels,
-    cuBLAS products) against the CPU's plain versions on the same params
-    and batch (bf16: rounding in other places, 1e-2 / 5e-2; f32: sums in
-    other orders, TF32 off), then one AdamW step on each, finite and
-    counted."""
+                                                grad_rel, arch):
+    """The smoke LLaMA-2-7B (4 layers, heads of 64), RecurrentGemma (5
+    layers, one local attention of 64 over a window of 16) and xLSTM (4
+    layers, no attention), remat on: loss and every gradient leaf on the
+    card (flash forward and backward kernels, cuBLAS products) against
+    the CPU's plain versions on the same params and batch (bf16: rounding
+    in other places, 1e-2 / 5e-2; f32: sums in other orders, TF32 off),
+    then one AdamW step on each, finite and counted (one backward launch
+    an attention layer)."""
     import dataclasses
 
     from repro_torch.core import ptq
@@ -2103,8 +2133,10 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, dtype, loss_rel,
     from repro_torch.training import optimizer as O
     from repro_torch.training import train_step as T
 
-    cfg = dataclasses.replace(get_arch("llama2-7b", smoke=True), dtype=dtype)
+    cfg = dataclasses.replace(get_arch(arch, smoke=True), dtype=dtype)
     assert cfg.remat
+    n_attn = {"llama2-7b": cfg.num_layers, "xlstm-1.3b": 0,
+              "recurrentgemma-9b": cfg.num_layers // 3}[arch]
     api = get_model(cfg)
     batch = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                          seq_len=96, batch_size=2)
@@ -2125,7 +2157,7 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, dtype, loss_rel,
         opt = S.materialize(O.state_specs(api.param_specs(cfg)), device=dev)
         _, _, m = T.make_train_step(api, cfg, O.AdamWConfig())(params, opt, b)
         launched = _build.LAUNCHES["flash_attention_bwd"] - before
-        assert launched == (cfg.num_layers if dev == cuda else 0)
+        assert launched == (n_attn if dev == cuda else 0)
         assert all(bool(v.isfinite()) for v in m.values())
         out[str(dev)] = (float(loss.detach()), [g.float().cpu() for g in grads])
     (lc, gc), (lg, gg) = out["cpu"], out[str(cuda)]

@@ -455,22 +455,32 @@ def test_flash_bwd_tensor_core_replay_matches_jax_vjp(case, plan):
     ((2, 1024, 1024, 8, 2, 128), torch.bfloat16, 256, 4),
     ((2, 256, 1024, 8, 2, 64), torch.bfloat16, 256, 4),
     ((3, 300, 300, 4, 2, 64), torch.bfloat16, 60, 2),
-    ((8, 256, 256, 8, 8, 64), torch.float32, 256, 1)])
+    ((8, 256, 256, 8, 8, 64), torch.float32, 256, 1),
+    ((1, 4096, 4096, 16, 1, 256), torch.bfloat16, 256, 2),
+    ((1, 4096, 4096, 16, 1, 256), torch.float32, 128, 1)])
 def test_flash_bwd_launch_plan(shape, dtype, kv_blocks, splits):
     """The backward's launch plan on a 132-SM H100: llama3.2-3b's train
     step fills the card with key tiles x B Hkv dK/dV blocks; a window or
     a long memory (key tiles x B Hkv = 64) splits each group's G heads
     (a divisor of G) until at least 132 blocks run, or G does; f32 never
-    splits. The tiles are the .cu's (``TKV``, ``TQD``), and the
-    workspace holds the splits' f32 dK and dV partials."""
+    splits. The tiles are the .cu's (``TKV``, ``TQD``; at head dim 256
+    ``TKV_256``, and f32's square ``BT_256``), and the workspace holds
+    the splits' f32 dK and dV partials. RecurrentGemma's train shape (16
+    query heads over one KV head of 256, 4096 tokens): 128 bf16 dK/dV
+    blocks of 32 keys, so its heads split in 2."""
     B, Sq, Sk, Hq, Hkv, D = shape
     assert (FA.BWD_KV_TILE, FA.BWD_Q_TILE) == (_bwd_cu_int("TKV"),
                                               _bwd_cu_int("TQD"))
+    assert FA.BWD_KV_TILE_256 == _bwd_cu_int("TKV_256") == _bwd_cu_int(
+        "BT_256")
+    assert D in FA.BWD_HEAD_DIMS
+    kv_tile = _bwd_cu_int("TKV_256" if D == 256 else "TKV")
+    q_tile = kv_tile if dtype == torch.float32 else _bwd_cu_int("TQD")
     plan = FA.bwd_launch_plan(B, Sq, Sk, Hq, Hkv, D, dtype, 132)
     assert plan["splits"] == splits and (Hq // Hkv) % splits == 0
-    assert plan["kv_blocks"] == -(-Sk // _bwd_cu_int("TKV")) * B * Hkv * \
-        splits == kv_blocks
-    assert plan["q_blocks"] == -(-Sq // _bwd_cu_int("TQD")) * B * Hq
+    assert plan["kv_blocks"] == -(-Sk // kv_tile) * B * Hkv * splits == \
+        kv_blocks
+    assert plan["q_blocks"] == -(-Sq // q_tile) * B * Hq
     assert plan["workspace"] == (2 * splits * B * Sk * Hkv * D
                                  if splits > 1 else 0)
 
@@ -622,11 +632,11 @@ def test_remat_recomputes_each_block_and_changes_no_bit():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["xlstm-1.3b", "recurrentgemma-9b",
-                                  "llama-3.2-vision-90b", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-tiny"])
 def test_make_train_step_refuses_other_families(arch):
     """The families no slice has yet held against the reference's train
-    step (the MoE family and MLA train: tests/test_torch_train_moe.py)."""
+    step (the MoE family and MLA train: tests/test_torch_train_moe.py;
+    xLSTM and RecurrentGemma: tests/test_torch_train_recurrent.py)."""
     cfg = get_arch(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.make_train_step(get_model(cfg), cfg, O.AdamWConfig())
