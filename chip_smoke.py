@@ -239,8 +239,8 @@ Phases (any failure raises and exits non-zero; nothing is caught). A
    (:func:`xattn_launches`: VLM 420 act_quant, 700 IS GEMMs, 100 flash a
    prefill and 400, 660, 20 a step; Whisper 44, 64, 12 and 24, 32, 4).
    Then the kernels against the CPU's plain versions at B = 1 through
-   the caches (the VLM's first layer, and its first cross layer fed
-   the card's own hidden state; Whisper whole), timing (tokens/s of the
+   the caches (the VLM's first cross layer fed the card's own hidden
+   state; Whisper whole), timing (tokens/s of the
    replayed loop, the replayed step, the prefill), peaks, cache MB, and
    one decode step profiled (the flash and GEMM shares; the cross
    attention modules timed alone as a replayed graph).
@@ -339,6 +339,24 @@ Phases (any failure raises and exits non-zero; nothing is caught). A
    shape, 2 x 512 causal, non-causal Sq != Sk; bf16 and f32) beside its
    plain version and SDPA's backward, with the profile of each kernel at
    the train shape.
+8j. ``[train-xattn]``: training the cross-attention families
+   (:func:`train_xattn_phase`), through ``make_train_step`` with each
+   batch's memory seeded on the card (``launch.train`` feeds none, as the
+   reference's does not). ``whisper-tiny`` whole (4 + 4 layers), bf16,
+   remat (the decoder blocks), 4 steps of 8 x 448 tokens over 8 x 1500
+   frames: step ms, tokens/s, peak and resident memory, finite metrics,
+   launches exactly 20 flash forwards and 12 backwards a step (the
+   encoder's 4, the decoder's causal self and cross attention, rematted);
+   two equal forwards and backwards bit for bit; one step profiled; then
+   whole in f32 against the CPU on 2 x 448. ``llama-3.2-vision-90b`` at
+   full width cut by depth to one self and one cross layer (the cut
+   reckoned from the spec trees' bytes and logged), gates drawn by
+   :func:`set_cross_gates`, 4 steps of 2 x 1024 tokens over 2 x 1600
+   image tokens, the same checks (4 forwards, 2 backwards a step), both
+   layers in f32 against the CPU on 1 x 64 tokens. Phase 3 adds the
+   backward at their shapes (Whisper's encoder 1500 over 1500, decoder
+   causal 448, cross 448 over 1500; the VLM's cross 1024 over 1600 at
+   G = 8; bf16 and f32) and a head split at a ragged Sk = 1500.
 9. Print the ``kernels`` JSON line (the nine kernels, launches summed
    over every served and training path; the five qlint fixtures,
    launches from their run in phase 2b), then the result line
@@ -496,9 +514,6 @@ XATTN_B, XATTN_PROMPT, XATTN_STEPS, XATTN_MAX_SEQ = 4, 128, 32, 256
 XATTN_GATE_SEED = 17
 # the VLM's first cross layer, held against the CPU on the card's own input
 XATTN_CROSS_LAYER = 4
-# the VLM's self layers held against the CPU through the caches before
-# its cross layer (a layer of d_model 8192 takes about 20 s there)
-XATTN_PLAIN_CHECK_LAYERS = 1
 # phase 3 at phase 8e's shapes: the IS GEMM at the VLM's MLP (K, N) and
 # Whisper's (K, N) at M = 1..4 and 128; at the memory's rows (4 x 1600
 # image tokens, 4 x 1500 frames): the VLM's cross k/v at M = 6400 and
@@ -543,7 +558,12 @@ RECURRENT_GEMM_KN = ((4096, 12288), (12288, 4096), (4096, 256),
 # of 64 in f32, a window across key tiles, non-causal with Sq != Sk; then
 # RecurrentGemma's heads of 256 (16 over 1) in bf16 and f32: phase 8i's
 # train shape (the window of 2048 over 4096 tokens), 2 x 512 causal, and
-# non-causal with Sq != Sk
+# non-causal with Sq != Sk; then phase 8j's train shapes in bf16 and f32:
+# Whisper's encoder (8 x 1500 over 1500, 6 heads of 64: 1500 is no
+# multiple of a key tile), decoder (causal 448) and cross attention (448
+# over 1500), the VLM's cross layer (2 x 1024 over 1600, 64 over 8 heads
+# of 128: G = 8); and G = 8 over one kv head at a ragged Sk = 1500, whose
+# 24 key tiles make the bf16 plan split each group's heads 8 ways
 FLASH_BWD = ((4, 1024, 1024, 24, 8, 128, True, None, "bfloat16"),
              (8, 256, 256, 8, 8, 64, True, None, "float32"),
              (2, 1024, 1024, 8, 2, 128, True, 256, "bfloat16"),
@@ -551,7 +571,13 @@ FLASH_BWD = ((4, 1024, 1024, 24, 8, 128, True, None, "bfloat16"),
     (*shape, dt) for shape in ((1, 4096, 4096, 16, 1, 256, True, 2048),
                                (2, 512, 512, 16, 1, 256, True, None),
                                (2, 256, 1024, 16, 1, 256, False, None))
-    for dt in ("bfloat16", "float32"))
+    for dt in ("bfloat16", "float32")) + tuple(
+    (*shape, dt) for shape in ((8, 1500, 1500, 6, 6, 64, False, None),
+                               (8, 448, 448, 6, 6, 64, True, None),
+                               (8, 448, 1500, 6, 6, 64, False, None),
+                               (2, 1024, 1600, 64, 8, 128, False, None))
+    for dt in ("bfloat16", "float32")) + (
+    (1, 300, 1500, 8, 1, 128, False, None, "bfloat16"),)
 # phase 8g: training. llama3.2-3b at full width and depth, bf16, remat on,
 # the reference's AdamWConfig defaults, TRAIN_STEPS steps of TRAIN_B x
 # TRAIN_S synthetic tokens through launch.train.train_loop; then its first
@@ -598,6 +624,26 @@ TRAIN_RG_B, TRAIN_RG_S, TRAIN_RG_CPU_LAYERS = 1, 4096, 3
 TRAIN_XLSTM_ARCH, TRAIN_XLSTM_LAYERS, TRAIN_XLSTM_STEPS = "xlstm-1.3b", 8, 3
 TRAIN_XLSTM_B, TRAIN_XLSTM_S, TRAIN_XLSTM_COUNT_S = 2, 256, (16, 32)
 TRAIN_XLSTM_CPU_LAYERS, TRAIN_XLSTM_CPU_B, TRAIN_XLSTM_CPU_S = 2, 1, 64
+# phase 8j: training the cross-attention families, each batch with its
+# memory (seeded on the card, normal x 0.1 in bf16, as phase 8e's).
+# Whisper-tiny whole (4 + 4 layers), bf16, remat (its decoder blocks),
+# TRAIN_WHISPER_STEPS steps of TRAIN_WHISPER_B x TRAIN_WHISPER_S tokens
+# (448: its decoder's published context) over as many x 1500 frames, then
+# whole in f32 against the CPU on TRAIN_WHISPER_CPU_B x TRAIN_WHISPER_S.
+# Llama-3.2-Vision-90B at full width cut by depth to one self and one
+# cross layer (num_layers 2, cross_attn_every 2: under the published
+# every-5th pattern the fewest layers that hold a cross layer are 5, whose
+# params, AdamW moments and gradients alone pass the card's 80 GB),
+# TRAIN_VLM_STEPS steps of TRAIN_VLM_B x TRAIN_VLM_S tokens over as many x
+# 1600 image tokens, gates drawn by set_cross_gates; then both layers in
+# f32 against the CPU on TRAIN_VLM_CPU_B x TRAIN_VLM_CPU_S tokens. The CPU
+# checks hold the TRAIN_CPU_* bounds.
+TRAIN_WHISPER_ARCH, TRAIN_WHISPER_STEPS = "whisper-tiny", 4
+TRAIN_WHISPER_B, TRAIN_WHISPER_S, TRAIN_WHISPER_CPU_B = 8, 448, 2
+TRAIN_VLM_ARCH, TRAIN_VLM_LAYERS, TRAIN_VLM_EVERY = "llama-3.2-vision-90b", 2, 2
+TRAIN_VLM_STEPS, TRAIN_VLM_B, TRAIN_VLM_S = 4, 2, 1024
+TRAIN_VLM_CPU_B, TRAIN_VLM_CPU_S = 1, 64
+TRAIN_MEMORY_SEED, TRAIN_MEMORY_SCALE = 29, 0.1
 
 
 def log(*a):
@@ -3059,10 +3105,10 @@ def xattn_plain_check(api, cfg, qp, recipe, model, toks, mem, hidden, sc):
     """Kernels on the card against plain versions on the CPU, B = 1, a
     prefill then one decode step through the caches; each relative to the
     largest value it is held against (``PLAIN_LOGIT_REL_TOL``). The VLM:
-    its first ``XATTN_PLAIN_CHECK_LAYERS`` (self) layers
-    (:func:`plain_check`), and its first cross
-    layer alone, fed the card's own input hidden states of row 0 and the
-    same memory, compared on the layer's update (output minus input).
+    its first cross layer alone (a self layer is the dense block phase 5
+    holds on llama2-7b; one of d_model 8192 takes about 20 s on the CPU),
+    fed the card's own input hidden states of row 0 and the same memory,
+    compared on the layer's update (output minus input).
     Whisper whole: the encoder output and the logits. Returns ({name:
     rel}, CPU seconds)."""
     import torch
@@ -3071,9 +3117,6 @@ def xattn_plain_check(api, cfg, qp, recipe, model, toks, mem, hidden, sc):
 
     rels, t_cpu = {}, 0.0
     if cfg.family == "vlm":
-        rels[f"layers 0-{XATTN_PLAIN_CHECK_LAYERS - 1}"], t_cpu = plain_check(
-            api, cfg, qp, recipe, toks[:1], XATTN_PROMPT,
-            XATTN_PLAIN_CHECK_LAYERS, sc)
         i = XATTN_CROSS_LAYER
         x_pre, x_dec = hidden
         outs = {}
@@ -4282,11 +4325,13 @@ def card_vs_cpu(tag, api, cfg, params, batch, launches=None):
 
 
 def repeats_bits(api, cfg, params, batch) -> dict:
-    """Two forwards and backwards of the same params on the same batch on
-    the card: whether the loss and every gradient repeat bit for bit."""
+    """Two forwards and backwards of the same params on the same batch
+    (numpy arrays, or tensors where a bf16 memory needs them) on the
+    card: whether the loss and every gradient repeat bit for bit."""
     import torch
 
-    b = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+    b = {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(v)
+             ).to("cuda") for k, v in batch.items()}
     first = _grads_on(api, cfg, params, b)
     second = _grads_on(api, cfg, params, b)
     differ = sum(not torch.equal(x, y) for x, y in zip(first[2], second[2],
@@ -4295,11 +4340,14 @@ def repeats_bits(api, cfg, params, batch) -> dict:
                 leaves=len(first[2]), leaves_differ=differ)
 
 
-def train_run(tag, cfg, B, Sq, steps, launches, launches_total, smi):
-    """``cfg`` trained through :func:`timed_train_loop`, its checks and its
-    row: launches exactly ``launches`` a step, finite metrics, a MoE
-    layer's aux > 0 and dropped share (routing sinks). ``tag`` begins its
-    lines; returns (the row, params, opt, the data config)."""
+def train_run(tag, cfg, B, Sq, steps, launches, launches_total, smi,
+              loop=None):
+    """``cfg`` trained through ``loop`` (:func:`timed_train_loop` by
+    default; it takes the config, the data config and the steps and
+    returns what that does), its checks and its row: launches exactly
+    ``launches`` a step, finite metrics, a MoE layer's aux > 0 and dropped
+    share (routing sinks). ``tag`` begins its lines; returns (the row,
+    params, opt, the data config)."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels import _build
     from repro_torch.models import moe
@@ -4309,8 +4357,8 @@ def train_run(tag, cfg, B, Sq, steps, launches, launches_total, smi):
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=Sq, batch_size=B)
     recs = moe.start_routing_trace()
     try:
-        params, opt, hist, timed, data_s, wall, peak = timed_train_loop(
-            cfg, dc, steps)
+        params, opt, hist, timed, data_s, wall, peak = (
+            loop or timed_train_loop)(cfg, dc, steps)
     finally:
         moe.stop_routing_trace(recs)
     L = cfg.num_layers
@@ -4335,7 +4383,9 @@ def train_run(tag, cfg, B, Sq, steps, launches, launches_total, smi):
                tokens_per_s=B * Sq / (steady / 1e3), data_s=data_s,
                peak_bytes=peak, resident_bytes=resident, wall_s=wall,
                dropped=dropped, launches=dict(_build.LAUNCHES), **mets)
-    log(f"[{tag}] {cfg.name}: {L} layers at full width, "
+    depth = (f"{cfg.num_encoder_layers} + {L}" if cfg.is_encoder_decoder
+             else str(L))
+    log(f"[{tag}] {cfg.name}: {depth} layers at full width, "
         f"{cfg.dtype}, remat, {steps} steps of {B} x {Sq} tokens: step "
         f"ms (CUDA events) first {step_ms[0]:.1f}, then "
         + ", ".join(f"{x:.1f}" for x in step_ms[1:])
@@ -4733,6 +4783,261 @@ def train_rec_phase(launches_total, smi):
     return stats
 
 
+def memory_batch(cfg, dc, step):
+    """The pipeline's batch ``step`` (tokens, labels) on the card with the
+    family's memory (``image_embeds`` or ``frames``, the shape and dtype
+    ``configs.shapes.input_specs`` gives), drawn on the card from
+    ``TRAIN_MEMORY_SEED + step``, normal x ``TRAIN_MEMORY_SCALE``."""
+    import torch
+    from repro_torch.configs import shapes
+    from repro_torch.data.pipeline import SyntheticPipeline
+
+    b = {k: torch.from_numpy(v).to("cuda") for k, v in
+         SyntheticPipeline(dc).global_batch(step).items()}
+    spec = shapes.input_specs(cfg, shapes.Shape(
+        "train", "train", dc.seq_len, dc.batch_size))
+    key = "image_embeds" if "image_embeds" in spec else "frames"
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_MEMORY_SEED + step)
+    b[key] = (torch.randn(spec[key].shape, generator=gen, device="cuda")
+              * TRAIN_MEMORY_SCALE).to(spec[key].dtype)
+    if shapes.memory_arg(cfg, b) is not b[key]:
+        raise AssertionError(f"{cfg.name}: memory_arg picked another entry")
+    return b
+
+
+def xattn_train_launches(cfg, remat: bool) -> dict[str, int]:
+    """Flash forward and backward launches of one forward and backward:
+    one of each an attention (the VLM: a self and a cross layer one each;
+    Whisper: an encoder layer one, a decoder layer two, causal self and
+    cross); remat runs each rematted block's forward again in the
+    backward (the reference's: the VLM's every block, Whisper's decoder
+    blocks; its encoder's once)."""
+    from repro_torch.models.transformer import layer_kinds
+
+    if cfg.family == "vlm":
+        n = len(layer_kinds(cfg))
+        return {"flash_attention": (2 if remat else 1) * n,
+                "flash_attention_bwd": n}
+    ne, nd = cfg.num_encoder_layers, cfg.num_layers
+    return {"flash_attention": ne + (4 if remat else 2) * nd,
+            "flash_attention_bwd": ne + 2 * nd}
+
+
+def memory_loop(api, params):
+    """A loop for :func:`train_run` over the given ``params`` (on the card):
+    ``make_train_step`` with the reference's ``AdamWConfig`` defaults from
+    a zero state, each step's batch from :func:`memory_batch` (its host
+    time apart) and the step between CUDA events, launch counts reset just
+    before, as :func:`timed_train_loop` (no history: ``launch.train``
+    feeds no memory, as the reference's loop does not)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.nn import spec as S
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as T
+
+    def run(cfg, dc, steps):
+        p = params
+        opt = S.materialize(O.state_specs(api.param_specs(cfg)),
+                            device="cuda")
+        step = T.make_train_step(api, cfg, O.AdamWConfig())
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        timed, data_s = [], []
+        t0 = time.perf_counter()
+        for i in range(steps):
+            t1 = time.perf_counter()
+            b = memory_batch(cfg, dc, i)
+            data_s.append(time.perf_counter() - t1)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            p, opt, m = step(p, opt, b)
+            ev[1].record()
+            timed.append((ev, m))
+            del b
+        torch.cuda.synchronize()
+        return (p, opt, None, timed, data_s, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated())
+
+    return run
+
+
+def train_xattn_phase(launches_total, smi):
+    """Phase 8j, ``[train-xattn]``: the cross-attention families trained
+    through ``training.train_step.make_train_step``, each batch carrying
+    its memory (``launch.train`` feeds none, as the reference's does not).
+    (a) ``TRAIN_WHISPER_ARCH`` (Whisper-tiny: 4 encoder + 4 decoder
+    layers, d_model 384, 6 heads of 64, vocab 51865) whole, bf16, remat,
+    the reference's AdamW defaults, ``TRAIN_WHISPER_STEPS`` steps of
+    ``TRAIN_WHISPER_B`` x ``TRAIN_WHISPER_S`` tokens over as many x 1500
+    frames (:func:`train_run` over :func:`memory_loop`): step ms, tokens/s, peak and
+    resident memory, finite metrics, flash launches exactly
+    :func:`xattn_train_launches`'s (20 forwards, 12 backwards a step: the
+    encoder's non-causal 1500 over 1500, the decoder's causal 448 and
+    cross 448 over 1500); whether two equal forwards and backwards repeat
+    bit for bit; one step profiled; then whole in f32 against the CPU
+    (:func:`card_vs_cpu`). (b) ``TRAIN_VLM_ARCH`` (d_model 8192, 64 query
+    heads over 8 of 128, d_ff 28672, vocab 128256, 1600 image tokens) at
+    full width cut to one self and one cross layer, its gates drawn by
+    :func:`set_cross_gates`, the same for ``TRAIN_VLM_STEPS`` steps of
+    ``TRAIN_VLM_B`` x ``TRAIN_VLM_S`` tokens (4 forwards, 2 backwards a
+    step: causal 1024 and the cross layer's 1024 over 1600, G = 8); both
+    layers in f32 against the CPU on ``TRAIN_VLM_CPU_B`` x
+    ``TRAIN_VLM_CPU_S`` tokens. The depth cut is reckoned from the spec
+    trees' bytes and logged."""
+    import torch
+    from repro_torch.core import ptq
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import _build
+    from repro_torch.models.registry import get_arch, get_model
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.nn import spec as S
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as T
+
+    t_phase = time.perf_counter()
+    built = set(_build.BUILD_LOG)
+    stats: dict = {}
+    marks: dict[str, float] = {}
+
+    def mark(part):  # the phase's wall seconds at the end of each part
+        marks[part] = time.perf_counter() - t_phase
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def log_profile(name, prof):
+        sp, dev = prof["split"], prof["device_ms"]
+        log(f"[profile] train-xattn {name}: one step {dev:.1f} ms of device "
+            f"kernels in {prof['launches']} launches: "
+            + "; ".join(f"{k} {v:.1f} ms ({v / dev:.3f})"
+                        for k, v in sp.items()) + f"; top {len(prof['top'])}:")
+        for p in prof["top"]:
+            log(f"[profile]   {p['ms']:.3f} ms  x{p['count']}  {p['name']}")
+
+    def trained(name, api, cfg, params, B, Sq, steps, cut):
+        """The loop, the repeat and the profile of one model; frees its
+        state. Returns its row."""
+        row, params, opt, dc = train_run(
+            "train-xattn", cfg, B, Sq, steps,
+            xattn_train_launches(cfg, cfg.remat), launches_total, smi,
+            loop=memory_loop(api, params))
+        row["cut"] = cut
+        mark(f"{name} loop")
+        tb = memory_batch(cfg, dc, steps)
+        row["repeat"] = repeats_bits(api, cfg, params, tb)
+        log(f"[train-xattn] {cfg.name}: two equal forwards and backwards on "
+            f"the card: loss bit-equal {row['repeat']['loss_equal']}, "
+            f"gradient leaves differing {row['repeat']['leaves_differ']} of "
+            f"{row['repeat']['leaves']}")
+        if not (row["repeat"]["loss_equal"]
+                and row["repeat"]["leaves_differ"] == 0):
+            raise AssertionError(f"train-xattn {cfg.name}: {row['repeat']}")
+        mark(f"{name} repeat")
+        step = T.make_train_step(api, cfg, O.AdamWConfig(lr=0.0))
+        row["profile"] = profile_train_step(step, params, opt, tb,
+                                            cfg.vocab_size)
+        log_profile(cfg.name, row["profile"])
+        mark(f"{name} profile")
+        del params, opt, tb, step
+        free()
+        return row
+
+    # -- (a) Whisper-tiny whole ------------------------------------------------
+    wcfg = get_arch(TRAIN_WHISPER_ARCH)
+    if not wcfg.remat or wcfg.dtype != "bfloat16":
+        raise AssertionError(f"{wcfg.name}: expected bf16, remat")
+    wapi = get_model(wcfg)
+    log(f"[train-xattn] {wcfg.name}: whole ({wcfg.num_encoder_layers} "
+        f"encoder + {wcfg.num_layers} decoder layers), d_model "
+        f"{wcfg.d_model}, {wcfg.num_heads} heads of {wcfg.head_dim}, d_ff "
+        f"{wcfg.d_ff}, vocab {wcfg.vocab_size}, {wcfg.encoder_seq} frames; "
+        f"params {S.param_bytes(wapi.param_specs(wcfg)) / 1e9:.3f} GB")
+    wp = S.materialize(wapi.param_specs(wcfg),
+                       torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda")
+    stats[wcfg.name] = trained(
+        "whisper", wapi, wcfg, wp, TRAIN_WHISPER_B, TRAIN_WHISPER_S,
+        TRAIN_WHISPER_STEPS, "none (whole)")
+    del wp
+    w32 = dataclasses.replace(wcfg, dtype="float32", remat=False)
+    wa32 = get_model(w32)
+    wp32 = S.materialize(wa32.param_specs(w32),
+                         torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    wb = {k: v.cpu().numpy() for k, v in memory_batch(
+        w32, DataConfig(vocab_size=w32.vocab_size, seq_len=TRAIN_WHISPER_S,
+                        batch_size=TRAIN_WHISPER_CPU_B), 0).items()}
+    stats["whisper_cpu_check"] = card_vs_cpu(
+        f"[train-xattn] {w32.name} whole", wa32, w32, wp32, wb,
+        xattn_train_launches(w32, False))
+    del wp32
+    free()
+    mark("whisper cpu check")
+
+    # -- (b) Llama-3.2-Vision-90B at full width, one self and one cross layer --
+    full = get_arch(TRAIN_VLM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_VLM_LAYERS,
+                              cross_attn_every=TRAIN_VLM_EVERY)
+    if not cfg.remat or cfg.dtype != "bfloat16":
+        raise AssertionError(f"{cfg.name}: expected bf16, remat")
+    api = get_model(cfg)
+    # params (bf16), AdamW's f32 mu and nu, the bf16 gradients: 12 bytes a
+    # bf16 param, before activations and AdamW's per-leaf f32 temporaries
+    five = dataclasses.replace(full, num_layers=full.cross_attn_every)
+
+    def state_gb(c):
+        return 6 * S.param_bytes(get_model(c).param_specs(c)) / 1e9
+
+    cut = (f"depth: {cfg.num_layers} of {full.num_layers} layers "
+           f"({', '.join(layer_kinds(cfg))}; cross_attn_every "
+           f"{full.cross_attn_every} -> {cfg.cross_attn_every}): 5 layers, "
+           f"the fewest holding a cross layer under the published pattern, "
+           f"need {state_gb(five):.1f} GB of params, AdamW moments and "
+           f"gradients, {cfg.num_layers} need {state_gb(cfg):.1f} GB")
+    log(f"[train-xattn] {cfg.name}: {cut}; d_model {cfg.d_model}, "
+        f"{cfg.num_heads} query heads over {cfg.num_kv_heads} of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.num_image_tokens} image tokens")
+    params = ptq.materialize_by_layer(api, cfg, seed=0, device="cuda")
+    gates = set_cross_gates(params)
+    log(f"[train-xattn] {cfg.name}: cross gates drawn {gates}")
+    stats[cfg.name] = trained("vlm", api, cfg, params, TRAIN_VLM_B,
+                              TRAIN_VLM_S, TRAIN_VLM_STEPS, cut)
+    stats[cfg.name]["gates"] = gates
+    del params
+    free()
+    c32 = dataclasses.replace(cfg, dtype="float32", remat=False)
+    a32 = get_model(c32)
+    p32 = ptq.materialize_by_layer(a32, c32, seed=0, device="cuda")
+    set_cross_gates(p32)
+    vb = {k: v.cpu().numpy() for k, v in memory_batch(
+        c32, DataConfig(vocab_size=c32.vocab_size, seq_len=TRAIN_VLM_CPU_S,
+                        batch_size=TRAIN_VLM_CPU_B), 0).items()}
+    stats["vlm_cpu_check"] = card_vs_cpu(
+        f"[train-xattn] {c32.name} both layers ({', '.join(layer_kinds(c32))})",
+        a32, c32, p32, vb, xattn_train_launches(c32, False))
+    del p32, vb
+    free()
+    mark("vlm cpu check")
+    new = {k: ptxas_report(v) for k, v in _build.BUILD_LOG.items()
+           if k not in built}
+    for name, fns in new.items():
+        for fn, info in fns.items():
+            log(f"[train-xattn] built anew: {name}: {fn}: {info}")
+    stats["built_anew"] = sorted(new)
+    stats["seconds"] = time.perf_counter() - t_phase
+    stats["marks"] = marks
+    log(f"[train-xattn] phase {stats['seconds']:.1f} s (wall s at the end of "
+        f"each part: " + ", ".join(f"{k} {v:.1f}" for k, v in marks.items())
+        + f"), kernels built anew {sorted(new) or 'none'}; {smi}")
+    return stats
+
+
 def _paths(tree, path=""):
     """(path, leaf) pairs in ``S.leaves`` order."""
     if isinstance(tree, dict):
@@ -5076,6 +5381,11 @@ def main() -> int:
     train_rec_stats = train_rec_phase(launches_total, smi)
 
     phase_done("train-rec")
+
+    # -- 8j. training the cross-attention families -------------------------
+    train_xattn_stats = train_xattn_phase(launches_total, smi)
+
+    phase_done("train-xattn")
     missing = sorted(k for k in _build.KERNELS if launches_total[k] <= 0)
     if missing:
         raise AssertionError(f"kernels never launched on a served or "
@@ -5159,6 +5469,7 @@ def main() -> int:
         "mla": mla_stats, "xattn": xattn_stats,
         "recurrent": recurrent_stats, "train": train_stats,
         "train_moe": train_moe_stats, "train_rec": train_rec_stats,
+        "train_xattn": train_xattn_stats,
         "seconds": time.perf_counter() - t_start,
         "phase_seconds": phase_times,
     }, indent=1))

@@ -22,12 +22,19 @@ on the device, which a captured decode step reads without baking it in.
 Module paths for the recipe: ``enc/blocks/<i>/attn/{q,k,v,o}``,
 ``enc/blocks/<i>/mlp/{up,down}``, ``dec/blocks/<i>/{self,cross}/...`` and
 ``dec/blocks/<i>/mlp/...``.
+
+In "train" mode with grad enabled and ``cfg.remat``, each decoder block
+runs under ``torch.utils.checkpoint`` (non-reentrant), as the reference's
+``jax.checkpoint`` on its decoder body: its activations are recomputed
+in the backward. The encoder's blocks are not rematted, as in the
+reference.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import flash_attention
@@ -286,9 +293,16 @@ class EncDec(nn.Module):
             self.cfg.activation_dtype)
         posn = pos + torch.arange(Sq, device=x.device)
         x = x + self.pos[posn].to(x.dtype)[None]
+        # the reference's remat of the decoder body (training only)
+        remat = self.cfg.remat and mode == "train" and \
+            torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
             c = cache["blocks"][i] if cache is not None else None
-            x = blk(x, enc_out, cache=c, pos=pos, mode=mode)
+            if remat:
+                x = checkpoint(blk, x, enc_out, cache=c, pos=pos, mode=mode,
+                               use_reentrant=False)
+            else:
+                x = blk(x, enc_out, cache=c, pos=pos, mode=mode)
         if mode == "prefill":
             x = x[:, -1:]
         x = self.final_ln(x)

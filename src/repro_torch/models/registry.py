@@ -57,3 +57,9 @@ def get_arch(name: str, smoke: bool = False) -> ModelConfig:
     if name not in reg:
         raise KeyError(f"unknown arch '{name}'; have {sorted(reg)}")
     return reg[name]()
+
+
+def list_archs() -> list[str]:
+    import repro_torch.configs  # noqa: F401  (registers every arch)
+
+    return sorted(_ARCH_REGISTRY)

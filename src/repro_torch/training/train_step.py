@@ -18,19 +18,22 @@ gradient the hand-written backward kernel (``kernels/flash_attention``;
 RecurrentGemma's local attention at head dim 256 with its window too);
 the linears of an fp model are ``x @ w``. Under ``cfg.remat`` each block
 is recomputed in the backward (``torch.utils.checkpoint`` in
-``models/transformer.py``, ``griffin.py`` and ``xlstm.py``).
+``models/transformer.py``, ``griffin.py``, ``xlstm.py`` and, for the
+decoder, ``encdec.py``).
 
-The dense and MoE families train, with GQA or MLA attention (MLA's
+Every family trains: dense and MoE, with GQA or MLA attention (MLA's
 prefill is ``models.attention.chunked_attention``, plain PyTorch, as the
 reference's is jnp); the MoE aux loss enters ``loss = ce + aux`` summed
 over the layers. The ssm (xLSTM: the mLSTM stepped token by token or
 chunkwise, the sLSTM scan) and hybrid (RecurrentGemma: the RG-LRU's
-log-depth scan, local attention) families train too; their recurrences
-are plain PyTorch, as the reference's are jnp. AdamW's weight decay
-reads the model's config for a Griffin tree's layout
-(``optimizer.decay_mask``). ``make_train_step`` refuses the VLM and
-audio (Whisper) families until a later slice holds them against the
-reference (ROADMAP §1, item 1).
+log-depth scan, local attention) families' recurrences are plain
+PyTorch, as the reference's are jnp. The cross-attention families take
+their memory from the batch, as the reference's loss does: the VLM's
+``image_embeds`` (its gated cross layers' ``tanh(gate)`` scalars are
+leaves with gradients like any other) and Whisper's ``frames`` (its
+encoder runs in the step; remat recomputes its decoder blocks). AdamW's
+weight decay reads the model's config for a Griffin tree's layout
+(``optimizer.decay_mask``).
 """
 from __future__ import annotations
 
@@ -102,24 +105,17 @@ def _tree_of(params, leaves: list):
     return S.tree_map(lambda _: next(it), params)
 
 
-_TRAINED = ("dense", "moe", "ssm", "hybrid")  # dense / MoE: GQA or MLA
-
-
 def make_train_step(api: ModelApi, cfg: ModelConfig,
                     opt_cfg: O.AdamWConfig, recipe=None,
                     grad_accum: int = 1):
-    if cfg.family not in _TRAINED:
-        raise NotImplementedError(
-            f"{cfg.name}: the port trains the {', '.join(_TRAINED)} "
-            f"families; training the {cfg.family} family (cross attention: "
-            "the VLM and Whisper) waits for its slice (ROADMAP §1, item 1)")
     loss_fn = make_loss_fn(api, cfg, recipe)
 
     def train_step(params, opt_state, batch):
         if grad_accum <= 1:
             loss, parts, grads = _grads(loss_fn, params, batch)
         else:
-            # microbatches: split the leading batch dim into grad_accum
+            # microbatches: split the leading batch dim of every entry
+            # (the memory's too) into grad_accum
             mbs = {k: v.reshape(grad_accum, v.shape[0] // grad_accum,
                                 *v.shape[1:]) for k, v in batch.items()}
             sums = [torch.zeros((), dtype=torch.float32,

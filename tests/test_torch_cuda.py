@@ -2112,21 +2112,27 @@ def test_flash_autograd_on_the_card_launches_the_backward_kernel(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["llama2-7b", "recurrentgemma-9b",
-                                  "xlstm-1.3b"])
+                                  "xlstm-1.3b", "llama-3.2-vision-90b",
+                                  "whisper-tiny"])
 @pytest.mark.parametrize("dtype,loss_rel,grad_rel", [
     ("bfloat16", 1e-2, 5e-2), ("float32", 1e-5, 1e-4)])
 def test_train_step_on_the_card_matches_the_cpu(cuda, dtype, loss_rel,
                                                 grad_rel, arch):
     """The smoke LLaMA-2-7B (4 layers, heads of 64), RecurrentGemma (5
-    layers, one local attention of 64 over a window of 16) and xLSTM (4
-    layers, no attention), remat on: loss and every gradient leaf on the
-    card (flash forward and backward kernels, cuBLAS products) against
-    the CPU's plain versions on the same params and batch (bf16: rounding
-    in other places, 1e-2 / 5e-2; f32: sums in other orders, TF32 off),
-    then one AdamW step on each, finite and counted (one backward launch
-    an attention layer)."""
+    layers, one local attention of 64 over a window of 16), xLSTM (4
+    layers, no attention), Llama-3.2-Vision (4 self layers and one gated
+    cross layer over 16 image tokens, gates drawn nonzero) and Whisper (2
+    encoder and 2 decoder layers over 24 frames), remat on: loss and every
+    gradient leaf on the card (flash forward and backward kernels, cuBLAS
+    products) against the CPU's plain versions on the same params, batch
+    and memory (bf16: rounding in other places, 1e-2 / 5e-2; f32: sums in
+    other orders, TF32 off), then one AdamW step on each, finite and
+    counted (one backward launch an attention: self or cross)."""
     import dataclasses
 
+    import numpy as np
+
+    from repro_torch.configs import shapes
     from repro_torch.core import ptq
     from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
     from repro_torch.models.registry import get_arch, get_model
@@ -2136,16 +2142,37 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, dtype, loss_rel,
     cfg = dataclasses.replace(get_arch(arch, smoke=True), dtype=dtype)
     assert cfg.remat
     n_attn = {"llama2-7b": cfg.num_layers, "xlstm-1.3b": 0,
-              "recurrentgemma-9b": cfg.num_layers // 3}[arch]
+              "recurrentgemma-9b": cfg.num_layers // 3,
+              "llama-3.2-vision-90b": cfg.num_layers,
+              "whisper-tiny": cfg.num_encoder_layers + 2 * cfg.num_layers
+              }[arch]
     api = get_model(cfg)
     batch = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                          seq_len=96, batch_size=2)
                               ).global_batch(0)
+    spec = shapes.input_specs(cfg, shapes.Shape("t", "train", 96, 2))
+    for key in ("image_embeds", "frames"):
+        if key in spec:
+            batch[key] = np.random.default_rng(3).normal(
+                size=spec[key].shape).astype(np.float32)
     out = {}
     for dev in ("cpu", cuda):
-        params = ptq.materialize_by_layer(api, cfg, seed=1, device="cpu")
+        if cfg.is_encoder_decoder:  # no top-level blocks: drawn whole
+            params = S.materialize(api.param_specs(cfg),
+                                   torch.Generator().manual_seed(1),
+                                   device="cpu")
+        else:
+            params = ptq.materialize_by_layer(api, cfg, seed=1, device="cpu")
+        rng = np.random.default_rng(17)
+        for blk in params.get("blocks", []):
+            if "gate_attn" in blk:  # 0 at init: the cross layer is live
+                for g in ("gate_attn", "gate_mlp"):
+                    blk[g] = torch.tensor(float(rng.uniform(0.5, 1.5)))
         params = S.tree_map(lambda t: t.to(dev), params)
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        for key in ("image_embeds", "frames"):
+            if key in b:
+                b[key] = b[key].to(cfg.activation_dtype)
         leaves = S.leaves(params)
         for t in leaves:
             t.requires_grad_(True)
@@ -2164,6 +2191,40 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, dtype, loss_rel,
     assert abs(lg - lc) <= loss_rel * abs(lc)
     for a, b in zip(gg, gc):
         assert (a - b).norm().item() <= grad_rel * b.norm().item()
+
+
+# the backward at the cross-attention families' train shapes
+# (B, Sq, Sk, Hq, Hkv, D, causal): Whisper's encoder (1500 keys: no
+# multiple of the 64-key tile), its decoder (causal 448) and cross
+# attention (448 over 1500), the VLM's cross layer (1024 over 1600, G =
+# 8); and a ragged Sk = 1500 at G = 8 with one kv head, 24 key tiles, so
+# the bf16 plan splits each group's 8 heads over 8 blocks (the f32
+# workspace, summed in order)
+BWD_CROSS_SHAPES = [
+    (2, 1500, 1500, 6, 6, 64, False),
+    (2, 448, 448, 6, 6, 64, True),
+    (2, 448, 1500, 6, 6, 64, False),
+    (1, 1024, 1600, 64, 8, 128, False),
+    (1, 300, 1500, 8, 1, 128, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal", BWD_CROSS_SHAPES)
+def test_flash_bwd_kernel_vs_plain_at_cross_shapes(cuda, dtype, B, Sq, Sk,
+                                                   Hq, Hkv, D, causal):
+    """The cross-attention families' shapes: ``test_flash_bwd_kernel_vs_
+    plain``'s bounds and bits, and at the split shape the plan's head
+    split."""
+    from repro_torch.kernels.flash_attention import bwd_launch_plan
+    from repro_torch.kernels.w4a8_gemm import _sm_count
+
+    if (B, Sq, Sk, Hq, Hkv, D, causal) == BWD_CROSS_SHAPES[-1]:
+        plan = bwd_launch_plan(B, Sq, Sk, Hq, Hkv, D, dtype,
+                               _sm_count(torch.cuda.current_device()))
+        assert plan["splits"] == (8 if dtype == torch.bfloat16 else 1)
+    test_flash_bwd_kernel_vs_plain(cuda, dtype, B, Sq, Sk, Hq, Hkv, D,
+                                   causal, None)
 
 
 # ---------------------------------------------------------------------------

@@ -457,7 +457,12 @@ def test_flash_bwd_tensor_core_replay_matches_jax_vjp(case, plan):
     ((3, 300, 300, 4, 2, 64), torch.bfloat16, 60, 2),
     ((8, 256, 256, 8, 8, 64), torch.float32, 256, 1),
     ((1, 4096, 4096, 16, 1, 256), torch.bfloat16, 256, 2),
-    ((1, 4096, 4096, 16, 1, 256), torch.float32, 128, 1)])
+    ((1, 4096, 4096, 16, 1, 256), torch.float32, 128, 1),
+    ((8, 1500, 1500, 6, 6, 64), torch.bfloat16, 1152, 1),
+    ((8, 448, 1500, 6, 6, 64), torch.bfloat16, 1152, 1),
+    ((2, 1024, 1600, 64, 8, 128), torch.bfloat16, 400, 1),
+    ((2, 1024, 1600, 64, 8, 128), torch.float32, 400, 1),
+    ((1, 300, 1500, 8, 1, 128), torch.bfloat16, 192, 8)])
 def test_flash_bwd_launch_plan(shape, dtype, kv_blocks, splits):
     """The backward's launch plan on a 132-SM H100: llama3.2-3b's train
     step fills the card with key tiles x B Hkv dK/dV blocks; a window or
@@ -467,7 +472,10 @@ def test_flash_bwd_launch_plan(shape, dtype, kv_blocks, splits):
     ``TKV_256``, and f32's square ``BT_256``), and the workspace holds
     the splits' f32 dK and dV partials. RecurrentGemma's train shape (16
     query heads over one KV head of 256, 4096 tokens): 128 bf16 dK/dV
-    blocks of 32 keys, so its heads split in 2."""
+    blocks of 32 keys, so its heads split in 2. The cross-attention
+    families' train shapes (Whisper's 1500 keys: 24 tiles, the last
+    ragged; the VLM's 1600 over 8 KV heads) fill the card unsplit; G = 8
+    over one KV head at 1500 keys (24 blocks) splits 8 ways."""
     B, Sq, Sk, Hq, Hkv, D = shape
     assert (FA.BWD_KV_TILE, FA.BWD_Q_TILE) == (_bwd_cu_int("TKV"),
                                               _bwd_cu_int("TQD"))
@@ -634,12 +642,36 @@ def test_remat_recomputes_each_block_and_changes_no_bit():
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-tiny"])
 def test_make_train_step_refuses_other_families(arch):
-    """The families no slice has yet held against the reference's train
-    step (the MoE family and MLA train: tests/test_torch_train_moe.py;
-    xLSTM and RecurrentGemma: tests/test_torch_train_recurrent.py)."""
+    """The last families ``make_train_step`` refused, the cross-attention
+    ones, now train (held against the reference's train step in
+    tests/test_torch_train_xattn.py; the MoE family and MLA in
+    tests/test_torch_train_moe.py, xLSTM and RecurrentGemma in
+    tests/test_torch_train_recurrent.py), so it refuses no family: one
+    step on the smoke config with its memory in the batch
+    (``image_embeds`` / ``frames``), finite metrics, more than half the
+    leaves moved and none left requiring grad."""
+    from repro_torch.configs import shapes
+
     cfg = get_arch(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.make_train_step(get_model(cfg), cfg, O.AdamWConfig())
+    api = get_model(cfg)
+    params = S.materialize(api.param_specs(cfg), torch.Generator(
+        ).manual_seed(0), device="cpu")
+    before = [t.clone() for t in S.leaves(params)]
+    opt = S.materialize(O.state_specs(api.param_specs(cfg)), device="cpu")
+    b = _tbatch(SyntheticPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=12, batch_size=2)).global_batch(0))
+    spec = shapes.input_specs(cfg, shapes.Shape("t", "train", 12, 2))
+    key = {"vlm": "image_embeds", "audio": "frames"}[cfg.family]
+    b[key] = torch.randn(spec[key].shape, generator=torch.Generator(
+        ).manual_seed(1)).to(spec[key].dtype)
+    step = T.make_train_step(api, cfg, O.AdamWConfig(**OC))
+    params, opt, m = step(params, opt, b)
+    assert set(m) == {"loss", "ce", "aux", "grad_norm", "lr"}
+    assert all(bool(torch.isfinite(v)) for v in m.values())
+    assert int(opt["step"]) == 1
+    moved = [not torch.equal(a, t) for a, t in zip(before, S.leaves(params))]
+    assert sum(moved) > len(moved) // 2
+    assert not any(t.requires_grad for t in S.leaves(params))
 
 
 def test_opt_state_converts_both_ways():
