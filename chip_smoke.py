@@ -357,6 +357,18 @@ Phases (any failure raises and exits non-zero; nothing is caught). A
    backward at their shapes (Whisper's encoder 1500 over 1500, decoder
    causal 448, cross 448 over 1500; the VLM's cross 1024 over 1600 at
    G = 8; bf16 and f32) and a head split at a ragged Sk = 1500.
+8k. ``[dryrun]``: the multi-pod dry-run (``launch/dryrun.py``) and the
+   sharded restore (:func:`dryrun_phase`), in a one-rank NCCL group over
+   ``launch.mesh.make_host_mesh()``'s (1, 1) mesh. The dry-run's
+   per-device bytes of phase 8g's llama3.2-3b train cell (params, AdamW
+   state, batch) and of phase 5's served llama2-7b (W4A8 IS params, the
+   4-slot cache) within 1 % of what the card held for them (8g measures
+   ``memory_allocated`` as it drops each part; 5 the storages); the
+   restart drill's checkpoint restored with ``shardings=`` bit-equal to
+   the ``device=`` restore, one train step from each the same loss bit
+   for bit; ``python -m repro_torch.launch.dryrun --arch llama2-7b
+   --shape decode_32k --multi-pod single`` (the 16 x 16 mesh over the
+   ``"fake"`` group) in a subprocess: ``ok`` and its GiB per device.
 9. Print the ``kernels`` JSON line (the nine kernels, launches summed
    over every served and training path; the five qlint fixtures,
    launches from their run in phase 2b), then the result line
@@ -374,6 +386,7 @@ import hashlib
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -644,10 +657,27 @@ TRAIN_VLM_ARCH, TRAIN_VLM_LAYERS, TRAIN_VLM_EVERY = "llama-3.2-vision-90b", 2, 2
 TRAIN_VLM_STEPS, TRAIN_VLM_B, TRAIN_VLM_S = 4, 2, 1024
 TRAIN_VLM_CPU_B, TRAIN_VLM_CPU_S = 1, 64
 TRAIN_MEMORY_SEED, TRAIN_MEMORY_SCALE = 29, 0.1
+# phase 8k: the dry-run (launch/dryrun.py) on the card's one-rank mesh.
+# Its per-device bytes for phase 8g's llama3.2-3b train cell (TRAIN_B x
+# TRAIN_S) and phase 5's served llama2-7b (W4A8 IS, 4 slots of 256) must
+# lie within DRYRUN_BYTES_REL of what the card held for that state
+DRYRUN_BYTES_REL = 0.01
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def storage_bytes(tree) -> int:
+    """Bytes of the distinct storages behind a tree's tensors: what the
+    card holds for them (leaves shared between trees counted once)."""
+    from repro_torch.nn import spec as S
+
+    seen = {}
+    for t in S.leaves(tree):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
 
 
 def time_ms(fn, args_list, iters=30, reps=5):
@@ -4033,7 +4063,6 @@ def train_phase(launches_total, smi):
     import numpy as np
     import torch
     from repro_torch import obs
-    from repro_torch.configs.paper_llama import bench_lm
     from repro_torch.core import ptq
     from repro_torch.core.recipe import DEFAULT_RECIPE, FLOAT_SCALE_RECIPE
     from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
@@ -4126,8 +4155,28 @@ def train_phase(launches_total, smi):
         log(f"[profile]   {p['ms']:.3f} ms  x{p['count']}  {p['name']}")
     a["profile"] = prof
     stats[cfg.name] = a
-    del params, opt, batch, step
-    gc.collect()
+    # what the card frees as each part is dropped: phase 8k holds the
+    # dry-run's bytes of this cell against it
+    held = {"storages": {"params": storage_bytes(params),
+                         "opt": storage_bytes(opt),
+                         "batch": storage_bytes(batch)}}
+    del step
+    for part in ("batch", "opt", "params"):
+        gc.collect()
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        if part == "batch":
+            del batch
+        elif part == "opt":
+            del opt
+        else:
+            del params
+        gc.collect()
+        held[part] = m0 - torch.cuda.memory_allocated()
+    a["held_bytes"] = held
+    log(f"[train] freed on the card: params {held['params']} B, AdamW state "
+        f"{held['opt']} B, batch {held['batch']} B (their storages "
+        f"{json.dumps(held['storages'])})")
     torch.cuda.empty_cache()
 
     # -- (b) the first layers at full width against the CPU -------------------
@@ -4146,10 +4195,8 @@ def train_phase(launches_total, smi):
     torch.cuda.empty_cache()
 
     # -- (c) the restart drill on bench-lm-30m --------------------------------
-    bcfg = bench_lm()
+    bcfg, bdc, boc = drill_configs()
     bapi = get_model(bcfg)
-    bdc = DataConfig(vocab_size=bcfg.vocab_size, seq_len=128, batch_size=8)
-    boc = O.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=DRILL_STEPS)
     ck = ROOT / "build" / "train_drill"
     shutil.rmtree(ck, ignore_errors=True)
     _build.reset_launches()
@@ -4180,7 +4227,6 @@ def train_phase(launches_total, smi):
                           "flash_attention_bwd": bcfg.num_layers}, ran)
     for k, n in _build.LAUNCHES.items():
         launches_total[k] += n
-    shutil.rmtree(ck, ignore_errors=True)
     if h_res[0]["step"] != resumed:
         raise AssertionError(f"restart drill resumed at {h_res[0]['step']}, "
                              f"not {resumed}")
@@ -4219,7 +4265,8 @@ def train_phase(launches_total, smi):
                           bit_equal=bit_equal, max_abs_diff=worst_drill,
                           loss_first=h_ref[0]["loss"],
                           loss_last=h_ref[-1]["loss"], loss_ratio=ratio,
-                          seconds=drill_s, eval_loss=ev)
+                          seconds=drill_s, eval_loss=ev,
+                          ckpt_dir=str(ck))  # phase 8k restores it
     stats["seconds"] = time.perf_counter() - t_phase
     log(f"[train] phase {stats['seconds']:.1f} s; {smi}")
     return stats
@@ -5038,6 +5085,150 @@ def train_xattn_phase(launches_total, smi):
     return stats
 
 
+def drill_configs():
+    """The restart drill's model, data and AdamW configs (phase 8g; phase
+    8k restores its checkpoint)."""
+    from repro_torch.configs.paper_llama import bench_lm
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.training import optimizer as O
+
+    bcfg = bench_lm()
+    return (bcfg, DataConfig(vocab_size=bcfg.vocab_size, seq_len=128,
+                             batch_size=8),
+            O.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=DRILL_STEPS))
+
+
+def dryrun_phase(train_stats, served_held, launches_total, smi):
+    """Phase 8k, ``[dryrun]``: ``launch/dryrun.py`` on the card, in a
+    one-rank NCCL group (``dryrun.host_group``) over
+    ``launch.mesh.make_host_mesh()``'s (1, 1) mesh. (a) The dry-run of
+    phase 8g's llama3.2-3b train cell (``TRAIN_B`` x ``TRAIN_S``) and of
+    phase 5's served llama2-7b (W4A8 IS, its 4 slots of 256): each
+    device's bytes beside what the card held for that state (the train
+    cell's params, AdamW state and batch as ``memory_allocated`` fell when
+    phase 8g dropped each; the served params and cache as their
+    storages), within ``DRYRUN_BYTES_REL``. (b) The restart drill's
+    bench-lm checkpoint restored with ``shardings=`` (the train rules'
+    placements on the mesh) and with ``device=``: every local tensor
+    bit-equal, and one train step from each (launch counts reset before)
+    the same loss and grad norm bit for bit. (c) ``python -m
+    repro_torch.launch.dryrun --arch llama2-7b --shape decode_32k
+    --multi-pod single`` in a subprocess (the production 16 x 16 mesh over
+    the ``"fake"`` group): ``ok`` and its GiB per device. The group is
+    destroyed before (c); the drill's checkpoint removed at the end."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.distributed import sharding as shard
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn import spec as S
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as T
+
+    t_phase = time.perf_counter()
+    stats: dict = {}
+    with D.host_group():
+        mesh = make_host_mesh()
+        stats["mesh"] = D.mesh_name(mesh)
+        # -- (a) the dry-run's bytes against the card's --------------------
+        held = train_stats[TRAIN_ARCH]["held_bytes"]
+        cells = (
+            ("train", TRAIN_ARCH, Shape("train", "train", TRAIN_S, TRAIN_B),
+             {"param_bytes": held["params"], "opt_bytes": held["opt"],
+              "input_bytes": held["batch"]}),
+            ("serve", "llama2-7b", Shape(
+                "serve", "decode", served_held["max_seq"],
+                served_held["slots"]),
+             {"param_bytes": served_held["params"],
+              "cache_bytes": served_held["cache"]}))
+        for tag, arch, shp, card in cells:
+            rec = D.run_cell(arch, shp, mesh, False)
+            if rec["status"] != "ok":
+                raise AssertionError(f"dryrun {tag} {arch}: {rec}")
+            mem = rec["memory"]
+            ours, theirs = sum(mem[k] for k in card), sum(card.values())
+            rel = abs(ours - theirs) / theirs
+            stats[tag] = dict(arch=arch, record=rec, card=card, rel=rel)
+            log(f"[dryrun] {tag} {arch} ({shp.batch} x {shp.seq}) on the "
+                f"{stats['mesh']} host mesh: per device "
+                + ", ".join(f"{k} {mem[k]}" for k in card)
+                + f" = {ours} B (argument_bytes {mem['argument_bytes']}) vs "
+                f"the card's " + ", ".join(f"{k} {v}" for k, v in
+                                            card.items())
+                + f" = {theirs} B: {rel:.2e} relative (bound "
+                f"{DRYRUN_BYTES_REL}); flops counted "
+                f"{rec['cost']['flops_counted']:.4e} ({rec['cost']['flops_from']}"
+                f"), traced in {rec['trace_s']} s; {smi}")
+            if not rel <= DRYRUN_BYTES_REL:
+                raise AssertionError(f"dryrun {tag}: {ours} vs {theirs}")
+        # -- (b) the drill's checkpoint restored with shardings= -----------
+        bcfg, bdc, boc = drill_configs()
+        bapi = get_model(bcfg)
+        pspecs = bapi.param_specs(bcfg, None)
+        specs = {"params": pspecs, "opt": O.state_specs(pspecs)}
+        mgr = CheckpointManager(train_stats["drill"]["ckpt_dir"])
+        at = mgr.latest_step()
+        plain, _ = mgr.restore(at, specs, device="cuda")
+        dt, _ = mgr.restore(at, specs, shardings=shard.named_tree(
+            mesh, specs, shard.train_rules(False)), mesh=mesh)
+        local = S.tree_map(lambda t: t.to_local(), dt)
+        pairs = list(zip(S.leaves(plain), S.leaves(local)))
+        equal = all(a.device == b.device and a.dtype == b.dtype
+                    and torch.equal(a, b) for a, b in pairs)
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+                 SyntheticPipeline(bdc).global_batch(at).items()}
+        _build.reset_launches()
+        m = [T.make_train_step(bapi, bcfg, boc)(t["params"], t["opt"],
+                                                batch)[2]
+             for t in (plain, local)]
+        for k, n in _build.LAUNCHES.items():
+            launches_total[k] += n
+        same = all(torch.equal(m[0][k], m[1][k]) for k in ("loss",
+                                                            "grad_norm"))
+        stats["restore"] = dict(step=at, leaves=len(pairs), bit_equal=equal,
+                                loss=[float(x["loss"]) for x in m],
+                                same_loss=same)
+        log(f"[dryrun] restore {bcfg.name} step {at} with shardings= on the "
+            f"{stats['mesh']} mesh: {len(pairs)} leaves bit-equal to the "
+            f"device= restore {equal}; one train step from each: loss "
+            f"{float(m[0]['loss']):.6f} / {float(m[1]['loss']):.6f}, bit "
+            f"for bit (loss, grad norm) {same}; launches "
+            f"{json.dumps(dict(_build.LAUNCHES))}")
+        if not (equal and same):
+            raise AssertionError(f"dryrun restore: {stats['restore']}")
+        del plain, dt, local, pairs, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(train_stats["drill"]["ckpt_dir"], ignore_errors=True)
+    # -- (c) the production mesh, in a subprocess ------------------------------
+    out = ROOT / "build" / "dryrun_smoke.jsonl"
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "llama2-7b", "--shape", "decode_32k", "--multi-pod", "single",
+         "--out", str(out)], capture_output=True, text=True, timeout=300,
+        cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    sub_s = time.perf_counter() - t0
+    for line in res.stdout.splitlines():
+        log(f"[dryrun] production: {line}")
+    if res.returncode != 0 or ": ok args/dev=" not in res.stdout:
+        raise AssertionError(f"dryrun subprocess rc {res.returncode}: "
+                             f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    stats["production"] = dict(record=json.loads(
+        out.read_text().splitlines()[-1]), seconds=sub_s)
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"[dryrun] phase {stats['seconds']:.1f} s (subprocess {sub_s:.1f} "
+        f"s); {smi}")
+    return stats
+
+
 def _paths(tree, path=""):
     """(path, leaf) pairs in ``S.leaves`` order."""
     if isinstance(tree, dict):
@@ -5189,6 +5380,10 @@ def main() -> int:
         first_token_is_argmax(name, eng, toks, n0, outs[0][0])
         if name == DEFAULT_RECIPE.name:
             is_outs = outs
+            # phase 8k holds the dry-run's bytes against these
+            served_held = {"params": storage_bytes(qparams[name]),
+                           "cache": storage_bytes(eng.cache),
+                           "slots": sc.max_slots, "max_seq": sc.max_seq}
             check_eager_streams(f"serve {name}", api, cfg, eng, prompts, sc,
                                 outs)
             # the kernels against the plain versions on the same weights
@@ -5386,6 +5581,12 @@ def main() -> int:
     train_xattn_stats = train_xattn_phase(launches_total, smi)
 
     phase_done("train-xattn")
+
+    # -- 8k. the dry-run on the card's mesh; the sharded restore -----------
+    dryrun_stats = dryrun_phase(train_stats, served_held, launches_total,
+                                smi)
+
+    phase_done("dryrun")
     missing = sorted(k for k in _build.KERNELS if launches_total[k] <= 0)
     if missing:
         raise AssertionError(f"kernels never launched on a served or "
@@ -5469,7 +5670,7 @@ def main() -> int:
         "mla": mla_stats, "xattn": xattn_stats,
         "recurrent": recurrent_stats, "train": train_stats,
         "train_moe": train_moe_stats, "train_rec": train_rec_stats,
-        "train_xattn": train_xattn_stats,
+        "train_xattn": train_xattn_stats, "dryrun": dryrun_stats,
         "seconds": time.perf_counter() - t_start,
         "phase_seconds": phase_times,
     }, indent=1))

@@ -8,8 +8,10 @@ reads the other's files.
   in a background thread; ``wait`` joins it and re-raises its error.
 * retention: keep the most recent ``keep`` checkpoints.
 * restore: ``restore(step, template, device=)`` fills the template's
-  structure with tensors on ``device`` (the reference's ``shardings=``
-  re-shards onto a mesh; that comes with the sharding slice).
+  structure with tensors on ``device``; ``restore(step, template,
+  shardings=, mesh=)`` re-shards onto the current mesh instead (the
+  reference's elastic re-shard): each leaf a DTensor holding this rank's
+  slice under its placements (``distributed.sharding.named_tree``).
 
 Storage: one ``ckpt_%08d.npz`` per checkpoint, flat ``a/b/0/c`` keys (dict
 keys and list indices joined by ``/``), bf16 stored as its uint16 bits
@@ -146,11 +148,21 @@ class CheckpointManager:
             raise e
 
     # -- restore -------------------------------------------------------------
-    def restore(self, step: int, template: Any,
-                device=None) -> tuple[Any, dict]:
+    def restore(self, step: int, template: Any, device=None,
+                shardings: Any | None = None,
+                mesh=None) -> tuple[Any, dict]:
         """template: a tree (dicts, lists; any leaves) of the saved one's
         structure. Returns (the tree of tensors on ``device``, default the
-        GPU; the meta)."""
+        GPU; the meta). ``shardings``: a matching tree of DTensor
+        placements on ``mesh`` (``distributed.sharding.named_tree``); each
+        leaf then comes back as a DTensor over ``mesh`` whose local tensor
+        is this rank's slice, on the mesh's device type."""
+        if shardings is not None:
+            if mesh is None:
+                raise ValueError("restore: shardings= needs its mesh=")
+            tree, meta = self.restore(step, template, device="cpu")
+            return S.tree_map(lambda t, p: _distribute(t, mesh, p), tree,
+                              shardings), meta
         dev = S.resolve_device(device)
         with np.load(self._path(step), allow_pickle=False) as z:
             meta = json.loads(str(z["__meta__"]))
@@ -166,3 +178,25 @@ class CheckpointManager:
                     t = t.view(_VIEWED[viewed[k]][0])
                 flat[k] = t.to(dev)
         return _unflatten_into(template, flat), meta
+
+
+def _distribute(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """The DTensor over ``mesh`` whose local tensor is this rank's slice
+    of the full tensor ``t`` (every rank holds ``t``: no communication).
+    A dim sharded over several mesh dims is split in mesh-dim order, as
+    DTensor lays it out; each split is ``torch.chunk``'s."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    coord = mesh.get_coordinate()
+    local = t
+    for md, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n = mesh.size(md)
+            chunks = list(torch.chunk(local, n, dim=p.dim))
+            chunks += [local.narrow(p.dim, 0, 0)] * (n - len(chunks))
+            local = chunks[coord[md]]
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    return DTensor.from_local(local.contiguous().to(dev), mesh, placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())

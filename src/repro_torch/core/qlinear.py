@@ -37,46 +37,56 @@ def _num_groups(K: int, group_size: int) -> int:
     return 1 if group_size <= 0 else K // group_size
 
 
-def linear_specs(K: int, N: int, qspec: QuantSpec | None, *,
+def linear_specs(K: int, N: int, qspec: QuantSpec | None,
+                 axes: tuple[str | None, str | None], *,
                  bias: bool = False, dtype=torch.bfloat16) -> dict:
-    """Parameter specs for one (possibly quantized) linear of shape (K, N)."""
+    """Parameter specs for one (possibly quantized) linear of shape (K, N).
+
+    ``axes`` are the logical axes of (K, N), e.g. ("embed", "mlp").
+    """
+    ax_in, ax_out = axes
     out: dict[str, S.ParamSpec] = {}
     if qspec is None:
-        out["w"] = S.w((K, N), dtype=dtype)
+        out["w"] = S.w((K, N), (ax_in, ax_out), dtype=dtype)
     else:
         G = _num_groups(K, qspec.group_size)
         if qspec.w_bits == 4:
-            out["qvalue"] = S.zeros((K // 2, N), dtype=torch.int8)
+            out["qvalue"] = S.zeros((K // 2, N), (ax_in, ax_out),
+                                    dtype=torch.int8)
         elif qspec.w_bits == 8:
-            out["qvalue"] = S.zeros((K, N), dtype=torch.int8)
+            out["qvalue"] = S.zeros((K, N), (ax_in, ax_out), dtype=torch.int8)
         else:
             raise ValueError(f"unsupported w_bits={qspec.w_bits}")
         if (qspec.scale_mode == "integer" and not qspec.weight_only
                 and qspec.fine_grained):
-            out["scale"] = S.ones((G, N), dtype=torch.int32)
-            out["alpha"] = S.ones((), dtype=torch.float32)
+            out["scale"] = S.ones((G, N), (ax_in, ax_out), dtype=torch.int32)
+            out["alpha"] = S.ones((), (), dtype=torch.float32)
         else:
-            out["scale"] = S.ones((G, N), dtype=torch.float32)
+            out["scale"] = S.ones((G, N), (ax_in, ax_out),
+                                  dtype=torch.float32)
         if qspec.algo in ("awq", "smoothquant"):
             # per-in-channel activation compensation (x / pre_scale)
-            out["pre_scale"] = S.ones((K,), dtype=torch.float32)
+            out["pre_scale"] = S.ones((K,), (ax_in,), dtype=torch.float32)
         if qspec.rotate:
             # QuaRot-style orthogonal rotation applied online to x
-            out["rot"] = S.w((K, K), dtype=dtype)
+            out["rot"] = S.w((K, K), (ax_in, None), dtype=dtype)
     if bias:
-        out["b"] = S.zeros((N,), dtype=dtype)
+        out["b"] = S.zeros((N,), (ax_out,), dtype=dtype)
     return out
 
 
-def expert_linear_specs(E: int, K: int, N: int, qspec: QuantSpec | None, *,
+def expert_linear_specs(E: int, K: int, N: int, qspec: QuantSpec | None,
+                        axes: tuple[str | None, str | None, str | None], *,
                         dtype=torch.bfloat16) -> dict:
     """Specs of E stacked linears (K, N): every leaf of
     :func:`linear_specs` with a leading expert axis, so a quantized
     expert stack carries one amplifier per expert (``alpha`` (E,)), and
-    ``pre_scale`` (E, K) / ``rot`` (E, K, K) where its spec asks."""
+    ``pre_scale`` (E, K) / ``rot`` (E, K, K) where its spec asks.
+    ``axes``: the logical axes of (E, K, N)."""
     return S.tree_map(
-        lambda s: S.ParamSpec((E, *s.shape), s.dtype, s.init, s.init_scale),
-        linear_specs(K, N, qspec, dtype=dtype))
+        lambda s: S.ParamSpec((E, *s.shape), s.dtype, s.init,
+                              (axes[0], *s.logical_axes), s.init_scale),
+        linear_specs(K, N, qspec, axes[1:], dtype=dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -176,9 +176,26 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# Devices whose tensors take a kernel's plain version: the CPU (the tests'
+# device) and ``meta`` (shapes only, no data: the dry-run's device).
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def takes_plain(name: str, t) -> bool:
+    """The wrappers' device rule: True where ``t`` lies on the CPU or on
+    ``meta`` (the plain version), False on CUDA (the kernel); any other
+    device raises."""
+    kind = t.device.type
+    if kind in PLAIN_DEVICES:
+        return True
+    if kind == "cuda":
+        return False
+    raise ValueError(f"{name}: expected CUDA, CPU or meta tensors, got "
+                     f"{t.device}")
+
+
 def require_cuda(name: str, *tensors) -> None:
-    """The wrappers' device rule: CPU tensors take the plain version (the
-    caller's branch), CUDA tensors the kernel, anything else raises."""
+    """The kernel's side of :func:`takes_plain`: every operand on CUDA."""
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")

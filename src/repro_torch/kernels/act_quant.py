@@ -56,7 +56,7 @@ def _launch(symbol: str, argtypes, x: torch.Tensor, ptrs, dims,
 
 def act_quant(x: torch.Tensor, *, bits: int = 8):
     """(M, K) bf16/f32 -> (q int8 (M, K), scale f32 (M, 1))."""
-    if x.device.type == "cpu":
+    if _build.takes_plain("act_quant", x):
         return act_quant_plain(x, bits)
     _build.require_cuda("act_quant", x)
     _check_dtype(x, 2, "(M, K)")
@@ -91,7 +91,7 @@ def act_quant_routed(x: torch.Tensor, row_counts=None, *, bits: int = 8):
     """(E, C, K) bf16/f32 -> (codes int8 (E, C, K), scales f32 (E, C, 1)),
     as :func:`act_quant_routed_plain`. On the card ``row_counts`` is int32
     (E,), read on the device (or None)."""
-    if x.device.type == "cpu":
+    if _build.takes_plain("act_quant", x):
         return act_quant_routed_plain(x, row_counts, bits)
     extra = [] if row_counts is None else [row_counts]
     _build.require_cuda("act_quant", x, *extra)

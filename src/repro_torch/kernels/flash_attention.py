@@ -140,7 +140,7 @@ def _check_operands(name, q, k, v, window, head_dims):
 def _forward(q, k, v, causal, window, softmax_scale, with_lse: bool):
     """(out, lse or None): the plain version on CPU tensors, the kernel on
     CUDA tensors (writing lse only when asked)."""
-    if q.device.type == "cpu":
+    if _build.takes_plain("flash_attention", q):
         return _plain(q, k, v, causal, window, softmax_scale, with_lse)
     _build.require_cuda("flash_attention", q, k, v)
     _check_operands("flash_attention", q, k, v, window, HEAD_DIMS)
@@ -205,7 +205,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     the backward kernel (head dims :data:`BWD_HEAD_DIMS`; another raises
     ``ValueError``) as :func:`bwd_launch_plan` lays it out on the card,
     with the f32 workspace a head split needs."""
-    if q.device.type == "cpu":
+    if _build.takes_plain("flash_attention_bwd", q):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window,
                                          softmax_scale=softmax_scale)

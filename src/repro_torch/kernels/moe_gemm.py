@@ -259,7 +259,7 @@ def fg_grouped_gemm_integer_scale(
     (E, C, N), +0.0 at or past ``row_counts`` (None: the dense grouped
     GEMM, every row). ``alpha``: a python float, or f32 (E,) per expert,
     read on the device. CPU tensors take the plain version."""
-    if xq.device.type == "cpu":
+    if _build.takes_plain("moe_w4a8_is", xq):
         return _mask_rows(fg_grouped_gemm_integer_scale_plain(
             xq, sa, qvalue, int_scale, group_size=group_size, alpha=alpha,
             w_bits=w_bits), row_counts)
@@ -275,7 +275,7 @@ def fg_grouped_gemm_float_scale(
 ) -> torch.Tensor:
     """Batched-expert Eq. 1 (``group_size=-1``: coarse) on pre-quantized
     codes; returns f32 (E, C, N), +0.0 at or past ``row_counts``."""
-    if xq.device.type == "cpu":
+    if _build.takes_plain("moe_w4a8_fs", xq):
         return _mask_rows(fg_grouped_gemm_float_scale_plain(
             xq, sa, qvalue, scale, group_size=group_size, w_bits=w_bits),
             row_counts)
@@ -292,7 +292,7 @@ def fg_grouped_gemm_integer_scale_ragged(
     """Ragged batched-expert Eq. 2 over the raw (E, C, K) buffer (its
     routed rows quantized, then the GEMM); returns f32 (E, C, N), +0.0
     past the counts."""
-    if x.device.type == "cpu":
+    if _build.takes_plain("moe_w4a8_is", x):
         return fg_grouped_gemm_integer_scale_ragged_plain(
             x, row_counts, qvalue, int_scale, group_size=group_size,
             alpha=alpha, a_bits=a_bits, w_bits=w_bits)
@@ -309,7 +309,7 @@ def fg_grouped_gemm_float_scale_ragged(
 ) -> torch.Tensor:
     """Ragged batched-expert Eq. 1 (fine or coarse), as the integer-scale
     one."""
-    if x.device.type == "cpu":
+    if _build.takes_plain("moe_w4a8_fs", x):
         return fg_grouped_gemm_float_scale_ragged_plain(
             x, row_counts, qvalue, scale, group_size=group_size,
             a_bits=a_bits, w_bits=w_bits)
@@ -361,7 +361,7 @@ def grouped_w4a16_gemm(
 ) -> torch.Tensor:
     """Dense batched-expert W4A16 (activations cast to bf16); returns f32
     (E, C, N)."""
-    if x.device.type == "cpu":
+    if _build.takes_plain("moe_w4a16", x):
         return grouped_w4a16_gemm_plain(x, qvalue, scale,
                                         group_size=group_size)
     return _wo_launch(x, None, qvalue, scale, group_size=group_size, bm=bm)
@@ -372,7 +372,7 @@ def grouped_w4a16_gemm_ragged(
     *, group_size: int = 128, bm: int = 0,
 ) -> torch.Tensor:
     """Ragged batched-expert W4A16: zeros past the counts."""
-    if x.device.type == "cpu":
+    if _build.takes_plain("moe_w4a16", x):
         return grouped_w4a16_gemm_ragged_plain(x, row_counts, qvalue, scale,
                                                group_size=group_size)
     return _wo_launch(x, row_counts, qvalue, scale, group_size=group_size,

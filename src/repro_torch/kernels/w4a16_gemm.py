@@ -69,7 +69,7 @@ def w4a16_gemm(
     CUDA tensors launch the kernel (``bm`` forces its row tile, 0 = by M;
     the K split follows from the shape,
     :func:`~repro_torch.kernels.w4a8_gemm.launch_plan`)."""
-    if x.device.type == "cpu":
+    if _build.takes_plain("w4a16_gemm", x):
         return w4a16_gemm_plain(x, qvalue, scale, group_size=group_size)
     _build.require_cuda("w4a16_gemm", x, qvalue, scale)
     M, K = x.shape

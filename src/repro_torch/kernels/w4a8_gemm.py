@@ -177,7 +177,7 @@ def fg_gemm_integer_scale(
     device). CPU tensors take the plain version; CUDA tensors launch the
     kernel (``bm`` picks its row tile, 0 = by M; the K split follows from
     the shape, :func:`launch_plan`)."""
-    if xq.device.type == "cpu":
+    if _build.takes_plain("w4a8_gemm_is", xq):
         return fg_gemm_integer_scale_plain(
             xq, sa, qvalue, int_scale, group_size=group_size, alpha=alpha,
             w_bits=w_bits)

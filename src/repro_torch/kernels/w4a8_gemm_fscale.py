@@ -57,7 +57,7 @@ def fg_gemm_float_scale(
     """Eq. 1 GEMM; returns f32 (M, N). CPU tensors take the plain version;
     CUDA tensors launch the kernel (``bm`` picks its row tile, 0 = by M;
     the K split follows from the shape)."""
-    if xq.device.type == "cpu":
+    if _build.takes_plain("w4a8_gemm_fs", xq):
         return fg_gemm_float_scale_plain(xq, sa, qvalue, scale,
                                          group_size=group_size, w_bits=w_bits)
     _build.require_cuda("w4a8_gemm_fs", xq, sa, qvalue, scale)

@@ -190,26 +190,29 @@ def gqa_specs(cfg: ModelConfig, recipe, base: str) -> dict:
     Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
     dt = cfg.activation_dtype
     return {
-        "q": linear(recipe, f"{base}/q", d, Hq * hd, bias=cfg.qkv_bias,
+        "q": linear(recipe, f"{base}/q", d, Hq * hd, ("embed", "heads_q"),
+                    bias=cfg.qkv_bias, dtype=dt),
+        "k": linear(recipe, f"{base}/k", d, Hkv * hd, ("embed", "heads_kv"),
+                    bias=cfg.qkv_bias, dtype=dt),
+        "v": linear(recipe, f"{base}/v", d, Hkv * hd, ("embed", "heads_kv"),
+                    bias=cfg.qkv_bias, dtype=dt),
+        "o": linear(recipe, f"{base}/o", Hq * hd, d, ("heads_q", "embed"),
                     dtype=dt),
-        "k": linear(recipe, f"{base}/k", d, Hkv * hd, bias=cfg.qkv_bias,
-                    dtype=dt),
-        "v": linear(recipe, f"{base}/v", d, Hkv * hd, bias=cfg.qkv_bias,
-                    dtype=dt),
-        "o": linear(recipe, f"{base}/o", Hq * hd, d, dtype=dt),
     }
 
 
 def gqa_cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    ax = ("cache_batch", "cache_seq", "heads_kv", None)
     if cfg.kv_cache_dtype == "int8":
         scales = (*shape[:-1], 1)
-        return {"k": S.zeros(shape, dtype=torch.int8),
-                "v": S.zeros(shape, dtype=torch.int8),
-                "k_scale": S.zeros(scales, dtype=torch.float32),
-                "v_scale": S.zeros(scales, dtype=torch.float32)}
+        return {"k": S.zeros(shape, ax, dtype=torch.int8),
+                "v": S.zeros(shape, ax, dtype=torch.int8),
+                "k_scale": S.zeros(scales, ax, dtype=torch.float32),
+                "v_scale": S.zeros(scales, ax, dtype=torch.float32)}
     dt = cfg.activation_dtype
-    return {"k": S.zeros(shape, dtype=dt), "v": S.zeros(shape, dtype=dt)}
+    return {"k": S.zeros(shape, ax, dtype=dt),
+            "v": S.zeros(shape, ax, dtype=dt)}
 
 
 def _is_vec_pos(pos) -> bool:
@@ -294,21 +297,23 @@ def mla_specs(cfg: ModelConfig, recipe, base: str) -> dict:
     out: dict = {}
     if cfg.q_lora_rank:
         out["q_down"] = linear(recipe, f"{base}/q_down", d, cfg.q_lora_rank,
-                               dtype=dt)
+                               ("embed", "q_lora"), dtype=dt)
         out["q_norm"] = rmsnorm_spec(cfg.q_lora_rank)
         q_in = cfg.q_lora_rank
     else:
         q_in = d
     out["q_up"] = linear(recipe, f"{base}/q_up", q_in, H * (nd + r),
-                         dtype=dt)
+                         ("q_lora", "heads_q"), dtype=dt)
     out["kv_down"] = linear(recipe, f"{base}/kv_down", d,
-                            cfg.kv_lora_rank + r, dtype=dt)
+                            cfg.kv_lora_rank + r, ("embed", "kv_lora"),
+                            dtype=dt)
     out["kv_norm"] = rmsnorm_spec(cfg.kv_lora_rank)
     out["k_up"] = linear(recipe, f"{base}/k_up", cfg.kv_lora_rank, H * nd,
-                         dtype=dt)
+                         ("kv_lora", "heads_q"), dtype=dt)
     out["v_up"] = linear(recipe, f"{base}/v_up", cfg.kv_lora_rank, H * vd,
-                         dtype=dt)
-    out["o"] = linear(recipe, f"{base}/o", H * vd, d, dtype=dt)
+                         ("kv_lora", "heads_q"), dtype=dt)
+    out["o"] = linear(recipe, f"{base}/o", H * vd, d, ("heads_q", "embed"),
+                      dtype=dt)
     return out
 
 
@@ -318,8 +323,10 @@ def mla_cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     dtype. ``kv_cache_dtype`` does not apply (the reference ignores it
     here too)."""
     dt = cfg.activation_dtype
-    return {"c_kv": S.zeros((batch, max_seq, cfg.kv_lora_rank), dtype=dt),
-            "k_rope": S.zeros((batch, max_seq, cfg.qk_rope_dim), dtype=dt)}
+    return {"c_kv": S.zeros((batch, max_seq, cfg.kv_lora_rank),
+                            ("cache_batch", "cache_seq", "kv_lora"), dtype=dt),
+            "k_rope": S.zeros((batch, max_seq, cfg.qk_rope_dim),
+                              ("cache_batch", "cache_seq", None), dtype=dt)}
 
 
 def _dense_weight(params: dict, qspec, K: int, dtype) -> torch.Tensor:
@@ -448,10 +455,14 @@ def cross_attn_specs(cfg: ModelConfig, recipe, base: str) -> dict:
     Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
     dt = cfg.activation_dtype
     return {
-        "q": linear(recipe, f"{base}/q", d, Hq * hd, dtype=dt),
-        "k": linear(recipe, f"{base}/k", d, Hkv * hd, dtype=dt),
-        "v": linear(recipe, f"{base}/v", d, Hkv * hd, dtype=dt),
-        "o": linear(recipe, f"{base}/o", Hq * hd, d, dtype=dt),
+        "q": linear(recipe, f"{base}/q", d, Hq * hd, ("embed", "heads_q"),
+                    dtype=dt),
+        "k": linear(recipe, f"{base}/k", d, Hkv * hd, ("embed", "heads_kv"),
+                    dtype=dt),
+        "v": linear(recipe, f"{base}/v", d, Hkv * hd, ("embed", "heads_kv"),
+                    dtype=dt),
+        "o": linear(recipe, f"{base}/o", Hq * hd, d, ("heads_q", "embed"),
+                    dtype=dt),
         "q_norm": rmsnorm_spec(d),
     }
 
@@ -461,8 +472,10 @@ def cross_attn_cache_specs(cfg: ModelConfig, batch: int,
     """k/v of the memory, (B, Sm, Hkv, D), always in the activation dtype:
     the reference ignores ``kv_cache_dtype`` here too."""
     shape = (batch, mem_len, cfg.num_kv_heads, cfg.head_dim)
+    ax = ("cache_batch", None, "heads_kv", None)
     dt = cfg.activation_dtype
-    return {"k": S.zeros(shape, dtype=dt), "v": S.zeros(shape, dtype=dt)}
+    return {"k": S.zeros(shape, ax, dtype=dt),
+            "v": S.zeros(shape, ax, dtype=dt)}
 
 
 def attend_memory(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

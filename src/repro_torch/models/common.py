@@ -41,11 +41,12 @@ def _record(path: str, x: torch.Tensor) -> None:
         x2[::step][:_CAPTURE_SAMPLES].float().clone())
 
 
-def linear(recipe: QuantRecipe | None, path: str, K: int, N: int, *,
+def linear(recipe: QuantRecipe | None, path: str, K: int, N: int, axes, *,
            bias: bool = False, dtype=torch.bfloat16) -> dict:
-    """Param specs of the linear at ``path`` (quantized per the recipe)."""
+    """Param specs of the linear at ``path`` (quantized per the recipe);
+    ``axes``: the logical axes of (K, N)."""
     qspec = recipe.spec_for(path) if recipe is not None else None
-    return qlinear.linear_specs(K, N, qspec, bias=bias, dtype=dtype)
+    return qlinear.linear_specs(K, N, qspec, axes, bias=bias, dtype=dtype)
 
 
 class Linear(nn.Module):
@@ -76,7 +77,7 @@ class Linear(nn.Module):
 
 
 def rmsnorm_spec(d: int) -> dict:
-    return {"g": S.ones((d,))}
+    return {"g": S.ones((d,), ("embed",))}
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -96,7 +97,7 @@ class RMSNorm(nn.Module):
 
 
 def layernorm_spec(d: int) -> dict:
-    return {"g": S.ones((d,)), "b": S.zeros((d,))}
+    return {"g": S.ones((d,), ("embed",)), "b": S.zeros((d,), ("embed",))}
 
 
 def layernorm(params: dict, x: torch.Tensor,

@@ -97,3 +97,26 @@ class ModelConfig:
     @property
     def activation_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
+
+    def param_count_estimate(self) -> int:
+        """Rough dense-equivalent parameter count (embeddings included), as
+        the reference's: the dry-run records it per cell."""
+        d, L, V = self.d_model, self.num_layers, self.vocab_size
+        hd = self.head_dim
+        if self.attention == "mla":
+            attn = (self.q_lora_rank or d) * self.num_heads * (
+                self.qk_nope_dim + self.qk_rope_dim) + d * (
+                self.kv_lora_rank + self.qk_rope_dim) + self.kv_lora_rank * (
+                self.num_heads * (self.qk_nope_dim + self.v_head_dim)) + (
+                self.num_heads * self.v_head_dim * d)
+            if self.q_lora_rank:
+                attn += d * self.q_lora_rank
+        else:
+            attn = d * (self.num_heads * hd) * 2 + d * (
+                self.num_kv_heads * hd) * 2
+        if self.num_experts:
+            ffn = 3 * d * self.moe_d_ff * (
+                self.num_experts + self.num_shared_experts)
+        else:
+            ffn = 3 * d * self.d_ff
+        return L * (attn + ffn) + 2 * V * d

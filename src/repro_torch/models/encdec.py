@@ -53,18 +53,23 @@ def _attn_specs(cfg: ModelConfig, recipe, base: str) -> dict:
     d, hd, H = cfg.d_model, cfg.head_dim, cfg.num_heads
     dt = cfg.activation_dtype
     return {
-        "q": linear(recipe, f"{base}/q", d, H * hd, bias=True, dtype=dt),
-        "k": linear(recipe, f"{base}/k", d, H * hd, dtype=dt),
-        "v": linear(recipe, f"{base}/v", d, H * hd, bias=True, dtype=dt),
-        "o": linear(recipe, f"{base}/o", H * hd, d, bias=True, dtype=dt),
+        "q": linear(recipe, f"{base}/q", d, H * hd, ("embed", "heads_q"),
+                    bias=True, dtype=dt),
+        "k": linear(recipe, f"{base}/k", d, H * hd, ("embed", "heads_kv"),
+                    dtype=dt),
+        "v": linear(recipe, f"{base}/v", d, H * hd, ("embed", "heads_kv"),
+                    bias=True, dtype=dt),
+        "o": linear(recipe, f"{base}/o", H * hd, d, ("heads_q", "embed"),
+                    bias=True, dtype=dt),
     }
 
 
 def _mlp_specs(cfg: ModelConfig, recipe, base: str) -> dict:
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.activation_dtype
-    return {"up": linear(recipe, f"{base}/up", d, f, bias=True, dtype=dt),
-            "down": linear(recipe, f"{base}/down", f, d, bias=True,
-                           dtype=dt)}
+    return {"up": linear(recipe, f"{base}/up", d, f, ("embed", "mlp"),
+                         bias=True, dtype=dt),
+            "down": linear(recipe, f"{base}/down", f, d, ("mlp", "embed"),
+                           bias=True, dtype=dt)}
 
 
 def _enc_block_specs(cfg: ModelConfig, recipe, base: str) -> dict:
@@ -92,8 +97,10 @@ def param_specs(cfg: ModelConfig, recipe=None) -> dict:
         "enc": {"blocks": [_enc_block_specs(cfg, recipe, f"enc/blocks/{i}")
                            for i in range(ne)],
                 "final_ln": layernorm_spec(d)},
-        "dec": {"embed": S.w((V, d), dtype=dt, init="embed"),
-                "pos": S.w((cfg.max_positions, d), dtype=dt, scale=0.02),
+        "dec": {"embed": S.w((V, d), ("vocab", "embed"), dtype=dt,
+                             init="embed"),
+                "pos": S.w((cfg.max_positions, d), (None, "embed"), dtype=dt,
+                           scale=0.02),
                 "blocks": [_dec_block_specs(cfg, recipe, f"dec/blocks/{i}")
                            for i in range(cfg.num_layers)],
                 "final_ln": layernorm_spec(d)},
@@ -106,11 +113,13 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     dt = cfg.activation_dtype
     self_shape = (batch, max_seq, cfg.num_heads, cfg.head_dim)
     cross_shape = (batch, cfg.encoder_seq, cfg.num_heads, cfg.head_dim)
+    ax = ("cache_batch", "cache_seq", "heads_kv", None)
+    axm = ("cache_batch", None, "heads_kv", None)
     return {"blocks": [
-        {"self": {"k": S.zeros(self_shape, dtype=dt),
-                  "v": S.zeros(self_shape, dtype=dt)},
-         "cross": {"k": S.zeros(cross_shape, dtype=dt),
-                   "v": S.zeros(cross_shape, dtype=dt)}}
+        {"self": {"k": S.zeros(self_shape, ax, dtype=dt),
+                  "v": S.zeros(self_shape, ax, dtype=dt)},
+         "cross": {"k": S.zeros(cross_shape, axm, dtype=dt),
+                   "v": S.zeros(cross_shape, axm, dtype=dt)}}
         for _ in range(cfg.num_layers)]}
 
 

@@ -70,24 +70,30 @@ def rglru_specs(cfg: ModelConfig, recipe, base: str) -> dict:
     dt = cfg.activation_dtype
     return {
         "ln": rmsnorm_spec(d),
-        "gate_proj": linear(recipe, f"{base}/gate_proj", d, dr, dtype=dt),
-        "x_proj": linear(recipe, f"{base}/x_proj", d, dr, dtype=dt),
+        "gate_proj": linear(recipe, f"{base}/gate_proj", d, dr,
+                            ("embed", "mlp"), dtype=dt),
+        "x_proj": linear(recipe, f"{base}/x_proj", d, dr, ("embed", "mlp"),
+                         dtype=dt),
         "conv": conv_specs(dr, cfg.conv_width),
         "lru": {
-            "lam": S.w((dr,), init="ones"),  # softplus(lam): the decay rate
-            "wa": S.w((dr, dr), scale=0.5),
-            "ba": S.zeros((dr,)),
-            "wi": S.w((dr, dr), scale=0.5),
-            "bi": S.zeros((dr,)),
+            # softplus(lam): the decay rate
+            "lam": S.w((dr,), ("mlp",), init="ones"),
+            "wa": S.w((dr, dr), ("mlp", "mlp2"), scale=0.5),
+            "ba": S.zeros((dr,), ("mlp",)),
+            "wi": S.w((dr, dr), ("mlp", "mlp2"), scale=0.5),
+            "bi": S.zeros((dr,), ("mlp",)),
         },
-        "out_proj": linear(recipe, f"{base}/out_proj", dr, d, dtype=dt),
+        "out_proj": linear(recipe, f"{base}/out_proj", dr, d,
+                           ("mlp", "embed"), dtype=dt),
     }
 
 
 def rglru_state_specs(cfg: ModelConfig, batch: int) -> dict:
     dr = cfg.d_model
-    return {"h": S.zeros((batch, dr), dtype=torch.float32),
+    return {"h": S.zeros((batch, dr), ("cache_batch", "mlp"),
+                         dtype=torch.float32),
             "conv": S.zeros((batch, cfg.conv_width - 1, dr),
+                            ("cache_batch", None, "mlp"),
                             dtype=cfg.activation_dtype)}
 
 
@@ -168,8 +174,10 @@ def local_attn_specs(cfg: ModelConfig, recipe, base: str) -> dict:
 
 def local_attn_state_specs(cfg: ModelConfig, batch: int) -> dict:
     shape = (batch, cfg.window, cfg.num_kv_heads, cfg.head_dim)
+    ax = ("cache_batch", "cache_seq", "heads_kv", None)
     dt = cfg.activation_dtype
-    return {"k": S.zeros(shape, dtype=dt), "v": S.zeros(shape, dtype=dt)}
+    return {"k": S.zeros(shape, ax, dtype=dt),
+            "v": S.zeros(shape, ax, dtype=dt)}
 
 
 def _check_pos(pos) -> None:
@@ -256,9 +264,11 @@ def mlp_block_specs(cfg: ModelConfig, recipe, base: str) -> dict:
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.activation_dtype
     return {
         "ln": rmsnorm_spec(d),
-        "gate": linear(recipe, f"{base}/gate", d, f, dtype=dt),
-        "up": linear(recipe, f"{base}/up", d, f, dtype=dt),
-        "down": linear(recipe, f"{base}/down", f, d, dtype=dt),
+        "gate": linear(recipe, f"{base}/gate", d, f, ("embed", "mlp"),
+                       dtype=dt),
+        "up": linear(recipe, f"{base}/up", d, f, ("embed", "mlp"), dtype=dt),
+        "down": linear(recipe, f"{base}/down", f, d, ("mlp", "embed"),
+                       dtype=dt),
     }
 
 
@@ -327,8 +337,8 @@ def param_specs(cfg: ModelConfig, recipe=None) -> dict:
     return {
         # std 1/sqrt(d): the runtime x * sqrt(d) (the Gemma convention)
         # gives unit-RMS streams
-        "embed": S.w((V, d), dtype=cfg.activation_dtype, init="embed",
-                     scale=d ** -0.5),
+        "embed": S.w((V, d), ("vocab", "embed"), dtype=cfg.activation_dtype,
+                     init="embed", scale=d ** -0.5),
         "final_norm": rmsnorm_spec(d),
         "blocks": [_block_specs(cfg, recipe, kind, f"blocks/{i}")
                    for i, kind in enumerate(layer_kinds(cfg))],

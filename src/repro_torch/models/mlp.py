@@ -18,9 +18,11 @@ def mlp_specs(cfg: ModelConfig, recipe, base: str,
     ``num_shared_experts * moe_d_ff``)."""
     d, f, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.activation_dtype
     return {
-        "gate": linear(recipe, f"{base}/gate", d, f, dtype=dt),
-        "up": linear(recipe, f"{base}/up", d, f, dtype=dt),
-        "down": linear(recipe, f"{base}/down", f, d, dtype=dt),
+        "gate": linear(recipe, f"{base}/gate", d, f, ("embed", "mlp"),
+                       dtype=dt),
+        "up": linear(recipe, f"{base}/up", d, f, ("embed", "mlp"), dtype=dt),
+        "down": linear(recipe, f"{base}/down", f, d, ("mlp", "embed"),
+                       dtype=dt),
     }
 
 

@@ -144,10 +144,13 @@ def moe_specs(cfg: ModelConfig, recipe, base: str) -> dict:
         return recipe.spec_for(f"{base}/{name}") if recipe else None
 
     out = {
-        "router": S.w((d, E), dtype=torch.float32),
-        "gate": qlinear.expert_linear_specs(E, d, f, spec("gate"), dtype=dt),
-        "up": qlinear.expert_linear_specs(E, d, f, spec("up"), dtype=dt),
-        "down": qlinear.expert_linear_specs(E, f, d, spec("down"), dtype=dt),
+        "router": S.w((d, E), ("embed", None), dtype=torch.float32),
+        "gate": qlinear.expert_linear_specs(
+            E, d, f, spec("gate"), ("experts", "embed", "moe_mlp"), dtype=dt),
+        "up": qlinear.expert_linear_specs(
+            E, d, f, spec("up"), ("experts", "embed", "moe_mlp"), dtype=dt),
+        "down": qlinear.expert_linear_specs(
+            E, f, d, spec("down"), ("experts", "moe_mlp", "embed"), dtype=dt),
     }
     if cfg.num_shared_experts:
         out["shared"] = mlp_specs(cfg, recipe, f"{base}/shared",

@@ -77,7 +77,7 @@ def _block_specs(cfg: ModelConfig, recipe, kind: str, base: str) -> dict:
         return {"ln1": rmsnorm_spec(d), "ln2": rmsnorm_spec(d),
                 "attn": A.cross_attn_specs(cfg, recipe, f"{base}/xattn"),
                 "mlp": mlp_specs(cfg, recipe, f"{base}/mlp"),
-                "gate_attn": S.zeros(()), "gate_mlp": S.zeros(())}
+                "gate_attn": S.zeros((), ()), "gate_mlp": S.zeros((), ())}
     mlp = moe_specs if kind == "moe" else mlp_specs
     attn = A.mla_specs if cfg.attention == "mla" else A.gqa_specs
     return {"ln1": rmsnorm_spec(d), "ln2": rmsnorm_spec(d),
@@ -90,11 +90,11 @@ def param_specs(cfg: ModelConfig, recipe=None) -> dict:
     d, V = cfg.d_model, cfg.vocab_size
     dt = cfg.activation_dtype
     specs: dict = {
-        "embed": S.w((V, d), dtype=dt, init="embed"),
+        "embed": S.w((V, d), ("vocab", "embed"), dtype=dt, init="embed"),
         "final_norm": rmsnorm_spec(d),
     }
     if not cfg.tie_embeddings:
-        specs["head"] = {"w": S.w((d, V), dtype=dt)}
+        specs["head"] = {"w": S.w((d, V), ("embed", "vocab"), dtype=dt)}
     specs["blocks"] = [_block_specs(cfg, recipe, kind, f"blocks/{i}")
                        for i, kind in enumerate(layer_kinds(cfg))]
     return specs

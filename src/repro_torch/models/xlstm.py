@@ -58,7 +58,8 @@ def _dh(cfg: ModelConfig) -> int:
 
 
 def conv_specs(d: int, width: int) -> dict:
-    return {"w": S.w((width, d)), "b": S.zeros((d,))}
+    return {"w": S.w((width, d), (None, "embed")),
+            "b": S.zeros((d,), ("embed",))}
 
 
 def causal_conv(params: dict, x: torch.Tensor, *,
@@ -109,15 +110,17 @@ def mlstm_specs(cfg: ModelConfig, recipe, base: str) -> dict:
     dt = cfg.activation_dtype
     return {
         "ln": rmsnorm_spec(d),
-        "up": linear(recipe, f"{base}/up", d, 2 * di, dtype=dt),
+        "up": linear(recipe, f"{base}/up", d, 2 * di, ("embed", "mlp"),
+                     dtype=dt),
         "conv": conv_specs(di, cfg.conv_width),
-        "q": linear(recipe, f"{base}/q", di, di, dtype=dt),
-        "k": linear(recipe, f"{base}/k", di, di, dtype=dt),
-        "v": linear(recipe, f"{base}/v", di, di, dtype=dt),
-        "if_gate": {"w": S.w((di, 2 * H), scale=0.3),
-                    "b": S.zeros((2 * H,))},
+        "q": linear(recipe, f"{base}/q", di, di, ("mlp", "heads_q"), dtype=dt),
+        "k": linear(recipe, f"{base}/k", di, di, ("mlp", "heads_q"), dtype=dt),
+        "v": linear(recipe, f"{base}/v", di, di, ("mlp", "heads_q"), dtype=dt),
+        "if_gate": {"w": S.w((di, 2 * H), ("mlp", None), scale=0.3),
+                    "b": S.zeros((2 * H,), (None,))},
         "out_norm": rmsnorm_spec(di),
-        "down": linear(recipe, f"{base}/down", di, d, dtype=dt),
+        "down": linear(recipe, f"{base}/down", di, d, ("mlp", "embed"),
+                       dtype=dt),
     }
 
 
@@ -125,10 +128,13 @@ def mlstm_state_specs(cfg: ModelConfig, batch: int) -> dict:
     H, dh, di = cfg.num_heads, _dh(cfg), _d_inner(cfg)
     f32 = torch.float32
     return {
-        "C": S.zeros((batch, H, dh, dh), dtype=f32),
-        "n": S.zeros((batch, H, dh), dtype=f32),
-        "m": S.zeros((batch, H), dtype=f32),
+        "C": S.zeros((batch, H, dh, dh),
+                     ("cache_batch", "heads_q", None, None), dtype=f32),
+        "n": S.zeros((batch, H, dh), ("cache_batch", "heads_q", None),
+                     dtype=f32),
+        "m": S.zeros((batch, H), ("cache_batch", "heads_q"), dtype=f32),
         "conv": S.zeros((batch, cfg.conv_width - 1, di),
+                        ("cache_batch", None, "mlp"),
                         dtype=cfg.activation_dtype),
     }
 
@@ -287,20 +293,25 @@ def slstm_specs(cfg: ModelConfig, recipe, base: str) -> dict:
     dh, dt, ff = d // H, cfg.activation_dtype, _ff_width(cfg.d_model)
     return {
         "ln": rmsnorm_spec(d),
-        "wx": linear(recipe, f"{base}/wx", d, 4 * d, dtype=dt),
+        "wx": linear(recipe, f"{base}/wx", d, 4 * d, ("embed", "mlp"),
+                     dtype=dt),
         # block-diagonal recurrent weights: (H, dh, 4 dh)
-        "r": S.w((H, dh, 4 * dh), scale=1.0),
+        "r": S.w((H, dh, 4 * dh), ("heads_q", None, None), scale=1.0),
         "out_norm": rmsnorm_spec(d),
-        "ff_gate": linear(recipe, f"{base}/ff_gate", d, ff, dtype=dt),
-        "ff_up": linear(recipe, f"{base}/ff_up", d, ff, dtype=dt),
-        "ff_down": linear(recipe, f"{base}/ff_down", ff, d, dtype=dt),
+        "ff_gate": linear(recipe, f"{base}/ff_gate", d, ff, ("embed", "mlp"),
+                          dtype=dt),
+        "ff_up": linear(recipe, f"{base}/ff_up", d, ff, ("embed", "mlp"),
+                        dtype=dt),
+        "ff_down": linear(recipe, f"{base}/ff_down", ff, d, ("mlp", "embed"),
+                          dtype=dt),
     }
 
 
 def slstm_state_specs(cfg: ModelConfig, batch: int) -> dict:
     H = cfg.num_heads
     shape = (batch, H, cfg.d_model // H)
-    return {k: S.zeros(shape, dtype=torch.float32) for k in "cnmh"}
+    ax = ("cache_batch", "heads_q", None)
+    return {k: S.zeros(shape, ax, dtype=torch.float32) for k in "cnmh"}
 
 
 def _slstm_scan(pre: torch.Tensor, r: torch.Tensor, state):
@@ -392,9 +403,9 @@ def param_specs(cfg: ModelConfig, recipe=None) -> dict:
     d, V, dt = cfg.d_model, cfg.vocab_size, cfg.activation_dtype
     block = {"slstm": slstm_specs, "mlstm": mlstm_specs}
     return {
-        "embed": S.w((V, d), dtype=dt, init="embed"),
+        "embed": S.w((V, d), ("vocab", "embed"), dtype=dt, init="embed"),
         "final_norm": rmsnorm_spec(d),
-        "head": {"w": S.w((d, V), dtype=dt)},
+        "head": {"w": S.w((d, V), ("embed", "vocab"), dtype=dt)},
         "blocks": [block[kind](cfg, recipe, f"blocks/{i}")
                    for i, kind in enumerate(layer_kinds(cfg))],
     }

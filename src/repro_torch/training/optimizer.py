@@ -41,14 +41,15 @@ class AdamWConfig:
 
 
 def state_specs(param_specs: Any) -> dict:
-    """mu/nu in f32 with the params' shapes; an int32 scalar step."""
+    """mu/nu in f32 with the params' shapes and logical axes; an int32
+    scalar step."""
 
     def f32(s: S.ParamSpec) -> S.ParamSpec:
-        return S.ParamSpec(s.shape, torch.float32, "zeros")
+        return S.ParamSpec(s.shape, torch.float32, "zeros", s.logical_axes)
 
     return {"mu": S.tree_map(f32, param_specs),
             "nu": S.tree_map(f32, param_specs),
-            "step": S.ParamSpec((), torch.int32, "zeros")}
+            "step": S.ParamSpec((), torch.int32, "zeros", ())}
 
 
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

@@ -422,10 +422,15 @@ def test_flash_launch_plan(B, S, Hq, dtype, blocks):
 
 
 def test_cuda_mode_on_cpu_tensor_raises():
-    """The tensor's device is the only switch: CPU tensors take the plain
-    versions, and a tensor on any other device than the CPU goes to the
-    kernels, which raise unless it is a CUDA tensor. Here a meta tensor
-    stands in for a non-CPU tensor: no plain version runs on it."""
+    """The tensor's device is the only switch: CPU tensors and ``meta``
+    ones (shapes only: the dry-run's) take the plain versions, CUDA
+    tensors the kernels, and a tensor on any other device raises. A
+    stand-in carrying an ``xpu`` device is that other tensor (this build
+    has no such device)."""
+    import types
+
+    from repro_torch.kernels.act_quant import act_quant
+
     spec = QuantSpec(group_size=64)
     w = torch.from_numpy(np.random.default_rng(3).normal(size=(128, 16))
                          .astype(np.float32))
@@ -433,11 +438,17 @@ def test_cuda_mode_on_cpu_tensor_raises():
     assert tqlinear.linear_apply(params, torch.ones(2, 128), spec).shape == \
         (2, 16)
     meta = {k: v.to("meta") for k, v in params.items()}
-    with pytest.raises(ValueError, match="CUDA"):
-        tqlinear.linear_apply(meta, torch.ones(2, 128, device="meta"), spec)
+    y = tqlinear.linear_apply(meta, torch.ones(2, 128, device="meta"), spec)
+    assert y.device.type == "meta" and y.shape == (2, 16)
     q = torch.ones((1, 4, 2, 64), device="meta")
+    o = flash_attention(q, q, q)
+    assert o.device.type == "meta" and o.shape == q.shape
+    other = types.SimpleNamespace(device=torch.device("xpu"),
+                                  requires_grad=False)
     with pytest.raises(ValueError, match="CUDA"):
-        flash_attention(q, q, q)
+        flash_attention(other, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        act_quant(other)
 
 
 def test_qgemm_resolves_alpha_like_reference():

@@ -25,6 +25,7 @@ smoke Mixtral, carried over with ``repro_torch.convert``). Tolerances:
 * Engines: greedy token streams and per-tick routed counts EQUAL.
 """
 import dataclasses
+import types
 
 import jax
 import jax.extend
@@ -338,10 +339,17 @@ def test_grouped_wrappers_take_plain_versions_on_cpu():
                                                 group_size=g))):
         assert torch.equal(got, want)
     assert _build.LAUNCHES == {name: 0 for name in _build.KERNELS}
+    # meta tensors (shapes only: the dry-run's) take the plain versions
+    # too; a tensor on another device than CUDA, the CPU or meta raises
     meta = {k: v.to("meta") for k, v in
             dict(qvalue=qv, scale=iscale, alpha=alphas).items()}
+    y = ops.qgemm_grouped(x.to("meta"), meta, QuantSpec(), row_counts=None)
+    assert y.device.type == "meta" and y.shape == (E, C, N)
+    assert _build.LAUNCHES == {name: 0 for name in _build.KERNELS}
+    other = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="CUDA"):
-        ops.qgemm_grouped(x.to("meta"), meta, QuantSpec(), row_counts=None)
+        mg.fg_grouped_gemm_integer_scale_ragged(other, rc, qv, iscale,
+                                                alpha=alphas)
 
 
 @pytest.mark.parametrize("name,symbol", [

@@ -11,7 +11,9 @@ one) and MiniCPM3 cut to 2 layers):
 two dispatch groups: tokens dropped), ``phi35``, ``deepseek`` (MLA, a
 leading dense layer, shared experts), ``deepseek-top6`` (remat on: the
 aux summed over recomputed blocks), ``minicpm3``
-(dense MLA) and ``mixtral-int8`` (``moe_int8_dispatch``).
+(dense MLA) and ``mixtral-int8`` (``moe_int8_dispatch``); and
+``grad_accum=2`` on ``mixtral``'s config over twice its rows against the
+reference's jitted scan over microbatches, with the same bounds.
 
 Tolerances and why (``tests/test_torch_train.py``'s, unless stated):
 
@@ -307,6 +309,64 @@ def test_train_step_matches_reference(case):
         assert n_loose <= LOOSE_SHARE * sum(t.numel()
                                             for t in S.leaves(params))
         assert not any(t.requires_grad for t in S.leaves(params))
+
+
+# ``grad_accum=2`` against the reference's scan over microbatches: the
+# ``mixtral`` case's config on a batch of twice its rows, so each
+# microbatch is that case's shape (capacity is reckoned per microbatch in
+# both packages)
+ACCUM_CASE, ACCUM_BATCH = "mixtral", (4, 16)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_accum_steps(steps: int = 2):
+    """The reference's params, state and metrics after each of ``steps``
+    steps of its jitted ``make_train_step(..., grad_accum=2)``."""
+    jcfg, _ = _configs(ACCUM_CASE)
+    api = jget_model(jcfg)
+    p = jax.tree.map(jnp.asarray, _init_params(ACCUM_CASE))
+    zeros = jax.tree.map(jnp.zeros_like, p)
+    opt = {"mu": zeros, "nu": zeros, "step": jnp.int32(0)}
+    step = jax.jit(JT.make_train_step(api, jcfg, JO.AdamWConfig(**OC),
+                                      grad_accum=2))
+    B, Sq = ACCUM_BATCH
+    pipe = SyntheticPipeline(DataConfig(vocab_size=jcfg.vocab_size,
+                                        seq_len=Sq, batch_size=B))
+    batches = [pipe.global_batch(i) for i in range(steps)]
+    after = []
+    for b in batches:
+        p, opt, m = step(p, opt, {k: jnp.asarray(v) for k, v in b.items()})
+        after.append((_np(p), _np(opt), {k: float(v) for k, v in m.items()}))
+    return batches, after
+
+
+def test_grad_accum_matches_the_reference_microbatch_scan():
+    """Two steps of ``grad_accum=2`` on the smoke Mixtral against the
+    reference's, with ``test_train_step_matches_reference``'s bounds: the
+    metrics at rtol 1e-5 (20 x at step 2), the params, ``mu``, ``nu`` and
+    ``step`` by ``_assert_state_close``, at most ``LOOSE_SHARE`` of the
+    elements with parted moments."""
+    batches, after = _reference_accum_steps()
+    _, cfg = _configs(ACCUM_CASE)
+    api = get_model(cfg)
+    params = convert.from_reference(_init_params(ACCUM_CASE), device="cpu")
+    opt = S.materialize(O.state_specs(api.param_specs(cfg)), device="cpu")
+    step = T.make_train_step(api, cfg, O.AdamWConfig(**OC), grad_accum=2)
+    lrs, loose = [], {}
+    for i, (b, (jp, jopt, jm)) in enumerate(zip(batches, after)):
+        params, opt, m = step(params, opt, _tbatch(b))
+        lrs.append(jm["lr"])
+        assert set(m) == set(jm) == {"loss", "ce", "aux", "grad_norm", "lr"}
+        assert jm["aux"] > 0
+        for k in ("loss", "ce", "aux", "grad_norm"):
+            np.testing.assert_allclose(
+                float(m[k]), jm[k], rtol=F32_LOSS_REL * (1 if i == 0 else 20),
+                err_msg=(i, k))
+        _assert_state_close(params, opt, jp, jopt, lrs, loose,
+                            f"accum step {i + 1}")
+        n_loose = sum(int(m.sum()) for m in loose.values())
+        assert n_loose <= LOOSE_SHARE * sum(t.numel()
+                                            for t in S.leaves(params))
 
 
 # ---------------------------------------------------------------------------
